@@ -16,6 +16,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy test (compile sweep / long training), "
                    "skipped unless --runslow is given")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (a hand-written kernel has no "
+                   "CPU mode); skipped where there is none")
 
 
 @pytest.fixture
