@@ -10,12 +10,21 @@ line each (any failure exits non-zero and prints no result):
 1. card  — name and power limit, as ``nvidia-smi`` reports them;
 2. build — compiles every kernel from the checkout's sources;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
-   card, at the shapes the serving path gives it, then timed against its
-   bound, the plain version and a PyTorch yardstick;
+   card (``cifg_cell_fwd``, ``cifg_cell_bwd``, ``dp_sumsq``,
+   ``dp_clip_accumulate``), at the shapes its path gives it and around
+   them, then timed against its bound, the plain version and one PyTorch
+   call;
 4. serve — the paper's CIFG-LSTM at its published widths (vocab 10000,
    d 96, H 256, bf16) through ``ServeEngine``: ~512 sessions, a hot-swap,
    launch counts of every kernel on prefill and decode, token-for-token
-   agreement with ``reference_generate`` on sampled sessions.
+   agreement with ``reference_generate`` on sampled sessions;
+5. train — DP-FedAvg of the same model through ``FederatedTrainer``
+   (host backend): 1000 users, cohort 128, 3 rounds; launch counts, the
+   fused path against the plain one on one round, the round sum bitwise
+   across cohort chunks, the noise's std, rounds/s and where a round's
+   time goes; then the training CLI on a tiny run;
+6. grad through decode — the gradient of a loss through 4 ``decode_step``
+   calls, through the backward cell kernel, against plain autograd.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +47,18 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,      # dense tensor-core rate
 # in the order of the sum; bfloat16 can flip the rounding of h by one ulp
 # (~4e-3 relative) at the next step, which then propagates
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 0.0)}  # (atol, rtol)
+# the backward cell: float32 differs in the order of sums of up to 768
+# terms; in bfloat16 a one-ulp difference in z can flip the rounding of a
+# dz entry before the products
+TOL_BWD = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 0.0)}
+# the training path at full width, fused (CUDA kernels, time-fused
+# backward over f32 w_h) against plain (autograd through the plain cell,
+# bf16-rounded cotangents), 3 SGD steps per client: relative L2 of the
+# round sum, relative norm, absolute loss and clipped fraction
+TOL_ROUND = {"sum": 5e-2, "norm": 1e-2, "loss": 1e-2, "frac": 2 / 128}
+# gradient through 4 decode steps, fused against plain autograd: max abs
+# error relative to the largest plain gradient entry, per leaf
+TOL_DECODE_GRAD = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -412,6 +433,457 @@ def phase_serve(dev, kernel: dict) -> dict:
     return {"launches": total_launches}
 
 
+def _bound(nbytes: float, ops: float, dtype: str):
+    """(bound_ms, bound_by) of work moving ``nbytes`` and doing ``ops``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bwd_inputs(B, H, gen, dev, cd):
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    return (randn(B, 3 * H), randn(H, 3 * H, scale=H ** -0.5).to(cd),
+            randn(B, H, scale=0.3), randn(B, H, scale=0.3),
+            randn(B, H, scale=0.1), randn(B, H, scale=0.1))
+
+
+def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
+    """cifg_cell_bwd vs cell_bwd_ref on the card: bf16 and f32, B 1, 10,
+    256 × H 64, 200, 256, all four outputs; repeatability; timings at the
+    decode-gradient shape (B_main, H 256, bf16) and at B=256."""
+    import torch
+
+    from repro_torch.kernels.cifg_cell import cell_bwd, cell_bwd_ref
+    from repro_torch.utils.numerics import round_to
+
+    gen = torch.Generator().manual_seed(4321)
+    worst = 0.0
+    for cd in (torch.bfloat16, torch.float32):
+        name = str(cd).split(".")[-1]
+        atol, rtol = TOL_BWD[name]
+        for B in (1, 10, 256):
+            for H in (64, 200, 256):
+                args = _bwd_inputs(B, H, gen, dev, cd)
+                got = cell_bwd(*args)
+                want = cell_bwd_ref(*args)
+                torch.cuda.synchronize()
+                errs = []
+                for what, a, b in zip(("dzx", "dh", "dc", "dw_h"), got, want):
+                    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                        fail(f"cifg_cell_bwd {what} bad ({name} B={B} H={H})")
+                    if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+                        fail(f"cifg_cell_bwd {what} disagrees with plain "
+                             f"({name} B={B} H={H}): max abs err "
+                             f"{float((a - b).abs().max()):.3e}")
+                    errs.append(float((a - b).abs().max()))
+                again = cell_bwd(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"cifg_cell_bwd not repeatable ({name} B={B} H={H})")
+                worst = max(worst, *errs)
+                say(f"kernel: cifg_cell_bwd {name} B={B} H={H}: max abs err "
+                    f"dzx {errs[0]:.2e} dh {errs[1]:.2e} dc {errs[2]:.2e} "
+                    f"dw_h {errs[3]:.2e} (tol atol {atol:g} rtol {rtol:g}); "
+                    f"bitwise repeatable")
+
+    H, cd = 256, torch.bfloat16
+    out = {"name": "cifg_cell_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/cifg_cell/csrc/cifg_cell_bwd.cu",
+           "replaces": "src/repro/kernels/cifg_cell/cifg_cell.py:122",
+           "max_abs_err": worst}
+    for B in (B_main, 256):
+        zx, w, h, c, dh, dc = _bwd_inputs(B, H, gen, dev, cd)
+        w32, hc = round_to(w, cd), round_to(h, cd)
+
+        def library():
+            z = torch.addmm(zx, hc, w32)
+            f = torch.sigmoid(z[:, :H] + 1.0)
+            o = torch.sigmoid(z[:, H:2 * H])
+            g = torch.tanh(z[:, 2 * H:])
+            t = torch.tanh(f * c + (1.0 - f) * g)
+            dct = dc + dh * o * (1.0 - t * t)
+            dz = torch.cat([dct * (c - g) * f * (1.0 - f),
+                            dh * t * o * (1.0 - o),
+                            dct * (1.0 - f) * (1.0 - g * g)], dim=1)
+            dzc = round_to(dz, cd)
+            return dz, torch.mm(dzc, w32.t()), dct * f, torch.mm(hc.t(), dzc)
+
+        ms = graph_time_ms(lambda: cell_bwd(zx, w, h, c, dh, dc))
+        plain_ms = graph_time_ms(lambda: cell_bwd_ref(zx, w, h, c, dh, dc))
+        library_ms = graph_time_ms(library)
+        eager_ms = cuda_time_ms(lambda: cell_bwd(zx, w, h, c, dh, dc), 1000)
+        nbytes = (B * 3 * H * 4 + H * 3 * H * 2 + 4 * B * H * 4
+                  + B * 3 * H * 4 + 2 * B * H * 4 + H * 3 * H * 4)
+        ops = 3 * 2 * B * H * 3 * H
+        bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+        say(f"kernel: cifg_cell_bwd bf16 B={B} H={H}, device time: "
+            f"{ms * 1e3:.2f} us/launch (4 kernels); plain {plain_ms * 1e3:.2f}"
+            f" us; cuBLAS products + elementwise {library_ms * 1e3:.2f} us; "
+            f"bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, "
+            f"{ops / 1e9:.3f} GFLOP); one eager call {eager_ms * 1e3:.2f} us")
+        if B == B_main:
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+CLIP_SIZES = (1, 127, 32769, 983040, 196608)
+
+
+def phase_kernel_clip(dev) -> list:
+    """dp_sumsq and dp_clip_accumulate vs their plain versions at ragged
+    lengths and at the model's leaf sizes: sumsq within float tolerance and
+    bitwise repeatable; the accumulate bitwise equal to plain, and a zero
+    factor over 1e30 garbage leaves acc bitwise unchanged. Timed at the
+    largest leaf (the 10240 x 96 embedding)."""
+    import torch
+
+    from repro_torch.kernels.dp_clip import clip_accumulate_leaf, sumsq
+    from repro_torch.kernels.dp_clip.ref import (clip_accumulate_ref,
+                                                 sumsq_ref)
+
+    gen = torch.Generator().manual_seed(77)
+    worst_ss = 0.0
+    for n in CLIP_SIZES:
+        x = torch.randn((n,), generator=gen).to(dev)
+        acc = torch.randn((n,), generator=gen).to(dev)
+        s1, s2 = sumsq(x), sumsq(x)
+        ref = sumsq_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(s1, s2):
+            fail(f"dp_sumsq not repeatable at n={n}")
+        rel = float((s1 - ref).abs() / ref.abs().clamp(min=1e-30))
+        if rel > 1e-5:
+            fail(f"dp_sumsq disagrees with plain at n={n}: rel err {rel:.2e}")
+        worst_ss = max(worst_ss, float((s1 - ref).abs()))
+        factor = torch.clamp(0.8 / torch.sqrt(s1), max=1.0)
+        out = clip_accumulate_leaf(acc, x, factor)
+        if not torch.equal(out, clip_accumulate_ref(acc, x, factor)):
+            fail(f"dp_clip_accumulate differs from plain at n={n}")
+        garbage = torch.full((n,), 1e30, device=dev)
+        garbage[::2] = -1e30
+        zero = torch.zeros((), device=dev)
+        if not torch.equal(clip_accumulate_leaf(acc, garbage, zero), acc):
+            fail(f"dp_clip_accumulate: factor 0 over 1e30 changed acc, n={n}")
+        say(f"kernel: dp_sumsq n={n}: rel err {rel:.2e} (tol 1e-5), bitwise "
+            f"repeatable; dp_clip_accumulate bitwise equal to plain, zero "
+            f"factor over 1e30 leaves acc unchanged")
+
+    n = 983040
+    x = torch.randn((n,), generator=gen).to(dev)
+    acc = torch.randn((n,), generator=gen).to(dev)
+    factor = torch.tensor(0.37, device=dev)
+    rows = []
+    for name, fn, plain, lib, nbytes, replaces in (
+            ("dp_sumsq", lambda: sumsq(x), lambda: sumsq_ref(x),
+             lambda: torch.dot(x, x), 4 * n + 4,
+             "src/repro/kernels/dp_clip/dp_clip.py:66"),
+            ("dp_clip_accumulate", lambda: clip_accumulate_leaf(acc, x, factor),
+             lambda: clip_accumulate_ref(acc, x, factor),
+             lambda: torch.add(acc, x, alpha=0.37), 3 * 4 * n + 4,
+             "src/repro/kernels/dp_clip/dp_clip.py:87")):
+        ms = graph_time_ms(fn)
+        plain_ms = graph_time_ms(plain)
+        library_ms = graph_time_ms(lib)
+        eager_ms = cuda_time_ms(fn, 1000)
+        bound_ms, bound_by = _bound(nbytes, 2 * n, "float32")
+        say(f"kernel: {name} n={n} f32, device time: {ms * 1e3:.2f} us/launch;"
+            f" plain {plain_ms * 1e3:.2f} us; "
+            f"{'torch.dot' if name == 'dp_sumsq' else 'torch.add(alpha)'} "
+            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+            f"({nbytes / 1e6:.2f} MB); one eager call {eager_ms * 1e3:.2f} us")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
+                     "replaces": replaces,
+                     "max_abs_err": worst_ss if name == "dp_sumsq" else 0.0,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
+    return rows
+
+
+def profiled_device_ms(fn, iters: int, warmup: bool = True):
+    """Device (kernel) time per ``fn()`` call over ``iters`` calls, from
+    ``torch.profiler``'s CUDA activity, the host wall time per call of the
+    profiled window, and the six kernels with the most device time as
+    (name, ms per call, launches per call); device time is None when the
+    profiler saw no kernel. Only the kernel events are summed: an operator's
+    own device time is its kernels' time counted a second time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in avgs)
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:6]
+    top = [(e.key[:48], e.self_device_time_total / 1e3 / iters,
+            e.count / iters) for e in top]
+    return (dev_us / 1e3 / iters if dev_us > 0 else None,
+            wall * 1e3 / iters, top)
+
+
+def _fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def phase_train(dev, n_users: int = 1000, cohort: int = 128,
+                vocab: int = 10_000) -> dict:
+    """DP-FedAvg of gboard-cifg-lstm at full width through
+    FederatedTrainer(backend="host"): 3 rounds with the launch counters
+    read around them; fused against plain on one round; the round sum
+    bitwise across cohort_chunk; the noise std; timings; the CLI."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.core.clipping import clip_accumulate_tree
+    from repro_torch.core.dp_fedavg import finalize_round
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.fl.client import local_sgd, round_compute
+    from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.round import FederatedTrainer
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
+                                          tree_zeros_like)
+
+    cfg = get_config("gboard-cifg-lstm")
+    if vocab != cfg.vocab:
+        cfg = cfg.with_(vocab=vocab)
+    model = build(cfg)
+    seq_len, batch, n_batches, rounds = 16, 10, 3, 3
+    t0 = time.perf_counter()
+    corpus = BigramCorpus(vocab_size=cfg.vocab, seed=0)
+    ds = FederatedDataset(corpus, n_users=n_users, seq_len=seq_len,
+                          sentences_per_user=30)
+    data_s = time.perf_counter() - t0
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                  server_momentum=0.9)
+    cl = ClientConfig(local_epochs=1, batch_size=batch, lr=0.3)
+    pop = PopulationSim(n_users, availability=0.3, seed=0)
+    trainer = FederatedTrainer(model, ds, dp, cl, pop=pop, seed=0,
+                               n_local_batches=n_batches, device=dev)
+    n_params = tree_size(trainer.state.params)
+
+    counters = (cell_ops.LAUNCHES, clip_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    recs = [trainer.run_round() for _ in range(rounds)]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**cell_ops.LAUNCHES, **clip_ops.LAUNCHES}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    clients = sum(r["n_clients"] for r in recs)
+    if any(r["n_clients"] != cohort for r in recs) or cohort % 8:
+        fail(f"rounds of {[r['n_clients'] for r in recs]} clients: the "
+             f"launch counts below assume full rounds of a multiple of 8")
+    if not all(np.isfinite(r["loss"]) for r in recs):
+        fail(f"training losses not finite: {[r['loss'] for r in recs]}")
+    want = {"cifg_cell_fwd": seq_len * n_batches * clients,
+            "dp_sumsq": 5 * clients, "dp_clip_accumulate": 5 * clients}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"training launched {k} {launches[k]} times, expected {v} "
+                 f"({clients} clients over {rounds} rounds)")
+    say(f"train: gboard-cifg-lstm vocab {cfg.vocab} (padded "
+        f"{-(-cfg.vocab // 256) * 256}) d {cfg.d_model} H {cfg.d_ff} "
+        f"{cfg.compute_dtype}, {n_params} parameters; {n_users} users "
+        f"(made in {data_s:.1f} s), cohort {cohort}, {n_batches} batches of "
+        f"{batch} x {seq_len} per client: {rounds} rounds in {run_s:.2f} s = "
+        f"{rounds / run_s:.3f} rounds/s; losses "
+        f"{[round(r['loss'], 4) for r in recs]}; norms "
+        f"{[round(r['mean_update_norm'], 4) for r in recs]}; clipped "
+        f"{[r['frac_clipped'] for r in recs]}; launches {launches}; peak "
+        f"device memory {peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} MiB above "
+        f"what was allocated before the rounds")
+
+    # one round's body on fixed batches: fused vs plain, and chunk sizes
+    rng = np.random.default_rng(5)
+    ids = rng.choice(n_users, cohort, replace=False)
+    tensors = [ds.user_tensor(int(u), batch, n_batches, rng) for u in ids]
+    stacked = {k: torch.from_numpy(np.stack([t[k] for t in tensors])).to(dev)
+               for k in tensors[0]}
+    params = trainer.state.params
+    fused = round_compute(model, params, stacked, cl, dp)
+    plain = round_compute(build(cfg.with_(cell_path="ref")), params, stacked,
+                          cl, dp, clip_path="tree")
+    num = sum(float(((a - b) ** 2).sum()) for a, b in
+              zip(tree_leaves(fused[0]), tree_leaves(plain[0])))
+    den = sum(float((b ** 2).sum()) for b in tree_leaves(plain[0]))
+    errs = {"sum": (num / max(den, 1e-30)) ** 0.5,
+            "norm": abs(float(fused[1]) / float(plain[1]) - 1.0),
+            "loss": abs(float(fused[3]) - float(plain[3])),
+            "frac": abs(float(fused[2]) - float(plain[2]))}
+    for k, e in errs.items():
+        if not e <= TOL_ROUND[k]:
+            fail(f"fused round disagrees with plain: {k} err {e:.3e} > "
+                 f"{TOL_ROUND[k]:g} ({errs})")
+    say(f"train: one round, fused (CUDA cell + dp_clip kernels) vs plain "
+        f"(cell_path ref, clip_path tree): rel L2 of the sum "
+        f"{errs['sum']:.2e}, norm {float(fused[1]):.5f} vs "
+        f"{float(plain[1]):.5f}, frac {float(fused[2]):.4f} vs "
+        f"{float(plain[2]):.4f}, loss {float(fused[3]):.5f} vs "
+        f"{float(plain[3]):.5f} (tol {TOL_ROUND})")
+
+    blk = cohort // 8
+    chunks = [c for c in (1, 2, 4, 8, 16) if blk % c == 0]
+    t0 = time.perf_counter()
+    base = round_compute(model, params, stacked, cl, dp, cohort_chunk=blk)
+    for c in chunks:
+        if c == blk:
+            continue
+        other = round_compute(model, params, stacked, cl, dp, cohort_chunk=c)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(base[0]), tree_leaves(other[0])))
+        same &= all(torch.equal(a, b) for a, b in zip(base[1:], other[1:]))
+        if not same:
+            fail(f"round sum differs between cohort_chunk {blk} and {c}")
+    say(f"train: round sum and stats bitwise equal across cohort_chunk "
+        f"{chunks} (block size {blk}) in {time.perf_counter() - t0:.1f} s")
+
+    sigma = dp.noise_multiplier * dp.clip_norm / cohort
+    noised, _ = finalize_round(tree_zeros_like(params), cohort,
+                               trainer.generator, dp)
+    flat = torch.cat([l.reshape(-1) for l in tree_leaves(noised)])
+    std = float(flat.std())
+    if abs(std / sigma - 1.0) > 0.02:
+        fail(f"noise std {std:.4e} vs zS/qN {sigma:.4e}")
+    say(f"train: noise std over {flat.numel()} entries {std:.5e} vs zS/qN "
+        f"{sigma:.5e} ({100 * (std / sigma - 1):+.2f}%, tol 2%)")
+
+    # where a client's time goes: one local SGD step, one clip + accumulate
+    one = {k: v[0] for k, v in stacked.items()}
+    step_batches = {k: v[:1] for k, v in one.items()}
+    step = lambda: local_sgd(model, params, step_batches, cl)  # noqa: E731
+    delta = tree_map(lambda l: torch.randn_like(l) * 1e-3, params)
+    acc = tree_zeros_like(params)
+    mi = torch.ones((), device=dev)
+    clip = lambda: clip_accumulate_tree(acc, delta, dp.clip_norm,  # noqa: E731
+                                        scale=mi)
+    step_eager = cuda_time_ms(step, 20, warmup=3)
+    step_dev, _, step_top = profiled_device_ms(step, 5)
+    clip_eager = cuda_time_ms(clip, 200)
+    clip_dev, _, _ = profiled_device_ms(clip, 20)
+    round_dev, round_wall, _ = profiled_device_ms(trainer.run_round, 1,
+                                                  warmup=False)
+    busy = None if round_dev is None else 100 * round_dev / round_wall
+    round_ms = run_s / rounds * 1e3
+    say(f"train: one client SGD step (batch {batch} x {seq_len}) "
+        f"{step_eager:.3f} ms eager, {_fmt_ms(step_dev)} on the device; "
+        f"clip + accumulate of one client {clip_eager:.3f} ms eager, "
+        f"{_fmt_ms(clip_dev)} on the device; a round {round_ms:.1f} ms "
+        f"= {cohort * n_batches} client steps x {step_eager:.3f} ms + "
+        f"{cohort} clips x {clip_eager:.3f} ms + "
+        f"{round_ms - cohort * (n_batches * step_eager + clip_eager):.1f} ms "
+        f"else; device busy "
+        f"{'not measured' if busy is None else f'{busy:.1f}%'} of a profiled "
+        f"round ({_fmt_ms(round_dev)} of {round_wall:.1f} ms under the "
+        f"profiler)")
+    say("train: device time of one client step by kernel: " + "; ".join(
+        f"{name} {ms * 1e3:.1f} us x{n:g}" for name, ms, n in step_top))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = train_main(
+            ["--vocab", "300", "--rounds", "2", "--n-users", "60",
+             "--clients-per-round", "8", "--out", tmp,
+             "--device", str(dev)])
+        size = Path(ck).stat().st_size
+    if size < 1000:
+        fail(f"training CLI wrote a {size}-byte checkpoint")
+    if "msgpack" in sys.modules:
+        fail("the training path imported msgpack")
+    say(f"train: CLI tiny run wrote a {size}-byte checkpoint without msgpack")
+    return {"launches": launches, "rounds_per_s": rounds / run_s}
+
+
+def phase_decode_grad(dev, vocab: int = 10_000) -> int:
+    """Gradient of a loss through 4 decode_step calls of the full-width
+    model: cell_path fused (the forward kernel, the backward kernel as its
+    gradient) against ref (plain autograd through the plain cell). Returns
+    the backward kernel's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.models import build
+    from repro_torch.models.layers import lm_loss
+    from repro_torch.utils.params import strip_compute
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = get_config("gboard-cifg-lstm")
+    if vocab != cfg.vocab:
+        cfg = cfg.with_(vocab=vocab)
+    B, steps = 10, 4
+    gen = torch.Generator().manual_seed(11)
+    params = strip_compute(build(cfg).init(gen, device=dev))
+    toks = torch.randint(4, cfg.vocab, (steps + 1, B), generator=gen).to(dev)
+    h0 = (torch.randn((B, cfg.d_ff), generator=gen) * 0.3).to(dev)
+    c0 = (torch.randn((B, cfg.d_ff), generator=gen) * 0.3).to(dev)
+
+    def grads(path):
+        m = build(cfg.with_(cell_path=path))
+        leaves = tree_leaves(params)
+        for l in leaves:
+            l.requires_grad_(True)
+        cache = {"h": h0, "c": c0,
+                 "pos": torch.zeros((B,), dtype=torch.int32, device=dev)}
+        loss = 0.0
+        for t in range(steps):
+            logits, cache = m.decode_step(params, toks[t], cache)
+            loss = loss + lm_loss(logits[:, None, :], toks[t + 1][:, None],
+                                  cfg.vocab)
+        g = torch.autograd.grad(loss, leaves)
+        for l in leaves:
+            l.requires_grad_(False)
+        return g
+
+    torch.cuda.synchronize()
+    cell_ops.LAUNCHES["cifg_cell_bwd"] = 0
+    g_fused = grads("fused")
+    torch.cuda.synchronize()
+    launches = cell_ops.LAUNCHES["cifg_cell_bwd"]
+    if launches != steps:
+        fail(f"cifg_cell_bwd launched {launches} times through {steps} "
+             f"decode steps")
+    g_ref = grads("ref")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_fused, g_ref)):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"decode gradient of leaf {i} not finite")
+        rel = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        worst = max(worst, rel)
+        if rel > TOL_DECODE_GRAD:
+            fail(f"decode gradient of leaf {i} disagrees: rel err {rel:.3e}")
+    say(f"decode grad: {steps} decode steps at B={B}, full width: fused vs "
+        f"plain autograd, worst leaf max abs err / max |grad| {worst:.2e} "
+        f"(tol {TOL_DECODE_GRAD:g}); cifg_cell_bwd launches {launches}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -432,16 +904,25 @@ def main() -> None:
 
     phase_card()
     phase_build()
-    kernel = phase_kernel(dev)
-    serve = phase_serve(dev, kernel)
-    kernel["launches"] = serve["launches"]
+    fwd = phase_kernel(dev)
+    bwd = phase_kernel_bwd(dev)
+    clip_rows = phase_kernel_clip(dev)
+    serve = phase_serve(dev, fwd)
+    train = phase_train(dev)
+    bwd["launches"] = phase_decode_grad(dev)
+    fwd["launches"] = serve["launches"] + train["launches"]["cifg_cell_fwd"]
+    say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
+        f"{train['launches']['cifg_cell_fwd']}")
+    for row in clip_rows:
+        row["launches"] = train["launches"][row["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if leaked:
         fail(f"imported modules of JAX or the JAX package: {leaked[:5]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    say(json.dumps({"kernels": [{k: kernel[k] for k in keys}]}))
+    say(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                 for row in (fwd, bwd, *clip_rows)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

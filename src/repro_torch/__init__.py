@@ -7,8 +7,10 @@ raises (`repro_torch.utils.device`). Kernels written by hand for Hopper live
 under ``repro_torch.kernels`` and are built from their sources at first use.
 
 Ported so far: the serving path of the paper's CIFG-LSTM
-(``repro_torch.serve``, ``repro_torch.launch.serve``) and the forward CIFG
-cell kernel it runs on.
+(``repro_torch.serve``, ``repro_torch.launch.serve``) and DP-FedAvg training
+of it on the host backend (``repro_torch.fl.round.FederatedTrainer``,
+``repro_torch.launch.train``), with the CIFG cell forward and backward and
+the per-client clip kernels written for Hopper.
 """
 from repro_torch.utils.device import resolve_device
 

@@ -1,4 +1,5 @@
-"""Model configuration: the port's own copy of the reference ``ModelConfig``.
+"""Configuration: the port's own copies of the reference's ``ModelConfig``,
+``DPConfig`` and ``ClientConfig``.
 
 Field names, defaults and the ``with_`` / ``reduced`` helpers are those of the
 JAX package's config, so a configuration means the same model in both
@@ -87,3 +88,39 @@ class ModelConfig:
         if self.family == "vlm":
             kw.update(n_image_tokens=8)
         return self.with_(**kw)
+
+
+@dataclass(frozen=True)
+class DPConfig:
+    """Algorithm 1 parameters (paper §II-A, Table 1); field for field the
+    reference's ``DPConfig``."""
+
+    clip_norm: float = 0.8          # S
+    noise_multiplier: float = 0.8   # z  (σ = z·S/(qN); paper: σ=3.2e-5, qN=20000 → z=0.8)
+    clients_per_round: int = 20_000  # qN
+    # round composition: "fixed" = exactly qN users WOR (Algorithm 1);
+    # "poisson" = each user i.i.d. Bernoulli(q) per round, Δ̄ and σ still
+    # divided by the expected round size qN
+    sampling: str = "fixed"         # "fixed" | "poisson"
+    population: int = 4_000_000     # N
+    total_rounds: int = 2_000       # T
+    server_opt: str = "momentum"    # sgd | momentum | adam  (Table 6)
+    server_lr: float = 1.0          # η_s
+    server_momentum: float = 0.99   # μ  (Nesterov)
+    nesterov: bool = True
+    adam_eps: float = 1e-7
+
+    @property
+    def noise_std(self) -> float:
+        """σ on the averaged update (paper: 3.2e-5 at defaults)."""
+        return self.noise_multiplier * self.clip_norm / self.clients_per_round
+
+
+@dataclass(frozen=True)
+class ClientConfig:
+    """UserUpdate parameters (Algorithm 1, Table 1/7)."""
+
+    local_epochs: int = 1       # E
+    batch_size: int = 50        # B
+    lr: float = 0.5             # η_c
+    max_examples_per_user: int = 200  # paper §I: per-user data caps

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``.cu`` source with a plain C entry point. It is compiled
+Each library is one ``.cu`` source with plain C entry points. It is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root (a directory ``.gitignore`` lists) the first time it
 is needed, and loaded with ``ctypes``. The library's file name carries a
@@ -8,8 +8,8 @@ hash of the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing here runs at import time.
 
     from repro_torch.kernels import build
-    build.build()                 # every kernel, one nvcc per source, in parallel
-    lib = build.load("cifg_cell_fwd")
+    build.build()                 # every library, one nvcc per source, in parallel
+    lib = build.load("dp_clip")   # lib.dp_sumsq, lib.dp_clip_accumulate
 """
 from __future__ import annotations
 
@@ -26,9 +26,12 @@ from typing import Dict, Iterable, Optional
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 
-# kernel name → its source, relative to this directory
+# library name → its source, relative to this directory (a library exports
+# the C entry points its source defines)
 SOURCES = {
     "cifg_cell_fwd": "cifg_cell/csrc/cifg_cell_fwd.cu",
+    "cifg_cell_bwd": "cifg_cell/csrc/cifg_cell_bwd.cu",
+    "dp_clip": "dp_clip/csrc/dp_clip.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

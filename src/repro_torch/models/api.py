@@ -7,7 +7,8 @@ capable* when every decode-cache leaf is per-row (leading dim = batch) and
 identical to an unpadded prefill of that length — gets bucket-padded
 admission; the engine checks this with a probe at construction.
 
-``loss_fn`` arrives with the training slice.
+Training contract (`repro_torch.fl.client`): ``loss_fn(params, batch)`` is a
+float32 scalar differentiable in every leaf of ``params``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[..., Any]         # (generator, *, device) -> params
     forward: Callable[..., Any]      # (params, batch) -> logits (B,S,Vpad)
+    loss_fn: Callable[..., Any]      # (params, batch) -> scalar f32
     init_cache: Callable[..., Any]   # (batch_size, max_len, *, device) -> cache
     prefill: Callable[..., Any]      # (params, batch) -> (logits (B,Vpad), cache)
     decode_step: Callable[..., Any]  # (params, tokens (B,), cache) -> (logits, cache)

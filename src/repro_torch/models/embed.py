@@ -3,6 +3,11 @@
 The tied-embedding logits product ``(B, d) @ (d, Vpad)`` is a plain matrix
 product; it runs through `rowstable_mm` in float32 over compute-dtype
 operands, which is the reference's ``preferred_element_type=float32``.
+
+The row gather's gradient is a one-hot product (`EmbedRows`), not PyTorch's
+accumulating index_put: that one adds rows with atomics on CUDA, in an order
+that changes run to run, and the training path's sums must come out the
+same bits every time (`repro_torch.fl.client`).
 """
 from __future__ import annotations
 
@@ -22,9 +27,28 @@ def embedding_init(generator: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+class EmbedRows(torch.autograd.Function):
+    """``table[ids]`` whose backward is ``one_hot(ids)ᵀ @ grad``: a fixed
+    product, so the table's gradient has the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + tuple(table.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = grad.reshape(ids.numel(), -1)
+        onehot = torch.nn.functional.one_hot(ids.reshape(-1), ctx.rows)
+        return onehot.to(flat.dtype).t().mm(flat), None
+
+
 def embed_tokens(p, tokens: torch.Tensor, compute_dtype: torch.dtype
                  ) -> torch.Tensor:
-    return p["tok"][tokens].to(compute_dtype)
+    return EmbedRows.apply(p["tok"], tokens).to(compute_dtype)
 
 
 def lm_logits(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Shared layer helpers: vocab padding and parameter initialisers.
+"""Shared layer helpers: vocab padding, parameter initialisers and the LM loss.
 
 Initialisers draw on the CPU from an explicit ``torch.Generator`` (so a seed
 gives the same weights whatever the device) and move the result to
@@ -35,3 +35,30 @@ def embed_init(generator: torch.Generator, shape: Sequence[int], *,
     w = torch.randn(tuple(shape), generator=generator,
                     dtype=torch.float32) * 0.02
     return w.to(device)
+
+
+NEG_INF = -1e30
+
+
+def lm_loss(logits: torch.Tensor, labels, vocab: int, mask=None
+            ) -> torch.Tensor:
+    """Cross-entropy over a padded vocab axis, as the reference's
+    ``lm_loss``: logits (B, S, Vpad), labels (B, S) ints, mask (B, S) float
+    or ``None``. Padded columns are masked to −1e30, the logsumexp runs in
+    float32, the true logit is a where-reduce over the vocab axis (one
+    nonzero term, so the same bits as a gather), and the masked mean divides
+    by ``max(Σ mask, 1)``."""
+    vpad = logits.shape[-1]
+    lf = logits.float()
+    vocab_ids = torch.arange(vpad, device=lf.device)
+    if vpad > vocab:
+        lf = lf.masked_fill(vocab_ids >= vocab, NEG_INF)
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = torch.as_tensor(labels, device=lf.device).long()
+    true_logit = torch.where(labels[..., None] == vocab_ids, lf,
+                             torch.zeros((), device=lf.device)).sum(dim=-1)
+    nll = lse - true_logit
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=lf.device, dtype=torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -8,31 +8,42 @@ projection ``(H → d)`` feeds the tied embedding's logits.
 
 ``cfg.cell_path`` selects the recurrent cell:
 
-* ``"fused"`` — the hand-written CUDA cell kernel (`kernels.cifg_cell`),
-  once per step; for CPU tensors its wrapper computes the plain cell;
-* ``"seq"`` / ``"ref"`` — the plain PyTorch cell (forward only, the two are
-  the same here; they differ in the reference's autodiff, which arrives
-  with training);
+* ``"fused"`` — `kernels.cifg_cell.cifg_sequence` with the hand-written CUDA
+  cell kernel as the per-step forward and the time-fused backward (gate
+  recompute and ``dw_h`` batched over time outside the reverse loop); a
+  single step (``decode_step``) runs the forward kernel with the CUDA
+  backward kernel as its gradient. For CPU tensors the kernel wrappers
+  compute the plain cell;
+* ``"seq"`` — the same sequence op stepping the plain PyTorch cell;
+* ``"ref"`` — plain autograd through a loop over the plain cell, the
+  reference's validated path;
 * ``"auto"`` (default) — ``"fused"`` for CUDA tensors, ``"seq"`` on the CPU.
 
 Products run in float32 over compute-dtype operands and are row-stable
-(`repro_torch.utils.numerics`); weights are cast once per parameter set
-(`repro_torch.utils.params`).
+(`repro_torch.utils.numerics`). Weights: a parameter set that carries its
+compute copies (``params["compute"]``, made once for serving by
+`repro_torch.utils.params`) computes with them; one without them — every
+training parameter set — casts ``tok``, ``w_x``, ``w_h`` and ``w_proj`` to
+the compute dtype inside the autograd graph on every call (`_weights`).
+``loss_fn`` always takes the second road.
 """
 from __future__ import annotations
 
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.cifg_cell import cifg_cell_ref, cifg_states, cifg_step
+from repro_torch.kernels.cifg_cell import (cifg_cell_ref, cifg_sequence,
+                                           cifg_states, cifg_step)
 from repro_torch.models.api import Model
 from repro_torch.models.embed import embed_tokens, embedding_init, lm_logits
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, lm_loss
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import round_to, rowstable_mm, torch_dtype
-from repro_torch.utils.params import compute_weights, with_compute_copies
+from repro_torch.utils.params import (COMPUTE, strip_compute,
+                                      with_compute_copies)
 
 CELL_PATHS = ("auto", "fused", "seq", "ref")
 
@@ -59,6 +70,23 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
     return with_compute_copies(params, cfg.compute_dtype)
 
 
+def _weights(params, cd):
+    """The weights the products use: the cached compute copies when
+    ``params`` carries them (serving), else casts made inside the autograd
+    graph (training): ``tok`` stays float32 for the gather (the row is cast
+    after it, as the reference casts), the head, ``w_x`` and ``w_proj`` are
+    rounded to the compute dtype, and ``w_h`` goes to the recurrence as it
+    is, which casts it itself and returns its gradient in float32."""
+    if COMPUTE in params:
+        return params[COMPUTE]
+    emb = params["embed"]
+    return {"tok": emb["tok"],
+            "head": round_to(emb.get("head", emb["tok"]), cd),
+            "w_x": round_to(params["w_x"], cd),
+            "w_h": params["w_h"],
+            "w_proj": round_to(params["w_proj"], cd)}
+
+
 def _on(cw, tokens) -> torch.Tensor:
     """Token ids (array or tensor) → int64 on the parameters' device."""
     return torch.as_tensor(tokens, device=cw["w_h"].device).long()
@@ -83,25 +111,58 @@ def _states(cw, zx, cfg: ModelConfig, cd):
                        compute_dtype=cd)
 
 
+def _recurrence(cw, zx, cfg: ModelConfig, cd, remat: bool):
+    """zx (B, S, 3H) → (hs (S, B, H), (h_fin, c_fin)), differentiable, on
+    the resolved ``cell_path``."""
+    B, S = zx.shape[:2]
+    h = torch.zeros((B, cfg.d_ff), dtype=torch.float32, device=zx.device)
+    c = torch.zeros_like(h)
+    path = resolve_cell_path(cfg, zx.device)
+    zx = zx.transpose(0, 1)
+    if path in ("fused", "seq"):
+        return cifg_sequence(zx, h, c, cw["w_h"], cell=path,
+                             compute_dtype=cd, remat=remat)
+
+    def step(zx_t, h, c):
+        return cifg_cell_ref(zx_t, h, c, cw["w_h"], compute_dtype=cd)
+
+    hs = []
+    for t in range(S):
+        if remat and torch.is_grad_enabled():
+            h, c = checkpoint(step, zx[t], h, c, use_reentrant=False)
+        else:
+            h, c = step(zx[t], h, c)
+        hs.append(h)
+    return torch.stack(hs), (h, c)
+
+
 def _logits(cw, h, cd):
     """Hidden states (N, H) → logits (N, Vpad) float32."""
     y = round_to(rowstable_mm(round_to(h, cd), cw["w_proj"]), cd)
     return lm_logits(cw, y[:, None, :])[:, 0, :]
 
 
-def forward(params, batch, cfg: ModelConfig, *, collect_cache: bool = False):
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
+            collect_cache: bool = False):
     cd = torch_dtype(cfg.compute_dtype)
-    cw = compute_weights(params, cd)
+    cw = _weights(params, cd)
     tokens = _on(cw, batch["tokens"])
     B, S = tokens.shape
     x = embed_tokens(cw, tokens, cd)                 # (B, S, d)
     zx = _input_projection(params, cw, x, cd)        # (B, S, 3H)
-    hs, cs = _states(cw, zx, cfg, cd)                # (S, B, H)
+    hs, fin = _recurrence(cw, zx, cfg, cd, remat)    # (S, B, H)
     logits = _logits(cw, hs.transpose(0, 1).reshape(B * S, -1), cd)
     logits = logits.reshape(B, S, -1)
     if collect_cache:
-        return logits, (hs[-1], cs[-1])
+        return logits, fin
     return logits
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+    """Masked next-word cross-entropy (float32 scalar). The weights are cast
+    inside the graph: any compute copies ``params`` carries are ignored."""
+    logits = forward(strip_compute(params), batch, cfg, remat=remat)
+    return lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
@@ -126,7 +187,7 @@ def prefill(params, batch, cfg: ModelConfig, *, max_len: int = None):
     exactly ``length`` tokens."""
     del max_len
     cd = torch_dtype(cfg.compute_dtype)
-    cw = compute_weights(params, cd)
+    cw = _weights(params, cd)
     tokens = _on(cw, batch["tokens"])
     B, S = tokens.shape
     if "length" in batch:
@@ -153,7 +214,7 @@ def prefill(params, batch, cfg: ModelConfig, *, max_len: int = None):
 
 def decode_step(params, tokens, cache, cfg: ModelConfig):
     cd = torch_dtype(cfg.compute_dtype)
-    cw = compute_weights(params, cd)
+    cw = _weights(params, cd)
     x = embed_tokens(cw, _on(cw, tokens), cd)        # (B, d)
     zx = round_to(rowstable_mm(x, cw["w_x"]), cd) + params["b_gates"]
     if resolve_cell_path(cfg, zx.device) == "fused":
@@ -173,6 +234,7 @@ def build(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=partial(init, cfg=cfg),
         forward=partial(forward, cfg=cfg),
+        loss_fn=partial(loss_fn, cfg=cfg),
         init_cache=partial(init_cache, cfg),
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),

@@ -11,7 +11,9 @@ and at each hot-swap, never per tick — and keeps them under
   and held in float32, the operands of the float32 products
   (`repro_torch.utils.numerics`).
 
-The values are those the reference computes with.
+The values are those the reference computes with. The copies are for
+serving: a training parameter set carries none (`strip_compute`), and the
+model then casts its weights inside the autograd graph on every call.
 """
 from __future__ import annotations
 
@@ -46,6 +48,14 @@ def with_compute_copies(params: Dict[str, Any], compute_dtype) -> Dict:
 
 def compute_weights(params: Dict[str, Any], compute_dtype) -> Dict:
     return with_compute_copies(params, compute_dtype)[COMPUTE]
+
+
+def strip_compute(params: Dict[str, Any]) -> Dict:
+    """``params`` without the compute copies: what training updates,
+    differentiates, clips, sums and checkpoints. Copies made from a
+    parameter set go stale as soon as it is updated, and they are cut from
+    autograd, so no training path may carry them."""
+    return {k: v for k, v in params.items() if k != COMPUTE}
 
 
 def from_jax_params(tree, device=None, compute_dtype="bfloat16") -> Dict:

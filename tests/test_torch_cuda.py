@@ -112,3 +112,90 @@ def test_engine_through_the_kernel_matches_reference(cuda_device):
             temperature=req.temperature, seed=req.seed, top_k=3)
         assert eng.result(sid).tokens == toks
         np.testing.assert_array_equal(eng.result(sid).candidates, cands)
+
+
+# ------------------------------------------------------- training kernels
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H", [(1, 64), (10, 200), (256, 256)])
+def test_backward_kernel_matches_plain_on_card(cuda_device, B, H, dtype):
+    from repro_torch.kernels.cifg_cell import cell_bwd, cell_bwd_ref
+
+    zx, h, c, w = _inputs(B, H, cuda_device, seed=14)
+    dh, dc = (t * 0.3 for t in _inputs(B, H, cuda_device, seed=15)[1:3])
+    w = w.to(getattr(torch, dtype))
+    before = LAUNCHES["cifg_cell_bwd"]
+    got = cell_bwd(zx, w, h, c, dh, dc)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_bwd"] == before + 1
+    for what, a, b in zip(("dzx", "dh", "dc", "dw_h"), got,
+                          cell_bwd_ref(zx, w, h, c, dh, dc)):
+        _close(a, b, dtype, what)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, cell_bwd(zx, w, h, c, dh, dc)))
+
+
+def test_step_gradient_goes_through_the_backward_kernel(cuda_device):
+    from repro_torch.kernels.cifg_cell import cifg_cell_ref, cifg_step
+
+    zx, h, c, w = _inputs(6, 96, cuda_device, seed=16)
+    args = [t.clone().requires_grad_(True) for t in (zx, h, c, w)]
+    before = LAUNCHES["cifg_cell_bwd"]
+    hn, cn = cifg_step(*args, compute_dtype="float32")
+    gk = torch.autograd.grad((hn * hn).sum() + cn.sum(), args)
+    assert LAUNCHES["cifg_cell_bwd"] == before + 1
+    hr, cr = cifg_cell_ref(*args, compute_dtype="float32")
+    gr = torch.autograd.grad((hr * hr).sum() + cr.sum(), args)
+    for a, b in zip(gk, gr):
+        _close(a, b, "float32")
+
+
+@pytest.mark.parametrize("n", [1, 127, 32769, 983040])
+def test_clip_kernels_match_plain_on_card(cuda_device, n):
+    from repro_torch.kernels.dp_clip import LAUNCHES as CLIP_LAUNCHES
+    from repro_torch.kernels.dp_clip import clip_accumulate_leaf, sumsq
+    from repro_torch.kernels.dp_clip.ref import (clip_accumulate_ref,
+                                                 sumsq_ref)
+
+    rng = np.random.default_rng(n)
+    x, acc = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+              .to(cuda_device) for _ in range(2))
+    before = dict(CLIP_LAUNCHES)
+    s = sumsq(x)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sumsq(x))                  # fixed order, no atomics
+    torch.testing.assert_close(s, sumsq_ref(x), rtol=1e-5, atol=0.0)
+    f = torch.clamp(0.8 / torch.sqrt(s), max=1.0)
+    assert torch.equal(clip_accumulate_leaf(acc, x, f),
+                       clip_accumulate_ref(acc, x, f))
+    garbage = torch.full_like(x, 1e30)
+    assert torch.equal(clip_accumulate_leaf(acc, garbage,
+                                            torch.zeros((), device=x.device)),
+                       acc)
+    assert CLIP_LAUNCHES["dp_sumsq"] == before["dp_sumsq"] + 2
+    assert CLIP_LAUNCHES["dp_clip_accumulate"] == \
+        before["dp_clip_accumulate"] + 2
+
+
+def test_round_sum_is_bitwise_across_chunks_on_card(cuda_device):
+    from repro_torch.configs import ClientConfig, DPConfig
+    from repro_torch.fl.client import round_compute
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = build(get_config("gboard-cifg-lstm").with_(**SMALL))
+    params = model.init(torch.Generator().manual_seed(1), device=cuda_device)
+    rng = np.random.default_rng(17)
+    ex = rng.integers(4, 300, size=(16, 2, 4, 7))
+    batches = {"tokens": ex[..., :-1], "labels": ex[..., 1:],
+               "mask": np.ones(ex[..., 1:].shape, np.float32)}
+    batches = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+               for k, v in batches.items()}
+    mask = torch.ones(16)
+    mask[[3, 10]] = 0.0
+    cl, dp = ClientConfig(batch_size=4, lr=0.3), DPConfig(clip_norm=0.01)
+    a = round_compute(model, params, batches, cl, dp, mask, cohort_chunk=1)
+    b = round_compute(model, params, batches, cl, dp, mask, cohort_chunk=2)
+    for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])):
+        assert torch.equal(x, y)
+    assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
