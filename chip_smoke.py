@@ -11,9 +11,9 @@ line each (any failure exits non-zero and prints no result):
 2. build — compiles every kernel from the checkout's sources;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card (``cifg_cell_fwd``, ``cifg_cell_bwd``, ``dp_sumsq``,
-   ``dp_clip_accumulate``), at the shapes its path gives it and around
-   them, then timed against its bound, the plain version and one PyTorch
-   call;
+   ``dp_clip_accumulate``, ``flash_attention_fwd``, ``ssd_scan``), at the
+   shapes its path gives it and around them, then timed against its bound,
+   the plain version and one PyTorch call where there is one;
 4. serve — the paper's CIFG-LSTM at its published widths (vocab 10000,
    d 96, H 256, bf16) through ``ServeEngine``: ~512 sessions, a hot-swap,
    launch counts of every kernel on prefill and decode, token-for-token
@@ -24,7 +24,14 @@ line each (any failure exits non-zero and prints no result):
    across cohort chunks, the noise's std, rounds/s and where a round's
    time goes; then the training CLI on a tiny run;
 6. grad through decode — the gradient of a loss through 4 ``decode_step``
-   calls, through the backward cell kernel, against plain autograd.
+   calls, through the backward cell kernel, against plain autograd;
+7. hybrid serve — ``zamba2-2.7b`` at its published widths (54 Mamba-2
+   layers, 9 shared-attention sites, bf16) with random weights from a seed
+   through ``generate``: 4 prompts of 512 tokens, 16 decode steps, half
+   greedy and half sampled; one ``ssd_scan`` launch per mixer and one
+   ``flash_attention_fwd`` launch per site in the prefill; prefill plus
+   decode against ``forward`` at full depth; the card's kernels against the
+   CPU's plain versions at full width and 6 layers; timings.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +66,21 @@ TOL_ROUND = {"sum": 5e-2, "norm": 1e-2, "loss": 1e-2, "frac": 2 / 128}
 # gradient through 4 decode steps, fused against plain autograd: max abs
 # error relative to the largest plain gradient entry, per leaf
 TOL_DECODE_GRAD = 2e-2
+# flash attention against its plain version (atol = rtol): float32 differs
+# in the order of the sums; in bfloat16 both round a float32 result once
+TOL_FLASH = {"float32": 1e-5, "bfloat16": 2e-2}
+# SSD scan: max abs error relative to the largest plain output (float32
+# sums in another order)
+TOL_SSD = 1e-4
+# zamba2-2.7b at full depth, prefill of 256 tokens plus 3 decode steps
+# against forward, max abs error relative to the largest logit. float32:
+# the chunked scan and the recurrence differ in the order of sums. bfloat16:
+# they round at different places, and that compounds over 54 layers (3% of
+# the largest logit at this depth in a CPU run at narrow width)
+TOL_HYBRID_CONSISTENT = {"float32": 1e-4, "bfloat16": 1e-1}
+# the card (kernels) against the CPU (plain versions), full width, 6
+# layers, float32: relative to the largest logit
+TOL_HYBRID_CPU = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -604,13 +626,14 @@ def phase_kernel_clip(dev) -> list:
     return rows
 
 
-def profiled_device_ms(fn, iters: int, warmup: bool = True):
+def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
     """Device (kernel) time per ``fn()`` call over ``iters`` calls, from
     ``torch.profiler``'s CUDA activity, the host wall time per call of the
-    profiled window, and the six kernels with the most device time as
-    (name, ms per call, launches per call); device time is None when the
-    profiler saw no kernel. Only the kernel events are summed: an operator's
-    own device time is its kernels' time counted a second time."""
+    profiled window, and the ``top`` kernels (all for ``None``) with the
+    most device time as (name, ms per call, launches per call); device time
+    is None when the profiler saw no kernel. Only the kernel events are
+    summed: an operator's own device time is its kernels' time counted a
+    second time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -628,7 +651,7 @@ def profiled_device_ms(fn, iters: int, warmup: bool = True):
     avgs = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in avgs)
-    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:top]
     top = [(e.key[:48], e.self_device_time_total / 1e3 / iters,
             e.count / iters) for e in top]
     return (dev_us / 1e3 / iters if dev_us > 0 else None,
@@ -884,6 +907,354 @@ def phase_decode_grad(dev, vocab: int = 10_000) -> int:
     return launches
 
 
+def _attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave valid: the work this input needs."""
+    import torch
+
+    q = torch.arange(Sq)[:, None]
+    k = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= k <= q
+    if window > 0:
+        mask &= k > q - window
+    return int(mask.sum())
+
+
+# (B, S, H, KV, hd, causal, window, dtype): the path's shape first
+FLASH_CASES = (
+    (4, 512, 32, 32, 80, True, 0, "bfloat16"),
+    (4, 512, 32, 32, 64, True, 0, "bfloat16"),
+    (2, 512, 32, 32, 128, True, 0, "bfloat16"),
+    (2, 512, 32, 8, 80, True, 0, "bfloat16"),
+    (3, 100, 32, 32, 80, True, 0, "bfloat16"),
+    (2, 512, 32, 32, 80, True, 128, "bfloat16"),
+    (2, 512, 32, 32, 80, False, 0, "bfloat16"),
+    (2, 512, 32, 32, 80, True, 0, "float32"),
+    (2, 100, 8, 2, 96, False, 64, "float32"),
+)
+
+
+def phase_kernel_flash(dev) -> dict:
+    """flash_attention_fwd vs its plain version at the hybrid prefill's
+    shape (B 4, S 512, 32 heads, hd 80, causal, bf16) and around it (hd 64
+    and 128, GQA, ragged S, window, bidirectional, f32); timed at the
+    path's shape against its bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    gen = torch.Generator().manual_seed(5150)
+    worst = 0.0
+    for B, S, H, KV, hd, causal, window, dname in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                   for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = TOL_FLASH[dname]
+        what = (f"{dname} B={B} S={S} H={H} KV={KV} hd={hd} causal={causal}"
+                f" window={window}")
+        if out.shape != q.shape or out.dtype != q.dtype or not bool(
+                torch.isfinite(out).all()):
+            fail(f"flash_attention_fwd output bad ({what})")
+        err = float((out.float() - ref.float()).abs().max())
+        if not bool(((out.float() - ref.float()).abs()
+                     <= tol + tol * ref.float().abs()).all()):
+            fail(f"flash_attention_fwd disagrees with plain ({what}): max "
+                 f"abs err {err:.3e}")
+        worst = max(worst, err)
+        say(f"kernel: flash_attention_fwd {what}: max abs err {err:.2e} "
+            f"(tol atol = rtol = {tol:g})")
+
+    B, S, H, KV, hd, causal, window, dname = FLASH_CASES[0]
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = graph_time_ms(lambda: flash_attention(q, k, v), per_graph=20)
+    plain_ms = graph_time_ms(lambda: flash_attention_ref(q, k, v),
+                             per_graph=5)
+    library_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), per_graph=20)
+    eager_ms = cuda_time_ms(lambda: flash_attention(q, k, v), 100)
+    pairs = _attention_pairs(S, S, causal, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops = 4 * B * H * hd * pairs
+    bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+    say(f"kernel: flash_attention_fwd bf16 B={B} S={S} H={H} hd={hd} causal,"
+        f" device time: {ms * 1e3:.2f} us/launch; plain {plain_ms * 1e3:.2f}"
+        f" us; F.scaled_dot_product_attention {library_ms * 1e3:.2f} us; "
+        f"bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP, {bound_by}); one eager call "
+        f"{eager_ms * 1e3:.2f} us")
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:76",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# (B, S, H, p, N): the path's shape first; mamba2-370m's N 128; a ragged S
+SSD_CASES = ((4, 512, 80, 64, 64), (1, 512, 32, 64, 128),
+             (2, 200, 80, 64, 64), (2, 128, 80, 64, 64))
+
+
+def _ssd_inputs(B, S, H, p, N, gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn((B, S, H, p), generator=gen)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen)) * 0.1
+    Bm = torch.randn((B, S, N), generator=gen)
+    Cm = torch.randn((B, S, N), generator=gen)
+    A = -torch.exp(torch.randn((H,), generator=gen))
+    return [t.to(dev) for t in (x, dt, Bm, Cm, A)]
+
+
+def _ssd_ops(B: int, S: int, H: int, p: int, N: int) -> int:
+    """Operations the chunked scan needs for these shapes from a zero
+    state. B and C have no head axis, so the lower triangle of C·Bᵀ is
+    needed once per (b, chunk); per (b, h, chunk) its two scalings (by L and
+    by dt) and W·x on the lower triangle, C·state for every chunk after the
+    first, and the state update."""
+    Q, chunks = 128, -(-S // 128)
+    tri = Q * (Q + 1) // 2
+    per_head = tri * 2 + tri * 2 * p + Q * N * (2 * p + 1)
+    return (B * chunks * tri * 2 * N
+            + B * H * (chunks * per_head + (chunks - 1) * Q * N * p * 2))
+
+
+def phase_kernel_ssd(dev) -> dict:
+    """ssd_scan vs the plain chunked scan at the hybrid prefill's shape
+    (B 4, S 512, H 80, p 64, N 64) and around it (N 128, S 200, S 128), y
+    and the final state; timed at the path's shape against its bound and
+    the plain version (no single PyTorch call computes the scan)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    gen = torch.Generator().manual_seed(6160)
+    worst = 0.0
+    for B, S, H, p, N in SSD_CASES:
+        x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, gen, dev)
+        y, st = ssd_scan(x, dt, Bm, Cm, A)
+        pad = (-S) % 128
+        padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                  for t in (x, dt, Bm, Cm)]
+        yr, sr = ssd_chunked(*padded, A, torch.zeros_like(st))
+        yr = yr[:, :S]
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b in (("y", y, yr), ("state", st, sr)):
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                fail(f"ssd_scan {what} bad (B={B} S={S} H={H} p={p} N={N})")
+            err = float((a - b).abs().max())
+            rel = err / float(b.abs().max())
+            if rel > TOL_SSD:
+                fail(f"ssd_scan {what} disagrees with plain (B={B} S={S} "
+                     f"H={H} p={p} N={N}): rel err {rel:.3e}")
+            errs.append(rel)
+            worst = max(worst, err)
+        say(f"kernel: ssd_scan B={B} S={S} H={H} p={p} N={N}: err / max "
+            f"|plain| y {errs[0]:.2e} state {errs[1]:.2e} (tol {TOL_SSD:g})")
+
+    B, S, H, p, N = SSD_CASES[0]
+    x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, gen, dev)
+    h0 = torch.zeros((B, H, p, N), device=dev)
+    ms = graph_time_ms(lambda: ssd_scan(x, dt, Bm, Cm, A), per_graph=20)
+    plain_ms = graph_time_ms(lambda: ssd_chunked(x, dt, Bm, Cm, A, h0),
+                             per_graph=5)
+    eager_ms = cuda_time_ms(lambda: ssd_scan(x, dt, Bm, Cm, A), 100)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()
+                  + A.numel() + B * H * p * N)
+    ops = _ssd_ops(B, S, H, p, N)
+    bound_ms, bound_by = _bound(nbytes, ops, "float32")
+    say(f"kernel: ssd_scan f32 B={B} S={S} H={H} p={p} N={N}, device time: "
+        f"{ms * 1e3:.2f} us/launch; plain (chunked, PyTorch) "
+        f"{plain_ms * 1e3:.2f} us; no single PyTorch call; bound "
+        f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
+        f"GFLOP, {bound_by}); one eager call {eager_ms * 1e3:.2f} us")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _rel(a, b) -> float:
+    """max |a − b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def phase_hybrid(dev) -> dict:
+    """zamba2-2.7b at its published widths through generate: launch counts
+    of the prefill, outputs, timings; prefill plus decode against forward
+    at full depth (f32 and bf16); the card against the CPU at 6 layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build
+    from repro_torch.models.hybrid import n_attn_sites
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+    from repro_torch.utils.pytree import tree_map, tree_size
+
+    cfg = get_config("zamba2-2.7b")
+    widths = (cfg.d_model, cfg.n_layers, n_attn_sites(cfg), cfg.n_heads,
+              cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
+              cfg.ssm_heads, cfg.ssm_expand * cfg.d_model // cfg.ssm_heads,
+              cfg.ssm_state, cfg.compute_dtype)
+    if widths != (2560, 54, 9, 32, 32, 80, 10240, 32000, 80, 64, 64,
+                  "bfloat16"):
+        fail(f"unexpected zamba2-2.7b widths: {widths}")
+    model = build(cfg)
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tree_size(strip_compute(params))
+    weights_mb = torch.cuda.memory_allocated() / 2 ** 20 - base_mb
+
+    B, S0, steps = 4, 512, 16
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(4, cfg.vocab, (B, S0))).to(dev)
+    temps = [0.0, 0.0, 0.8, 0.8]
+    counters = (ssd_ops.LAUNCHES, fa_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, steps, temperature=temps, seed=11)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {**ssd_ops.LAUNCHES, **fa_ops.LAUNCHES}
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = {"ssd_scan": cfg.n_layers, "flash_attention_fwd": n_attn_sites(cfg)}
+    if launches != want:
+        fail(f"generate launched {launches}, expected {want} (one prefill)")
+    if tuple(out.shape) != (B, S0 + steps) or not torch.equal(
+            out[:, :S0], prompts):
+        fail(f"generate returned {tuple(out.shape)} or changed the prompts")
+    new = out[:, S0:]
+    if int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+        fail(f"generated ids outside [0, {cfg.vocab})")
+    say(f"hybrid: zamba2-2.7b d {cfg.d_model}, {cfg.n_layers} Mamba-2 layers"
+        f" (H {cfg.ssm_heads} x p 64 x N {cfg.ssm_state}), "
+        f"{n_attn_sites(cfg)} shared-attention sites ({cfg.n_heads} heads x "
+        f"hd {cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16: "
+        f"{n_params} parameters drawn on the card in {init_s:.2f} s "
+        f"({weights_mb:.0f} MiB with the bf16 copies); generate {B} x "
+        f"{S0} prompts + {steps} tokens (temperatures {temps}) in "
+        f"{gen_s:.2f} s; launches {launches} (one per mixer, one per site); "
+        f"peak device memory {peak_mb:.0f} MiB; first new tokens "
+        f"{new[:, :4].tolist()}")
+
+    # timings, none claimed
+    batch = {"tokens": prompts}
+    pre = lambda: model.prefill(params, batch, max_len=S0 + steps)  # noqa: E731
+    pre_ms = cuda_time_ms(pre, 3, warmup=1)
+    pre_dev, pre_wall, kernels = profiled_device_ms(pre, 2, top=None)
+    share = {name: sum(ms for k, ms, _ in kernels if name in k)
+             for name in ("ssd_scan_kernel", "flash_fwd_kernel")}
+    _, cache = pre()
+    tok = out[:, S0]
+    dec = lambda: model.decode_step(params, tok, cache)  # noqa: E731
+    dec_ms = cuda_time_ms(dec, 10, warmup=2)
+    dec_dev, dec_wall, dec_top = profiled_device_ms(dec, 5, top=4)
+    gen_dev, gen_wall, _ = profiled_device_ms(
+        lambda: generate(model, params, prompts, steps, temperature=temps,
+                         seed=11), 1, warmup=False, top=1)
+    fmt_share = "not measured" if pre_dev is None else ", ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / pre_dev:.1f}%)"
+        for k, ms in share.items())
+    say(f"hybrid: prefill {B} x {S0} {pre_ms:.2f} ms eager "
+        f"({B * S0 / pre_ms * 1e3:.0f} tokens/s), {_fmt_ms(pre_dev)} on the "
+        f"device; kernels' device time per prefill: {fmt_share}; decode "
+        f"step at B={B} {dec_ms:.2f} ms eager, {_fmt_ms(dec_dev)} on the "
+        f"device ({B / dec_ms * 1e3:.0f} tokens/s); generate "
+        f"{B * steps / gen_s:.1f} generated tokens/s with its prefill; "
+        f"device busy "
+        f"{'not measured' if gen_dev is None else f'{100 * gen_dev / gen_wall:.1f}%'}"
+        f" of a profiled generate ({_fmt_ms(gen_dev)} of "
+        f"{gen_wall:.1f} ms)")
+    say("hybrid: device time of one prefill by kernel: " + "; ".join(
+        f"{name} {ms * 1e3:.1f} us x{n:g}" for name, ms, n in kernels[:6]))
+    say("hybrid: device time of one decode step by kernel: " + "; ".join(
+        f"{name} {ms * 1e3:.1f} us x{n:g}" for name, ms, n in dec_top))
+    del cache
+
+    # prefill + decode against forward at full depth
+    toks = torch.from_numpy(rng.integers(4, cfg.vocab, (2, 384))).to(dev)
+    m32 = build(cfg.with_(compute_dtype="float32"))
+    p32 = with_compute_copies(strip_compute(params), "float32",
+                              m32.compute_copies)
+    for dname, m, p in (("float32", m32, p32), ("bfloat16", model, params)):
+        full = m.forward(p, {"tokens": toks})
+        last, cache = m.prefill(p, {"tokens": toks[:, :256]}, max_len=512)
+        errs = [_rel(last, full[:, 255])]
+        for t in range(256, 259):
+            lg, cache = m.decode_step(p, toks[:, t], cache)
+            errs.append(_rel(lg, full[:, t]))
+        del cache
+        tol = TOL_HYBRID_CONSISTENT[dname]
+        if not all(np.isfinite(errs)) or max(errs) > tol:
+            fail(f"hybrid {dname}: prefill + decode disagree with forward: "
+                 f"{errs} (tol {tol:g})")
+        say(f"hybrid: {dname}, full depth, prefill of 256 + 3 decode steps "
+            f"against forward over 384 tokens, B=2: max abs err / max "
+            f"|logit| {', '.join(f'{e:.2e}' for e in errs)} (tol {tol:g})")
+    del p32
+
+    # the card's kernels against the CPU's plain versions: full width, the
+    # first 6 layers and one site, float32, B 1, S 256
+    small = build(cfg.with_(n_layers=6, compute_dtype="float32"))
+    base = strip_compute(params)
+    p6 = dict(base, mamba_layers=tree_map(lambda l: l[:6],
+                                          base["mamba_layers"]))
+    t1 = toks[:1, :256]
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    lg_dev = small.forward(with_compute_copies(p6, "float32",
+                                               small.compute_copies),
+                           {"tokens": t1})
+    torch.cuda.synchronize()
+    dev_launches = {**ssd_ops.LAUNCHES, **fa_ops.LAUNCHES}
+    if dev_launches != {"ssd_scan": 6, "flash_attention_fwd": 1}:
+        fail(f"the 6-layer card forward launched {dev_launches}")
+    t0 = time.perf_counter()
+    lg_cpu = small.forward(with_compute_copies(
+        tree_map(lambda l: l.cpu(), p6), "float32", small.compute_copies),
+        {"tokens": t1.cpu()})
+    cpu_s = time.perf_counter() - t0
+    err = _rel(lg_dev.cpu(), lg_cpu)
+    if not err <= TOL_HYBRID_CPU:
+        fail(f"hybrid: card and CPU disagree at 6 layers: {err:.3e}")
+    say(f"hybrid: card (ssd_scan, flash_attention_fwd) against CPU (plain "
+        f"versions), full width, 6 layers, f32, B=1 S=256: max abs err / "
+        f"max |logit| {err:.2e} (tol {TOL_HYBRID_CPU:g}); the CPU took "
+        f"{cpu_s:.1f} s")
+    del params, base, p6
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -907,6 +1278,8 @@ def main() -> None:
     fwd = phase_kernel(dev)
     bwd = phase_kernel_bwd(dev)
     clip_rows = phase_kernel_clip(dev)
+    flash = phase_kernel_flash(dev)
+    ssd = phase_kernel_ssd(dev)
     serve = phase_serve(dev, fwd)
     train = phase_train(dev)
     bwd["launches"] = phase_decode_grad(dev)
@@ -915,6 +1288,9 @@ def main() -> None:
         f"{train['launches']['cifg_cell_fwd']}")
     for row in clip_rows:
         row["launches"] = train["launches"][row["name"]]
+    hybrid = phase_hybrid(dev)
+    for row in (flash, ssd):
+        row["launches"] = hybrid[row["name"]]
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if leaked:
@@ -922,7 +1298,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     say(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                 for row in (fwd, bwd, *clip_rows)]}))
+                                 for row in (fwd, bwd, *clip_rows, flash,
+                                             ssd)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,10 @@ Ported so far: the serving path of the paper's CIFG-LSTM
 (``repro_torch.serve``, ``repro_torch.launch.serve``) and DP-FedAvg training
 of it on the host backend (``repro_torch.fl.round.FederatedTrainer``,
 ``repro_torch.launch.train``), with the CIFG cell forward and backward and
-the per-client clip kernels written for Hopper.
+the per-client clip kernels written for Hopper; and the batch serving path
+(``launch.serve.generate``) of Mamba-2 (``mamba2-370m``) and the Zamba2
+hybrid (``zamba2-2.7b``), whose prefill runs the SSD scan and flash
+attention kernels written for Hopper.
 """
 from repro_torch.utils.device import resolve_device
 

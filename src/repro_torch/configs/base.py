@@ -14,7 +14,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture config. ``family`` selects the model implementation;
-    the port builds the ``lstm`` family so far."""
+    the port builds the ``lstm``, ``ssm`` and ``hybrid`` families so far."""
 
     name: str
     family: str
@@ -54,6 +54,10 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     citation: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

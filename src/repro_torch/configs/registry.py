@@ -8,6 +8,8 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
     "gboard-cifg-lstm": "gboard_lstm",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

@@ -32,6 +32,8 @@ SOURCES = {
     "cifg_cell_fwd": "cifg_cell/csrc/cifg_cell_fwd.cu",
     "cifg_cell_bwd": "cifg_cell/csrc/cifg_cell_bwd.cu",
     "dp_clip": "dp_clip/csrc/dp_clip.cu",
+    "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
+    "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

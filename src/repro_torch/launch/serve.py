@@ -6,9 +6,13 @@ checkpoint hot-swap drill. Runs on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 8 --steps 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --ckpt experiments/runs/gboard-cifg-lstm_r100.msgpack --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --reference --prompt-len 512 --steps 16
 
 ``--reference`` runs the one-shot batch path (:func:`generate`) instead of
-the engine. ``--ckpt`` and ``--hot-swap`` read checkpoints of the JAX
+the engine; it is the path of ``mamba2-370m`` and ``zamba2-2.7b``, whose
+caches the engine refuses (their leaves are layer-leading with a shared
+position). ``--ckpt`` and ``--hot-swap`` read checkpoints of the JAX
 package's msgpack format (which needs ``msgpack``).
 """
 from __future__ import annotations
@@ -25,34 +29,39 @@ from repro_torch.serve.frontend import make_session_key
 from repro_torch.serve.sampling import fold_in, sample_tokens
 from repro_torch.train import checkpoint
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.params import from_jax_params
+from repro_torch.utils.params import from_jax_params, param_device
 
 BOS = 2  # the tokenizer's begin-of-sentence id (PAD, UNK, BOS, EOS = 0..3)
 
 
 def generate(model, params, prompts: torch.Tensor, steps: int,
-             temperature: float = 0.0, seed=None):
-    """prompts: (B, S0) int → (B, S0+steps). Greedy if temperature=0.
+             temperature=0.0, seed=None):
+    """prompts: (B, S0) int → (B, S0+steps). Greedy where temperature=0.
 
-    ``steps=0`` returns exactly the prompts. Temperature sampling needs
-    ``seed``; each batch row samples from its own stream (row ``i``'s key is
-    ``fold_in(key(seed), i)``)."""
+    ``temperature`` is one float for every row or a sequence of B, one per
+    row. ``steps=0`` returns exactly the prompts. Temperature sampling
+    needs ``seed``; each batch row samples from its own stream (row ``i``'s
+    key is ``fold_in(key(seed), i)``). The prefill gets ``max_len = S0 +
+    steps`` (the reference's default), so a model with a KV cache has a
+    slot for every decoded token."""
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
-    if temperature > 0.0 and seed is None:
+    dev = param_device(params)
+    prompts = torch.as_tensor(prompts, device=dev).long()
+    B, S0 = prompts.shape
+    temps_np = np.broadcast_to(np.asarray(temperature, np.float32), (B,))
+    if (temps_np > 0.0).any() and seed is None:
         raise ValueError("generate(temperature>0) needs a seed so sampling "
                          "is reproducible (greedy decoding needs none)")
-    dev = params["w_h"].device
-    prompts = torch.as_tensor(prompts, device=dev).long()
-    B, _ = prompts.shape
     if steps == 0:
         return prompts
-    last, cache = model.prefill(params, {"tokens": prompts})
+    last, cache = model.prefill(params, {"tokens": prompts},
+                                max_len=S0 + steps)
     vocab = model.cfg.vocab
     base = make_session_key(seed)
     keys = torch.tensor(np.stack([fold_in(base, i) for i in range(B)])
                         .astype(np.int64), device=dev)
-    temps = torch.full((B,), temperature, dtype=torch.float32, device=dev)
+    temps = torch.from_numpy(temps_np.copy()).to(dev)
 
     def pick(logits, t):
         return sample_tokens(logits[:, :vocab], keys,
@@ -106,11 +115,14 @@ def main(argv=None):
     model = build(cfg)
     if args.ckpt:
         tree, meta = checkpoint.load(args.ckpt)
-        params = from_jax_params(tree, device=dev,
+        params = from_jax_params(tree, model.compute_copies, device=dev,
                                  compute_dtype=cfg.compute_dtype)
         print(f"loaded checkpoint ({meta})")
     else:
-        params = model.init(torch.Generator().manual_seed(0), device=dev)
+        # the CIFG-LSTM draws on the CPU (its weights for a seed stay those
+        # of every earlier run); the larger families draw on the device
+        gen = torch.Generator(device="cpu" if cfg.family == "lstm" else dev)
+        params = model.init(gen.manual_seed(0), device=dev)
         print("serving a randomly initialized model (pass --ckpt)")
 
     rng = np.random.default_rng(args.seed + 1)

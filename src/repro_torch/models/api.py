@@ -25,3 +25,4 @@ class Model(NamedTuple):
     init_cache: Callable[..., Any]   # (batch_size, max_len, *, device) -> cache
     prefill: Callable[..., Any]      # (params, batch) -> (logits (B,Vpad), cache)
     decode_step: Callable[..., Any]  # (params, tokens (B,), cache) -> (logits, cache)
+    compute_copies: Callable[..., Any]  # (params, dtype) -> params["compute"]

@@ -54,6 +54,20 @@ def resolve_cell_path(cfg: ModelConfig, device) -> str:
     return "fused" if torch.device(device).type == "cuda" else "seq"
 
 
+def compute_copies(params, cd: torch.dtype):
+    """The weights the serving path computes with: ``w_h`` in the compute
+    dtype, the operand of the cell kernel; ``tok`` (and ``head``), ``w_x``
+    and ``w_proj`` rounded to the compute dtype and held in float32, the
+    operands of the float32 products (`repro_torch.utils.numerics`)."""
+    copies = {"tok": round_to(params["embed"]["tok"], cd),
+              "w_x": round_to(params["w_x"], cd),
+              "w_h": params["w_h"].to(cd).contiguous(),
+              "w_proj": round_to(params["w_proj"], cd)}
+    if "head" in params["embed"]:
+        copies["head"] = round_to(params["embed"]["head"], cd)
+    return copies
+
+
 def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
     """Random parameters drawn from ``generator`` (on the CPU, then moved to
     ``device``), with the compute-dtype copies made."""
@@ -67,7 +81,7 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
         "b_gates": torch.zeros((3 * h,), dtype=torch.float32, device=dev),
         "w_proj": dense_init(generator, (h, d), in_dim=h, device=dev),
     }
-    return with_compute_copies(params, cfg.compute_dtype)
+    return with_compute_copies(params, cfg.compute_dtype, compute_copies)
 
 
 def _weights(params, cd):
@@ -238,4 +252,5 @@ def build(cfg: ModelConfig) -> Model:
         init_cache=partial(init_cache, cfg),
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
+        compute_copies=compute_copies,
     )

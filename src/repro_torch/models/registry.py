@@ -1,12 +1,14 @@
-"""family string → model builder. The port builds the ``lstm`` family; the
-other families arrive with their slices."""
+"""family string → model builder. The port builds the ``lstm``, ``ssm`` and
+``hybrid`` families; the others arrive with their slices."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lstm
+from repro_torch.models import hybrid, lstm, mamba2
 from repro_torch.models.api import Model
 
 _BUILDERS = {
+    "ssm": mamba2.build,
+    "hybrid": hybrid.build,
     "lstm": lstm.build,
 }
 

@@ -40,7 +40,8 @@ from repro_torch.serve.frontend import (NwpRequest, RequestQueue,
                                         SessionResult, _Session,
                                         make_session_key, new_session_id)
 from repro_torch.train import checkpoint as checkpoint_lib
-from repro_torch.utils.params import from_jax_params, with_compute_copies
+from repro_torch.utils.params import (from_jax_params, param_device,
+                                      with_compute_copies)
 
 
 def _leaves(tree, path=""):
@@ -64,7 +65,9 @@ def validate_cache_layout(model: Model, max_slots: int, max_len: int, *,
             f"model '{model.cfg.name}' is not continuous-batching capable: "
             f"the serving engine scatters per-session state by slot, so "
             f"every decode-cache leaf must be per-row (leading dim = "
-            f"max_slots={max_slots}); offending leaves: {detail}")
+            f"max_slots={max_slots}); offending leaves: {detail}. "
+            f"Recurrent-state models (the paper's CIFG-LSTM) satisfy this; "
+            f"shared ring-buffer KV caches do not (yet).")
     return cache
 
 
@@ -92,8 +95,9 @@ class ServeEngine:
         self.vocab = model.cfg.vocab
         self.default_ttl_ticks = default_ttl_ticks
 
-        self._params = with_compute_copies(params, model.cfg.compute_dtype)
-        self._device = self._params["w_h"].device
+        self._params = with_compute_copies(params, model.cfg.compute_dtype,
+                                           model.compute_copies)
+        self._device = param_device(self._params)
         self._params_version = 0
 
         self._cache = validate_cache_layout(model, max_slots, max_len,
@@ -166,9 +170,10 @@ class ServeEngine:
         """Promote ``new_params`` for every later prefill and decode tick.
         In-flight sessions keep their slots and state; emitted tokens keep
         their version. Returns the new params version."""
-        new = with_compute_copies(new_params, self.model.cfg.compute_dtype)
-        if new["w_h"].device != self._device:
-            raise ValueError(f"new params are on {new['w_h'].device}, the "
+        new = with_compute_copies(new_params, self.model.cfg.compute_dtype,
+                                  self.model.compute_copies)
+        if param_device(new) != self._device:
+            raise ValueError(f"new params are on {param_device(new)}, the "
                              f"engine serves on {self._device}")
         shapes = {p: tuple(t.shape) for p, t in _leaves(self._params)}
         bad = [(p, shapes.get(p), tuple(t.shape)) for p, t in _leaves(new)
@@ -186,7 +191,7 @@ class ServeEngine:
         :meth:`swap_params` call."""
         tree, _meta = checkpoint_lib.load(path)
         return self.swap_params(from_jax_params(
-            tree, device=self._device,
+            tree, self.model.compute_copies, device=self._device,
             compute_dtype=self.model.cfg.compute_dtype))
 
     # ------------------------------------------------------------- the loop

@@ -19,7 +19,7 @@ import torch
 from repro_torch.models.api import Model
 from repro_torch.serve import sampling
 from repro_torch.serve.frontend import make_session_key
-from repro_torch.utils.params import with_compute_copies
+from repro_torch.utils.params import param_device, with_compute_copies
 
 
 def reference_generate(model: Model, params, prompt: Sequence[int],
@@ -40,8 +40,8 @@ def reference_generate(model: Model, params, prompt: Sequence[int],
         return (), np.zeros((0, top_k), np.int32)
     cd = model.cfg.compute_dtype
     vocab = model.cfg.vocab
-    params = with_compute_copies(params, cd)
-    swaps = [(t, with_compute_copies(p, cd))
+    params = with_compute_copies(params, cd, model.compute_copies)
+    swaps = [(t, with_compute_copies(p, cd, model.compute_copies))
              for t, p in sorted(swaps, key=lambda sw: sw[0])]
 
     def params_at(t):
@@ -51,7 +51,7 @@ def reference_generate(model: Model, params, prompt: Sequence[int],
                 cur = p
         return cur
 
-    dev = params["w_h"].device
+    dev = param_device(params)
     key = torch.tensor(make_session_key(seed)[None].astype(np.int64),
                        device=dev)
     temp = torch.full((1,), temperature, dtype=torch.float32, device=dev)

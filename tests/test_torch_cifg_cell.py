@@ -170,7 +170,8 @@ def test_kernel_library_path_tracks_the_source():
     p = build.library_path("cifg_cell_fwd")
     assert p.parent == build.BUILD_DIR and p.suffix == ".so"
     assert p == build.library_path("cifg_cell_fwd")   # stable
-    assert set(build.SOURCES) == {"cifg_cell_fwd", "cifg_cell_bwd", "dp_clip"}
+    assert set(build.SOURCES) == {"cifg_cell_fwd", "cifg_cell_bwd", "dp_clip",
+                                  "flash_attention_fwd", "ssd_scan"}
     for name in build.SOURCES:
         assert build.library_path(name).name.startswith(f"lib{name}-")
     with pytest.raises(KeyError):

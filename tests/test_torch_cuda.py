@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the hand-written CIFG cell kernel against its
-plain PyTorch version, and the serving path through it. Every test here is
+"""The port on a CUDA card: the hand-written kernels (CIFG cell, dp_clip,
+flash attention, SSD scan) against their plain PyTorch versions, and the
+serving paths through them. Every test here is
 marked ``cuda`` and skips where there is no GPU. The file imports neither
 JAX nor the JAX package, so it runs on a host that has only PyTorch:
 
@@ -8,7 +9,9 @@ JAX nor the JAX package, so it runs on a host that has only PyTorch:
 Tolerances: float32 results differ from the plain cell only in the order of
 the sums, so atol 1e-5 / rtol 1e-4; with bfloat16 products a one-ulp
 difference in a float32 sum can flip the bfloat16 rounding of h, so
-atol 3e-2.
+atol 3e-2. Flash attention: float32 within 1e-5 (the sum order differs), bfloat16
+within 2e-2 (the plain version's float32 output is rounded once). SSD scan:
+1e-4 relative to the largest output (float32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -199,3 +202,96 @@ def test_round_sum_is_bitwise_across_chunks_on_card(cuda_device):
     for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])):
         assert torch.equal(x, y)
     assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+# --------------------------------------------- flash attention, SSD scan
+
+
+def _flash_inputs(B, Sq, Sk, H, KV, hd, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, getattr(torch, dtype))
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128),
+                                           (False, 0), (False, 96)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (2, 256, 256, 4, 2, 64), (1, 100, 100, 2, 1, 32),
+    (1, 200, 200, 4, 4, 80), (2, 130, 130, 4, 1, 96),
+    (1, 64, 300, 2, 2, 128)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV,
+                                            hd, causal, window, dtype):
+    from repro_torch.kernels.flash_attention import (LAUNCHES as FA,
+                                                     flash_attention,
+                                                     flash_attention_ref)
+
+    q, k, v = _flash_inputs(B, Sq, Sk, H, KV, hd, dtype, cuda_device, hd)
+    before = FA["flash_attention_fwd"]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA["flash_attention_fwd"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+def test_flash_kernel_reads_strided_views_and_rows_do_not_depend_on_batch(
+        cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    qkv = _flash_inputs(3, 160, 160, 4, 2, 80, "bfloat16", cuda_device, 1)
+    q, k, v = qkv
+    full = flash_attention(q, k, v)
+    for b in (0, 2):
+        one = flash_attention(*(t[b:b + 1] for t in qkv))
+        assert torch.equal(one[0], full[b])
+    # views with a head stride of 2·hd, as a fused projection gives
+    pq, pk, pv = (torch.stack([t, torch.zeros_like(t)], dim=3)[:, :, :, 0]
+                  for t in qkv)
+    assert pq.stride(2) == 2 * 80 and not pq.is_contiguous()
+    assert torch.equal(flash_attention(pq, pk, pv), full)
+
+
+def _ssd_inputs(B, S, H, p, N, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, p))
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))) * 0.1
+    Bm, Cm = rng.standard_normal((2, B, S, N))
+    A = -np.exp(rng.standard_normal(H))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (x, dt, Bm, Cm, A)]
+
+
+@pytest.mark.parametrize("B,S,H,p,N", [
+    (2, 256, 4, 64, 32), (1, 128, 2, 32, 16), (1, 384, 3, 16, 8),
+    (1, 200, 2, 64, 64), (2, 512, 8, 64, 64), (1, 256, 4, 64, 128)])
+def test_ssd_kernel_matches_plain_on_card(cuda_device, B, S, H, p, N):
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, cuda_device, S + N)
+    before = SSD["ssd_scan"]
+    y, st = ssd_scan(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert SSD["ssd_scan"] == before + 1
+    pad = (-S) % 128
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+              for t in (x, dt, Bm, Cm)]
+    yr, sr = ssd_chunked(*padded, A, torch.zeros_like(st))
+    for got, want in ((y, yr[:, :S]), (st, sr)):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < 1e-4, err
+
+
+def test_ssd_kernel_rows_do_not_depend_on_batch(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    args = _ssd_inputs(3, 256, 4, 64, 64, cuda_device, 5)
+    y, st = ssd_scan(*args)
+    for b in (0, 2):
+        y1, st1 = ssd_scan(*(t[b:b + 1] for t in args[:4]), args[4])
+        assert torch.equal(y1[0], y[b]) and torch.equal(st1[0], st[b])

@@ -212,7 +212,8 @@ def _round_setup(C, seed=0, nb=2, B=3, S=5):
     jp = jm.init(jax.random.PRNGKey(seed))
     pm = build(get_config("gboard-cifg-lstm").with_(cell_path="seq", **SMALL))
     pp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp),
-                         device="cpu", compute_dtype="float32")
+                         pm.compute_copies, device="cpu",
+                         compute_dtype="float32")
     rng = np.random.default_rng(seed + 1)
     ex = rng.integers(4, 300, size=(C, nb, B, S + 1)).astype(np.int32)
     ex[:, :, :, -2:] *= rng.random((C, nb, B, 2)) > 0.3   # some PAD labels
@@ -267,7 +268,8 @@ def test_round_compute_ignores_cached_compute_copies():
     tb = {k: torch.from_numpy(v) for k, v in batches.items()}
     cl, dp = ClientConfig(**_CLIENT), DPConfig(clip_norm=0.006)
     clean = {k: v for k, v in pp.items() if k != "compute"}
-    stale = with_compute_copies(tree_map(torch.zeros_like, clean), "float32")
+    stale = with_compute_copies(tree_map(torch.zeros_like, clean), "float32",
+                                pm.compute_copies)
     stale = {**clean, "compute": stale["compute"]}
     a = round_compute(pm, stale, tb, cl, dp)
     b = round_compute(pm, clean, tb, cl, dp)

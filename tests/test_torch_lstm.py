@@ -40,8 +40,9 @@ def _pair(dtype, widths, seed=0):
     jm = jax_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     tree = jax.tree_util.tree_map(np.asarray, jp)
-    return jm, jp, build(pcfg), from_jax_params(tree, device="cpu",
-                                                compute_dtype=dtype)
+    pm = build(pcfg)
+    return jm, jp, pm, from_jax_params(tree, pm.compute_copies, device="cpu",
+                                       compute_dtype=dtype)
 
 
 def _tokens(B, S, vocab, seed=1):
@@ -187,7 +188,8 @@ def test_init_shapes_and_statistics():
 def test_params_bridge_round_trip():
     jm = jax_build(jax_get_config("gboard-cifg-lstm").with_(**SMALL))
     tree = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(3)))
-    pp = from_jax_params(tree, device="cpu", compute_dtype="bfloat16")
+    copies = build(get_config("gboard-cifg-lstm").with_(**SMALL)).compute_copies
+    pp = from_jax_params(tree, copies, device="cpu", compute_dtype="bfloat16")
     back = to_numpy(pp)
     assert back.keys() == tree.keys()
     for k in ("w_x", "w_h", "b_gates", "w_proj"):
@@ -196,8 +198,8 @@ def test_params_bridge_round_trip():
     cw = pp["compute"]
     assert cw["w_h"].dtype == torch.bfloat16
     assert torch.equal(cw["w_x"], pp["w_x"].to(torch.bfloat16).float())
-    assert with_compute_copies(pp, "bfloat16") is pp      # made once
-    f32 = with_compute_copies(pp, "float32")
+    assert with_compute_copies(pp, "bfloat16", copies) is pp   # made once
+    f32 = with_compute_copies(pp, "float32", copies)
     assert f32["compute"]["w_h"].dtype == torch.float32
 
 
@@ -219,6 +221,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         model.init_cache(2, 8)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        from_jax_params({"w_h": np.zeros((2, 6), np.float32)})
+        from_jax_params({"w_h": np.zeros((2, 6), np.float32)},
+                        model.compute_copies)
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         resolve_device("meta")

@@ -302,7 +302,8 @@ def test_greedy_generation_matches_jax(prompt, steps):
     pm = build(get_config("gboard-cifg-lstm").with_(compute_dtype="float32",
                                                     **SMALL))
     pp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp),
-                         device="cpu", compute_dtype="float32")
+                         pm.compute_copies, device="cpu",
+                         compute_dtype="float32")
     jt, jc = jax_reference_generate(jm, jp, prompt, steps, top_k=3)
     pt, pc = reference_generate(pm, pp, prompt, steps, top_k=3)
     assert pt == jt

@@ -165,9 +165,10 @@ def _pair(dtype, cell, seed=0):
         cell_path=cell, compute_dtype=dtype, **SMALL)
     jm = jax_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(seed))
-    return jm, jp, build(pcfg), from_jax_params(
-        jax.tree_util.tree_map(np.asarray, jp), device="cpu",
-        compute_dtype=dtype)
+    pm = build(pcfg)
+    return jm, jp, pm, from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jp), pm.compute_copies,
+        device="cpu", compute_dtype=dtype)
 
 
 def _lm_batch(B=3, S=6, seed=1):
@@ -296,6 +297,11 @@ def test_configs_match_jax_field_for_field():
     for ours, theirs in ((DPConfig(), JDPConfig()),
                          (ClientConfig(), JClientConfig())):
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    for arch in ("zamba2-2.7b", "mamba2-370m"):
+        ours, theirs = get_config(arch), jax_get_config(arch)
+        for o, t in ((ours, theirs), (ours.reduced(), theirs.reduced())):
+            assert dataclasses.asdict(o) == dataclasses.asdict(t)
+            assert o.head_dim == t.head_dim
 
 
 # ------------------------------------------------------------- trainer
@@ -330,7 +336,8 @@ def _trainers(sigma, seed=0):
     pt = FederatedTrainer(pm, pds, DPConfig(**dpkw), ClientConfig(**clkw),
                           pop=PopulationSim(40, availability=0.6, seed=seed),
                           seed=seed, n_local_batches=2,
-                          params=from_jax_params(params0, device="cpu"),
+                          params=from_jax_params(params0, pm.compute_copies,
+                                                 device="cpu"),
                           device="cpu", noise_fn=reference_noise)
     return jt, pt
 
