@@ -553,25 +553,29 @@ def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
 
 
 CLIP_SIZES = (1, 127, 32769, 983040, 196608)
+CLIP_CHUNKS = (1, 2, 16, 32)
 
 
 def phase_kernel_clip(dev) -> list:
     """dp_sumsq and dp_clip_accumulate vs their plain versions at ragged
     lengths and at the model's leaf sizes: sumsq within float tolerance and
-    bitwise repeatable; the accumulate bitwise equal to plain, and a zero
-    factor over 1e30 garbage leaves acc bitwise unchanged. Timed at the
-    largest leaf (the 10240 x 96 embedding)."""
+    bitwise repeatable; the accumulate of C ∈ CLIP_CHUNKS clients in one
+    launch bitwise equal to plain and to C one-client launches, a zero
+    factor over 1e30 garbage leaves acc bitwise unchanged, and ``out`` may
+    be ``acc``. Timed at the largest leaf (the 10240 x 96 embedding): the
+    accumulate at C = 1 against ``torch.add`` and at phase 5's chunk of 16
+    against 16 chained ``torch.add`` calls."""
     import torch
 
-    from repro_torch.kernels.dp_clip import clip_accumulate_leaf, sumsq
-    from repro_torch.kernels.dp_clip.ref import (clip_accumulate_ref,
+    from repro_torch.kernels.dp_clip import (clip_accumulate_chunk_leaf,
+                                             clip_accumulate_leaf, sumsq)
+    from repro_torch.kernels.dp_clip.ref import (clip_accumulate_chunk_ref,
                                                  sumsq_ref)
 
     gen = torch.Generator().manual_seed(77)
     worst_ss = 0.0
     for n in CLIP_SIZES:
         x = torch.randn((n,), generator=gen).to(dev)
-        acc = torch.randn((n,), generator=gen).to(dev)
         s1, s2 = sumsq(x), sumsq(x)
         ref = sumsq_ref(x)
         torch.cuda.synchronize()
@@ -581,48 +585,100 @@ def phase_kernel_clip(dev) -> list:
         if rel > 1e-5:
             fail(f"dp_sumsq disagrees with plain at n={n}: rel err {rel:.2e}")
         worst_ss = max(worst_ss, float((s1 - ref).abs()))
-        factor = torch.clamp(0.8 / torch.sqrt(s1), max=1.0)
-        out = clip_accumulate_leaf(acc, x, factor)
-        if not torch.equal(out, clip_accumulate_ref(acc, x, factor)):
-            fail(f"dp_clip_accumulate differs from plain at n={n}")
         garbage = torch.full((n,), 1e30, device=dev)
         garbage[::2] = -1e30
-        zero = torch.zeros((), device=dev)
-        if not torch.equal(clip_accumulate_leaf(acc, garbage, zero), acc):
-            fail(f"dp_clip_accumulate: factor 0 over 1e30 changed acc, n={n}")
+        for C in CLIP_CHUNKS:
+            acc = torch.randn((n,), generator=gen).to(dev)
+            deltas = [torch.randn((n,), generator=gen).to(dev)
+                      for _ in range(C)]
+            factors = torch.stack([torch.clamp(0.8 / torch.sqrt(sumsq(d)),
+                                               max=1.0) for d in deltas])
+            factors[C // 2] = 0.0          # a masked slot
+            out = clip_accumulate_chunk_leaf(acc, deltas, factors)
+            if not torch.equal(out, clip_accumulate_chunk_ref(acc, deltas,
+                                                              factors)):
+                fail(f"dp_clip_accumulate differs from plain at n={n} C={C}")
+            seq = acc
+            for c in range(C):
+                seq = clip_accumulate_leaf(seq, deltas[c], factors[c])
+            if not torch.equal(out, seq):
+                fail(f"dp_clip_accumulate at n={n} C={C} differs from {C} "
+                     f"one-client launches")
+            masked = list(deltas)
+            masked[C // 2] = garbage
+            if not torch.equal(clip_accumulate_chunk_leaf(acc, masked,
+                                                          factors), out):
+                fail(f"dp_clip_accumulate: factor 0 over 1e30 moved the sum, "
+                     f"n={n} C={C}")
+            zero = torch.zeros((C,), device=dev)
+            if not torch.equal(clip_accumulate_chunk_leaf(
+                    acc, [garbage] * C, zero), acc):
+                fail(f"dp_clip_accumulate: factor 0 over 1e30 changed acc, "
+                     f"n={n} C={C}")
+            clip_accumulate_chunk_leaf(acc, deltas, factors, out=acc)
+            if not torch.equal(acc, out):
+                fail(f"dp_clip_accumulate with out = acc differs, n={n} C={C}")
         say(f"kernel: dp_sumsq n={n}: rel err {rel:.2e} (tol 1e-5), bitwise "
-            f"repeatable; dp_clip_accumulate bitwise equal to plain, zero "
-            f"factor over 1e30 leaves acc unchanged")
+            f"repeatable; dp_clip_accumulate at C in {CLIP_CHUNKS}: bitwise "
+            f"equal to plain and to C one-client launches, zero factor over "
+            f"1e30 adds +-0, out = acc gives the same bits")
 
     n = 983040
     x = torch.randn((n,), generator=gen).to(dev)
-    acc = torch.randn((n,), generator=gen).to(dev)
-    factor = torch.tensor(0.37, device=dev)
     rows = []
-    for name, fn, plain, lib, nbytes, replaces in (
-            ("dp_sumsq", lambda: sumsq(x), lambda: sumsq_ref(x),
-             lambda: torch.dot(x, x), 4 * n + 4,
-             "src/repro/kernels/dp_clip/dp_clip.py:66"),
-            ("dp_clip_accumulate", lambda: clip_accumulate_leaf(acc, x, factor),
-             lambda: clip_accumulate_ref(acc, x, factor),
-             lambda: torch.add(acc, x, alpha=0.37), 3 * 4 * n + 4,
-             "src/repro/kernels/dp_clip/dp_clip.py:87")):
-        ms = graph_time_ms(fn)
-        plain_ms = graph_time_ms(plain)
-        library_ms = graph_time_ms(lib)
-        eager_ms = cuda_time_ms(fn, 1000)
-        bound_ms, bound_by = _bound(nbytes, 2 * n, "float32")
-        say(f"kernel: {name} n={n} f32, device time: {ms * 1e3:.2f} us/launch;"
-            f" plain {plain_ms * 1e3:.2f} us; "
-            f"{'torch.dot' if name == 'dp_sumsq' else 'torch.add(alpha)'} "
+    ms = graph_time_ms(lambda: sumsq(x))
+    plain_ms = graph_time_ms(lambda: sumsq_ref(x))
+    library_ms = graph_time_ms(lambda: torch.dot(x, x))
+    eager_ms = cuda_time_ms(lambda: sumsq(x), 1000)
+    nbytes = 4 * n + 4
+    bound_ms, bound_by = _bound(nbytes, 2 * n, "float32")
+    say(f"kernel: dp_sumsq n={n} f32, device time: {ms * 1e3:.2f} us/launch;"
+        f" plain {plain_ms * 1e3:.2f} us; torch.dot {library_ms * 1e3:.2f} "
+        f"us; bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB); one "
+        f"eager call {eager_ms * 1e3:.2f} us")
+    rows.append({"name": "dp_sumsq", "route": "cuda",
+                 "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
+                 "replaces": "src/repro/kernels/dp_clip/dp_clip.py:66",
+                 "max_abs_err": worst_ss, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms})
+
+    # the accumulate: C = 1 (warm L2: acc, delta and out are 11.8 MB) and
+    # phase 5's chunk of C = 16 (63 MB of deltas, more than the 50 MB L2,
+    # so cold as in a round); the row of the kernels line is C = 16
+    acc = torch.randn((n,), generator=gen).to(dev)
+    for C in (1, 16):
+        deltas = [torch.randn((n,), generator=gen).to(dev) for _ in range(C)]
+        factors = torch.rand((C,), generator=gen).to(dev)
+        alphas = factors.tolist()
+
+        def library():
+            out = torch.add(acc, deltas[0], alpha=alphas[0])
+            for c in range(1, C):
+                out = torch.add(out, deltas[c], alpha=alphas[c])
+            return out
+
+        ms = graph_time_ms(lambda: clip_accumulate_chunk_leaf(acc, deltas,
+                                                              factors))
+        plain_ms = graph_time_ms(lambda: clip_accumulate_chunk_ref(
+            acc, deltas, factors))
+        library_ms = graph_time_ms(library)
+        eager_ms = cuda_time_ms(lambda: clip_accumulate_chunk_leaf(
+            acc, deltas, factors), 1000)
+        nbytes = (8 + 4 * C) * n + 4 * C
+        bound_ms, bound_by = _bound(nbytes, 2 * C * n, "float32")
+        say(f"kernel: dp_clip_accumulate n={n} C={C} f32, device time: "
+            f"{ms * 1e3:.2f} us/launch ({ms * 1e3 / C:.2f} us per client); "
+            f"plain {plain_ms * 1e3:.2f} us; {C} chained torch.add(alpha) "
             f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
-            f"({nbytes / 1e6:.2f} MB); one eager call {eager_ms * 1e3:.2f} us")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
-                     "replaces": replaces,
-                     "max_abs_err": worst_ss if name == "dp_sumsq" else 0.0,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+            f"({nbytes / 1e6:.2f} MB{', warm L2' if C == 1 else ''}); one "
+            f"eager call {eager_ms * 1e3:.2f} us")
+    rows.append({"name": "dp_clip_accumulate", "route": "cuda",
+                 "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
+                 "replaces": "src/repro/kernels/dp_clip/dp_clip.py:87",
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms})
     return rows
 
 
@@ -658,6 +714,46 @@ def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
             wall * 1e3 / iters, top)
 
 
+def kernel_resources(fn, name: str):
+    """(registers per thread, shared memory per block, resident blocks per
+    SM) of the kernel whose name holds ``name``, as the profiler's trace
+    reports them for one ``fn()`` call; the blocks follow from the first two
+    and the H100's 64K registers and 228 KB of shared memory per SM (the
+    trace's own occupancy estimate is not filled in on this card)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    for e in events:
+        args = e.get("args", {})
+        if e.get("cat") == "kernel" and name in e.get("name", ""):
+            regs = int(args["registers per thread"])
+            smem = int(args["shared memory"])
+            threads = 1
+            for d in args["block"]:
+                threads *= int(d)
+            # registers: allocated per warp in units of 256; shared memory:
+            # 1 KB reserved per block
+            per_warp = -(-regs * 32 // 256) * 256
+            by_regs = 65536 // (per_warp * -(-threads // 32))
+            by_smem = 233472 // (smem + 1024)
+            return regs, smem, min(by_regs, by_smem, 2048 // threads, 32)
+    fail(f"the profiler's trace holds no kernel named like {name!r}")
+
+
 def _fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.3f} ms"
 
@@ -680,6 +776,7 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
     from repro_torch.data.federated import FederatedDataset
     from repro_torch.fl.client import local_sgd, round_compute
     from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.reduction import resolve_chunk
     from repro_torch.fl.round import FederatedTrainer
     from repro_torch.kernels.cifg_cell import ops as cell_ops
     from repro_torch.kernels.dp_clip import ops as clip_ops
@@ -726,12 +823,15 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
              f"launch counts below assume full rounds of a multiple of 8")
     if not all(np.isfinite(r["loss"]) for r in recs):
         fail(f"training losses not finite: {[r['loss'] for r in recs]}")
+    # one accumulate launch per leaf per live chunk (every chunk of a full
+    # round of a multiple of 8 clients is live)
+    chunks = clients // resolve_chunk(None, cohort // 8)
     want = {"cifg_cell_fwd": seq_len * n_batches * clients,
-            "dp_sumsq": 5 * clients, "dp_clip_accumulate": 5 * clients}
+            "dp_sumsq": 5 * clients, "dp_clip_accumulate": 5 * chunks}
     for k, v in want.items():
         if launches[k] != v:
             fail(f"training launched {k} {launches[k]} times, expected {v} "
-                 f"({clients} clients over {rounds} rounds)")
+                 f"({clients} clients in {chunks} chunks over {rounds} rounds)")
     say(f"train: gboard-cifg-lstm vocab {cfg.vocab} (padded "
         f"{-(-cfg.vocab // 256) * 256}) d {cfg.d_model} H {cfg.d_ff} "
         f"{cfg.compute_dtype}, {n_params} parameters; {n_users} users "
@@ -740,7 +840,8 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
         f"{rounds / run_s:.3f} rounds/s; losses "
         f"{[round(r['loss'], 4) for r in recs]}; norms "
         f"{[round(r['mean_update_norm'], 4) for r in recs]}; clipped "
-        f"{[r['frac_clipped'] for r in recs]}; launches {launches}; peak "
+        f"{[r['frac_clipped'] for r in recs]}; launches {launches} "
+        f"({clients} clients in {chunks} chunks); peak "
         f"device memory {peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} MiB above "
         f"what was allocated before the rounds")
 
@@ -938,12 +1039,14 @@ FLASH_CASES = (
 def phase_kernel_flash(dev) -> dict:
     """flash_attention_fwd vs its plain version at the hybrid prefill's
     shape (B 4, S 512, 32 heads, hd 80, causal, bf16) and around it (hd 64
-    and 128, GQA, ragged S, window, bidirectional, f32); timed at the
-    path's shape against its bound, the plain version and SDPA."""
+    and 128, GQA, ragged S, window, bidirectional, f32); every bf16 case on
+    the tensor cores; timed at the path's shape against its bound, the
+    plain version and SDPA."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
                                                      flash_attention_ref)
 
     gen = torch.Generator().manual_seed(5150)
@@ -953,7 +1056,12 @@ def phase_kernel_flash(dev) -> dict:
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
                    for shape in ((B, S, H, hd), (B, S, KV, hd),
                                  (B, S, KV, hd)))
+        tc_before = LAUNCHES["flash_attention_fwd_tc"]
         out = flash_attention(q, k, v, causal=causal, window=window)
+        if LAUNCHES["flash_attention_fwd_tc"] - tc_before != (
+                dname == "bfloat16"):
+            fail(f"flash_attention_fwd {dname}: the tensor-core form ran "
+                 f"{LAUNCHES['flash_attention_fwd_tc'] - tc_before} times")
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = TOL_FLASH[dname]
@@ -969,7 +1077,8 @@ def phase_kernel_flash(dev) -> dict:
                  f"abs err {err:.3e}")
         worst = max(worst, err)
         say(f"kernel: flash_attention_fwd {what}: max abs err {err:.2e} "
-            f"(tol atol = rtol = {tol:g})")
+            f"(tol atol = rtol = {tol:g}); "
+            f"{'tensor cores' if dname == 'bfloat16' else 'CUDA cores'}")
 
     B, S, H, KV, hd, causal, window, dname = FLASH_CASES[0]
     q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
@@ -981,6 +1090,8 @@ def phase_kernel_flash(dev) -> dict:
     library_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), per_graph=20)
     eager_ms = cuda_time_ms(lambda: flash_attention(q, k, v), 100)
+    regs, smem, blocks = kernel_resources(lambda: flash_attention(q, k, v),
+                                          "flash_fwd_tc_kernel")
     pairs = _attention_pairs(S, S, causal, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     ops = 4 * B * H * hd * pairs
@@ -991,6 +1102,10 @@ def phase_kernel_flash(dev) -> dict:
         f"bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, "
         f"{ops / 1e9:.3f} GFLOP, {bound_by}); one eager call "
         f"{eager_ms * 1e3:.2f} us")
+    say(f"kernel: flash_attention_fwd bf16 (tensor cores), from the "
+        f"profiler's trace: {regs} registers per thread, {smem} bytes of "
+        f"shared memory per block of 128 threads: {blocks} resident blocks "
+        f"({4 * blocks} of 64 warps) per SM")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_fwd.cu",
@@ -1146,7 +1261,9 @@ def phase_hybrid(dev) -> dict:
     gen_s = time.perf_counter() - t0
     launches = {**ssd_ops.LAUNCHES, **fa_ops.LAUNCHES}
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    want = {"ssd_scan": cfg.n_layers, "flash_attention_fwd": n_attn_sites(cfg)}
+    # every bf16 site through the tensor-core form
+    want = {"ssd_scan": cfg.n_layers, "flash_attention_fwd": n_attn_sites(cfg),
+            "flash_attention_fwd_tc": n_attn_sites(cfg)}
     if launches != want:
         fail(f"generate launched {launches}, expected {want} (one prefill)")
     if tuple(out.shape) != (B, S0 + steps) or not torch.equal(
@@ -1162,7 +1279,8 @@ def phase_hybrid(dev) -> dict:
         f"{n_params} parameters drawn on the card in {init_s:.2f} s "
         f"({weights_mb:.0f} MiB with the bf16 copies); generate {B} x "
         f"{S0} prompts + {steps} tokens (temperatures {temps}) in "
-        f"{gen_s:.2f} s; launches {launches} (one per mixer, one per site); "
+        f"{gen_s:.2f} s; launches {launches} (one per mixer, one per site, "
+        f"every site on the tensor cores); "
         f"peak device memory {peak_mb:.0f} MiB; first new tokens "
         f"{new[:, :4].tolist()}")
 
@@ -1172,7 +1290,7 @@ def phase_hybrid(dev) -> dict:
     pre_ms = cuda_time_ms(pre, 3, warmup=1)
     pre_dev, pre_wall, kernels = profiled_device_ms(pre, 2, top=None)
     share = {name: sum(ms for k, ms, _ in kernels if name in k)
-             for name in ("ssd_scan_kernel", "flash_fwd_kernel")}
+             for name in ("ssd_scan_kernel", "flash_fwd")}
     _, cache = pre()
     tok = out[:, S0]
     dec = lambda: model.decode_step(params, tok, cache)  # noqa: E731
@@ -1237,7 +1355,8 @@ def phase_hybrid(dev) -> dict:
                            {"tokens": t1})
     torch.cuda.synchronize()
     dev_launches = {**ssd_ops.LAUNCHES, **fa_ops.LAUNCHES}
-    if dev_launches != {"ssd_scan": 6, "flash_attention_fwd": 1}:
+    if dev_launches != {"ssd_scan": 6, "flash_attention_fwd": 1,
+                        "flash_attention_fwd_tc": 0}:
         fail(f"the 6-layer card forward launched {dev_launches}")
     t0 = time.perf_counter()
     lg_cpu = small.forward(with_compute_copies(

@@ -13,6 +13,9 @@ the streaming form of the chunked cohort accumulator, one clip→fold step
 Both compute the pre-clip norm, the factor and the was-clipped flag with the
 same formulas and differ only in the order of the sum of squares, so they
 agree within float tolerance and each is deterministic on its own.
+``clip_accumulate_chunk_tree`` is the fused step for a whole chunk of
+clients, one accumulate launch per leaf, with the bits of one
+``clip_accumulate_tree`` per slot.
 """
 from __future__ import annotations
 
@@ -58,3 +61,14 @@ def clip_accumulate_tree(acc, update, clip_norm: float, scale=None, *,
         f = factor if scale is None else factor * scale
         new_acc = tree_map(lambda a, d: a + f * d.float(), acc, update)
     return new_acc, norm, (factor < 1.0).float()
+
+
+def clip_accumulate_chunk_tree(acc, updates, clip_norm: float, scales):
+    """The fused clip→fold of a chunk: ``updates`` (a list of float32 trees)
+    folded into ``acc`` slot by slot, in order, ``scales`` the slots' device
+    scalars (the 0/1 mask). Returns ``(new_acc, pre-clip norms,
+    was-clipped flags)``, the last two lists in slot order."""
+    new_acc, norms = dp_clip_ops.clip_accumulate_chunk(acc, updates,
+                                                       clip_norm, scales)
+    flags = [(clip_factor(n, clip_norm) < 1.0).float() for n in norms]
+    return new_acc, norms, flags

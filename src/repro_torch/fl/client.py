@@ -8,12 +8,14 @@ E local epochs of minibatch SGD at learning rate η_c, then the model delta
 round's clipped sum by streaming: the padded cohort is cut into the
 canonical blocks of `repro_torch.fl.reduction`, each block is taken
 ``cohort_chunk`` clients at a time, and each client's clipped update is
-folded into the block's partial one slot at a time (:func:`chunk_accumulate`
-through `core.clipping.clip_accumulate_tree`: the CUDA dp_clip kernels on
-the default ``clip_path="fused"``). Peak update memory is O(cohort_chunk ·
-|params|), and the sum is bit-identical for every ``cohort_chunk`` dividing
-the block size. ``cohort_chunk=0`` selects the materializing path, kept as
-the reference.
+folded into the block's partial one slot at a time, left to right
+(:func:`chunk_accumulate`: on the default ``clip_path="fused"`` the CUDA
+dp_clip kernels, one sum of squares per client and leaf and one
+accumulate launch per leaf for the whole chunk, through
+`core.clipping.clip_accumulate_chunk_tree`). Peak update memory is
+O(cohort_chunk · |params|), and the sum is bit-identical for every
+``cohort_chunk`` dividing the block size. ``cohort_chunk=0`` selects the
+materializing path, kept as the reference.
 
 The clients of a chunk run one after another (a Python loop where the
 reference vmaps), so a client's delta does not depend on the chunk's width,
@@ -29,7 +31,9 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.configs.base import ClientConfig, DPConfig
-from repro_torch.core.clipping import clip_accumulate_tree, clip_by_global_norm
+from repro_torch.core.clipping import (clip_accumulate_chunk_tree,
+                                       clip_accumulate_tree,
+                                       clip_by_global_norm)
 from repro_torch.fl.reduction import (CANON_BLOCKS, canon_pad, fold_blocks,
                                       resolve_chunk)
 from repro_torch.models.api import Model
@@ -125,9 +129,12 @@ def chunk_accumulate(acc, deltas: List, losses, mask, clip_norm: float, *,
     exactly ±0. ``guard_nonfinite`` rejects a slot whose delta or loss holds
     a non-finite value before it reaches the sum: its values are zeroed
     (NaN·0 is NaN, so zeroing the mask alone would not do) and its mask
-    becomes 0."""
+    becomes 0. On ``clip_path="fused"`` every slot's factor is computed
+    first and the chunk is folded with one accumulate launch per leaf; the
+    bits are those of one `clip_accumulate_tree` per slot."""
     upd, stats = acc
     m = mask.float()
+    slots = []
     for i, delta in enumerate(deltas):
         loss, mi = losses[i], m[i]
         if guard_nonfinite:
@@ -138,8 +145,20 @@ def chunk_accumulate(acc, deltas: List, losses, mask, clip_norm: float, *,
                              delta)
             loss = torch.where(torch.isfinite(loss), loss, 0.0)
             mi = mi * ok
-        upd, norm, flag = clip_accumulate_tree(upd, delta, clip_norm,
-                                               scale=mi, clip_path=clip_path)
+        slots.append((delta, loss, mi))
+    if clip_path == "fused" and slots:
+        upd, norms, flags = clip_accumulate_chunk_tree(
+            upd, [d for d, _, _ in slots], clip_norm,
+            [mi for _, _, mi in slots])
+    else:
+        norms, flags = [], []
+        for delta, _, mi in slots:
+            upd, norm, flag = clip_accumulate_tree(upd, delta, clip_norm,
+                                                   scale=mi,
+                                                   clip_path=clip_path)
+            norms.append(norm)
+            flags.append(flag)
+    for (_, loss, mi), norm, flag in zip(slots, norms, flags):
         stats = stats + torch.stack([norm * mi, flag * mi, loss * mi, mi])
     return upd, stats
 

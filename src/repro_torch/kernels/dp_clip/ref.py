@@ -17,6 +17,17 @@ def clip_accumulate_ref(acc: torch.Tensor, delta: torch.Tensor,
     return acc.float() + factor * delta.float()
 
 
+def clip_accumulate_chunk_ref(acc: torch.Tensor, deltas, factors
+                              ) -> torch.Tensor:
+    """(((acc + f₀·Δ₀) + f₁·Δ₁) + …): the slots folded left to right, each
+    step a rounded product then a rounded sum (``reduction.slot_fold``'s
+    association, the chunk kernel's arithmetic)."""
+    out = acc.float()
+    for c, delta in enumerate(deltas):
+        out = out + factors[c] * delta.float()
+    return out
+
+
 def clip_factor_ref(sumsq, clip_norm: float) -> torch.Tensor:
     """min(1, S / max(√sumsq, 1e-12)) — a device scalar, no host sync."""
     norm = torch.sqrt(sumsq)

@@ -7,9 +7,13 @@ layout — q (B, Sq, H, hd), k and v (B, Sk, KV, hd) — and returns
 (B, H, S, hd), repeats the KV heads and pads S to 128; the CUDA kernel
 (``csrc/flash_attention_fwd.cu``) does none of that: it reads the tensors
 through their strides, maps head h to KV head h / (H / KV) and masks at the
-true Sk itself. For tensors on the CPU the wrapper computes the plain
-version (`ref.flash_attention_ref`); for CUDA tensors it launches the kernel
-or raises. ``LAUNCHES["flash_attention_fwd"]`` counts kernel launches only.
+true Sk itself. bfloat16 inputs run on the tensor cores (``mma.sync`` on
+bf16 tiles, the probabilities rounded to bf16 before PV); float32 inputs on
+the CUDA cores, in float32 throughout. For tensors on the CPU the wrapper
+computes the plain version (`ref.flash_attention_ref`); for CUDA tensors it
+launches the kernel or raises. ``LAUNCHES["flash_attention_fwd"]`` counts
+every kernel launch, ``LAUNCHES["flash_attention_fwd_tc"]`` those of the
+tensor-core (bf16) form.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-LAUNCHES = {"flash_attention_fwd": 0}
+LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_fwd_tc": 0}
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -93,4 +97,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                            f"H={H}, KV={KV}, hd={hd}, {q.dtype}; the kernel "
                            f"takes hd <= 128 and B, H <= 65535)")
     LAUNCHES["flash_attention_fwd"] += 1
+    if q.dtype == torch.bfloat16:
+        LAUNCHES["flash_attention_fwd_tc"] += 1
     return out

@@ -12,9 +12,12 @@ cache (one query, ``kv_len = pos + 1``) is the plain `layers.attention` on
 every device, as in the reference, which has no kernel for it either.
 
 Numerics: the reference's plain attention rounds its probabilities to the
-compute dtype before the PV product; the flash kernel keeps them in float32,
-as the TPU kernel does. In bfloat16 the card's prefill therefore differs
-from the reference by rounding; in float32 the two agree.
+compute dtype before the PV product. The flash kernel does the same for
+bfloat16 inputs (its tensor-core form rounds the unnormalised P to bf16
+before PV and divides by the float32 row sum once, where the TPU kernel
+keeps P in float32), and keeps P in float32 for float32 inputs. In bfloat16
+the card's prefill therefore differs from the reference by the order of its
+sums and where it rounds; in float32 the two agree.
 
 The decode step writes the new token's K and V into the cache's ``k`` and
 ``v`` in place (the reference returns updated copies): the returned cache

@@ -9,9 +9,12 @@ JAX nor the JAX package, so it runs on a host that has only PyTorch:
 Tolerances: float32 results differ from the plain cell only in the order of
 the sums, so atol 1e-5 / rtol 1e-4; with bfloat16 products a one-ulp
 difference in a float32 sum can flip the bfloat16 rounding of h, so
-atol 3e-2. Flash attention: float32 within 1e-5 (the sum order differs), bfloat16
-within 2e-2 (the plain version's float32 output is rounded once). SSD scan:
-1e-4 relative to the largest output (float32 sums in another order).
+atol 3e-2. Flash attention: float32 within 1e-5 (the sum order differs),
+bfloat16 within 2e-2 (the tensor-core kernel rounds P to bf16 before PV and
+its output once; the plain version rounds its float32 output once). SSD
+scan: 1e-4 relative to the largest output (float32 sums in another order).
+The dp_clip accumulate is held bitwise: each step is a rounded product and
+a rounded sum in slot order, however many slots one launch folds.
 """
 import numpy as np
 import pytest
@@ -181,6 +184,79 @@ def test_clip_kernels_match_plain_on_card(cuda_device, n):
         before["dp_clip_accumulate"] + 2
 
 
+def _chunk_inputs(C, n, dev, seed, offset=0):
+    """acc, C deltas and C factors (one of them 0); with ``offset`` 1 the
+    tensors are views one element into their storage (not 16-byte
+    aligned)."""
+    rng = np.random.default_rng(seed)
+
+    def t(scale=1.0):
+        a = (rng.standard_normal(n + offset) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev)[offset:]
+
+    f = rng.uniform(0.1, 1.0, C).astype(np.float32)
+    f[C // 2] = 0.0
+    return t(), [t(0.3) for _ in range(C)], torch.from_numpy(f).to(dev)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 127, 32769, 983040])
+@pytest.mark.parametrize("C", [1, 2, 7, 16, 32])
+def test_chunk_accumulate_kernel_is_bitwise_one_client_launches(
+        cuda_device, C, n, offset):
+    from repro_torch.kernels.dp_clip import LAUNCHES as CLIP_LAUNCHES
+    from repro_torch.kernels.dp_clip import (clip_accumulate_chunk_leaf,
+                                             clip_accumulate_leaf)
+    from repro_torch.kernels.dp_clip.ref import clip_accumulate_chunk_ref
+
+    acc, deltas, f = _chunk_inputs(C, n, cuda_device, C * n + offset, offset)
+    assert (acc.data_ptr() % 16 == 0) == (offset == 0)
+    before = CLIP_LAUNCHES["dp_clip_accumulate"]
+    got = clip_accumulate_chunk_leaf(acc, deltas, f)
+    assert CLIP_LAUNCHES["dp_clip_accumulate"] == before + 1
+    seq = acc
+    for c in range(C):
+        seq = clip_accumulate_leaf(seq, deltas[c], f[c])
+    torch.cuda.synchronize()
+    assert torch.equal(got, seq)
+    assert torch.equal(got, clip_accumulate_chunk_ref(acc, deltas, f))
+
+
+@pytest.mark.parametrize("C", [1, 16, 32])
+def test_chunk_accumulate_kernel_zero_factor_and_aliasing(cuda_device, C):
+    from repro_torch.kernels.dp_clip import clip_accumulate_chunk_leaf
+    from repro_torch.kernels.dp_clip.ref import clip_accumulate_chunk_ref
+
+    n = 32771
+    acc, deltas, f = _chunk_inputs(C, n, cuda_device, C)
+    garbage = [torch.full_like(acc, 1e30 if c % 2 else -1e30)
+               for c in range(C)]
+    zeros = torch.zeros((C,), device=cuda_device)
+    assert torch.equal(clip_accumulate_chunk_leaf(acc, garbage, zeros), acc)
+    # a masked slot (factor 0) over garbage among live slots adds ±0
+    mixed = list(deltas)
+    mixed[C // 2] = garbage[0]
+    assert torch.equal(clip_accumulate_chunk_leaf(acc, mixed, f),
+                       clip_accumulate_chunk_leaf(acc, deltas, f))
+    want = clip_accumulate_chunk_ref(acc, deltas, f)
+    inplace = acc.clone()
+    out = clip_accumulate_chunk_leaf(inplace, deltas, f, out=inplace)
+    torch.cuda.synchronize()
+    assert out is inplace and torch.equal(inplace, want)
+
+
+def test_chunk_accumulate_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    from repro_torch.kernels.dp_clip import clip_accumulate_chunk_leaf
+
+    acc, deltas, f = _chunk_inputs(4, 64, cuda_device, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        clip_accumulate_chunk_leaf(
+            acc, [torch.stack([d, d], dim=1)[:, 0] for d in deltas], f)
+    with pytest.raises(ValueError, match="is on"):
+        clip_accumulate_chunk_leaf(acc, deltas, f.cpu())
+
+
 def test_round_sum_is_bitwise_across_chunks_on_card(cuda_device):
     from repro_torch.configs import ClientConfig, DPConfig
     from repro_torch.fl.client import round_compute
@@ -220,7 +296,8 @@ def _flash_inputs(B, Sq, Sk, H, KV, hd, dtype, dev, seed):
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
     (2, 256, 256, 4, 2, 64), (1, 100, 100, 2, 1, 32),
     (1, 200, 200, 4, 4, 80), (2, 130, 130, 4, 1, 96),
-    (1, 64, 300, 2, 2, 128)])
+    (1, 64, 300, 2, 2, 128), (1, 96, 200, 4, 2, 32),
+    (2, 200, 70, 4, 4, 112)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV,
                                             hd, causal, window, dtype):
     from repro_torch.kernels.flash_attention import (LAUNCHES as FA,
@@ -228,10 +305,13 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV,
                                                      flash_attention_ref)
 
     q, k, v = _flash_inputs(B, Sq, Sk, H, KV, hd, dtype, cuda_device, hd)
-    before = FA["flash_attention_fwd"]
+    before = dict(FA)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert FA["flash_attention_fwd"] == before + 1
+    assert FA["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    # bf16 runs on the tensor cores, f32 on the CUDA cores
+    assert FA["flash_attention_fwd_tc"] == \
+        before["flash_attention_fwd_tc"] + (dtype == "bfloat16")
     assert out.dtype == q.dtype and out.shape == q.shape
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == "bfloat16" else 1e-5
@@ -254,6 +334,30 @@ def test_flash_kernel_reads_strided_views_and_rows_do_not_depend_on_batch(
                   for t in qkv)
     assert pq.stride(2) == 2 * 80 and not pq.is_contiguous()
     assert torch.equal(flash_attention(pq, pk, pv), full)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128),
+                                           (False, 0)])
+def test_flash_tc_rows_do_not_depend_on_batch(cuda_device, causal, window):
+    """The tensor-core kernel at zamba2's head dim: a row's bf16 output is
+    the same bits whatever else is in the batch, and whether q, k and v
+    take 16-byte copies or (views 2 bytes off alignment) plain loads."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES as FA,
+                                                     flash_attention)
+
+    qkv = _flash_inputs(4, 300, 300, 8, 8, 80, "bfloat16", cuda_device, 2)
+    before = FA["flash_attention_fwd_tc"]
+    full = flash_attention(*qkv, causal=causal, window=window)
+    for b in (0, 3):
+        one = flash_attention(*(t[b:b + 1] for t in qkv), causal=causal,
+                              window=window)
+        assert torch.equal(one[0], full[b])
+    off = [torch.cat([torch.zeros_like(t[..., :1]), t], dim=-1)[..., 1:]
+           for t in qkv]
+    assert off[0].data_ptr() % 16 == 2
+    assert torch.equal(flash_attention(*off, causal=causal, window=window),
+                       full)
+    assert FA["flash_attention_fwd_tc"] == before + 4
 
 
 def _ssd_inputs(B, S, H, p, N, dev, seed):

@@ -5,7 +5,8 @@ their interpreter, `core.clipping`, the canonical reduction
 against the reference's on the same stacked batches. Also the port's own
 invariants: a masked slot adds exactly ±0 even over 1e30 garbage, and the
 round sum is bitwise the same for every ``cohort_chunk`` dividing the block
-size.
+size, and one accumulate over a chunk of clients gives the bits of one per
+client and of the reference's ``reduction.slot_fold``.
 
 Tolerances: sums of squares differ only in their order (float32, rtol
 1e-5); clipped sums and stats of a round at float32 compute within
@@ -31,7 +32,10 @@ from repro_torch.core.clipping import (clip_accumulate_tree,
                                        clip_by_global_norm)
 from repro_torch.fl import reduction
 from repro_torch.fl.client import chunk_accumulate, round_compute
-from repro_torch.kernels.dp_clip import (LAUNCHES, clip_accumulate,
+from repro_torch.kernels.dp_clip import (LAUNCHES, MAX_CHUNK,
+                                         clip_accumulate,
+                                         clip_accumulate_chunk,
+                                         clip_accumulate_chunk_leaf,
                                          clip_accumulate_leaf, fused_sumsq,
                                          sumsq)
 from repro_torch.models import build
@@ -125,6 +129,120 @@ def test_leaf_wrappers_reject_what_the_kernels_do_not_take(bad):
     else:
         with pytest.raises(ValueError):
             clip_accumulate_leaf(acc.to("meta"), delta, f)
+
+
+def _chunk(C, n, seed):
+    """acc, C deltas and C factors from numpy: slot 1 masked (factor 0)
+    over 1e30 garbage, the rest clip factors in (0, 1]."""
+    rng = np.random.default_rng(seed)
+    acc = rng.standard_normal(n).astype(np.float32)
+    deltas = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+              for _ in range(C)]
+    f = rng.uniform(0.05, 1.0, C).astype(np.float32)
+    if C > 1:
+        deltas[1] = np.where(np.arange(n) % 2, 1e30, -1e30).astype(np.float32)
+        f[1] = 0.0
+    return acc, deltas, f
+
+
+@pytest.mark.parametrize("n", [1, 127, 4099])
+@pytest.mark.parametrize("C", [1, 2, 7, 16, 32])
+def test_chunk_accumulate_leaf_is_one_client_calls_and_slot_fold(C, n):
+    """On the CPU the chunk wrapper is its plain version: bitwise C calls of
+    the one-client wrapper, and the reference's slot_fold over the same
+    products (f·Δ rounded to float32, then summed left to right)."""
+    acc, deltas, f = _chunk(C, n, seed=C * 1000 + n)
+    before = dict(LAUNCHES)
+    got = clip_accumulate_chunk_leaf(
+        torch.from_numpy(acc), [torch.from_numpy(d) for d in deltas],
+        torch.from_numpy(f))
+    assert LAUNCHES == before                     # no kernel on the CPU
+    seq = torch.from_numpy(acc)
+    for c in range(C):
+        seq = clip_accumulate_leaf(seq, torch.from_numpy(deltas[c]),
+                                   torch.tensor(f[c]))
+    assert torch.equal(got, seq)
+    products = np.stack([f[c] * deltas[c] for c in range(C)])
+    want = jred.slot_fold({"x": jnp.asarray(acc)},
+                          {"x": jnp.asarray(products)})["x"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.isfinite(got.numpy()).all()         # the garbage added ±0
+    out = torch.from_numpy(acc.copy())
+    assert clip_accumulate_chunk_leaf(
+        out, [torch.from_numpy(d) for d in deltas], torch.from_numpy(f),
+        out=out) is out
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("bad", ["empty", "too_many", "shape", "factors",
+                                 "dtype", "factor_dtype"])
+def test_chunk_accumulate_leaf_rejects_what_the_kernel_does_not_take(bad):
+    acc, d, f = torch.zeros(8), torch.ones(8), torch.ones(1)
+    args = {"empty": (acc, [], torch.ones(0)),
+            "too_many": (acc, [d] * (MAX_CHUNK + 1),
+                         torch.ones(MAX_CHUNK + 1)),
+            "shape": (acc, [d, torch.ones(9)], torch.ones(2)),
+            "factors": (acc, [d, d], torch.ones(3)),
+            "dtype": (acc, [d.double()], f),
+            "factor_dtype": (acc, [d], f.half())}[bad]
+    err = TypeError if "dtype" in bad else ValueError
+    with pytest.raises(err):
+        clip_accumulate_chunk_leaf(*args)
+
+
+def _per_slot_chunk_accumulate(acc, deltas, losses, mask, clip_norm,
+                               guard_nonfinite):
+    """The fold chunk_accumulate replaced: one clip_accumulate_tree (one
+    accumulate launch per leaf) per slot, stats added slot by slot."""
+    upd, stats = acc
+    m = mask.float()
+    for i, delta in enumerate(deltas):
+        loss, mi = losses[i], m[i]
+        if guard_nonfinite:
+            ok = torch.stack([torch.isfinite(l).all()
+                              for l in tree_leaves(delta)]
+                             + [torch.isfinite(loss)]).all().float()
+            delta = tree_map(lambda l: torch.where(torch.isfinite(l), l, 0.0),
+                             delta)
+            loss = torch.where(torch.isfinite(loss), loss, 0.0)
+            mi = mi * ok
+        upd, norm, flag = clip_accumulate_tree(upd, delta, clip_norm,
+                                               scale=mi)
+        stats = stats + torch.stack([norm * mi, flag * mi, loss * mi, mi])
+    return upd, stats
+
+
+@pytest.mark.parametrize("guard", [False, True])
+@pytest.mark.parametrize("C", [1, 5, 40])
+def test_chunk_accumulate_is_bitwise_the_per_slot_loop(C, guard):
+    """One accumulate per leaf for the chunk (in runs of at most MAX_CHUNK
+    slots) gives the bits of the per-slot loop: masked slots, a slot over
+    1e30 garbage under a zero mask and, with the guard, a NaN slot."""
+    deltas = [_tree(40 + i, 0.3) for i in range(C)]
+    losses = np.linspace(1.0, 2.0, C).astype(np.float32)
+    mask = np.ones(C, np.float32)
+    if C > 1:
+        mask[1] = 0.0
+        deltas[1] = tree_map(lambda l: np.full_like(l, 1e30), deltas[1])
+    if C > 2:
+        deltas[2]["c"]["d"][3, 4] = np.nan if guard else 0.0
+        losses[2] = np.nan if guard else losses[2]
+    acc = (_t(_tree(7)), torch.tensor([0.5, 1.0, 2.0, 3.0]))
+    args = ([_t(d) for d in deltas], torch.from_numpy(losses),
+            torch.from_numpy(mask), 0.05)
+    got = chunk_accumulate(acc, *args, guard_nonfinite=guard)
+    want = _per_slot_chunk_accumulate(acc, *args, guard_nonfinite=guard)
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        assert torch.equal(a, b)
+    # bits, not values: the garbage slot's norm is inf, and inf·0 is NaN
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    if guard and C > 2:
+        assert float(got[1][3]) == 3.0 + C - 2  # the NaN slot is dropped
+    # the tree-level chunk call: the norms of the unmasked deltas
+    new, norms = clip_accumulate_chunk(acc[0], args[0][:1], 0.05, [None])
+    assert len(norms) == 1 and float(norms[0]) > 0
+    assert torch.equal(tree_leaves(new)[0], tree_leaves(
+        clip_accumulate(acc[0], args[0][0], 0.05)[0])[0])
 
 
 @pytest.mark.parametrize("clip_norm", [0.5, 100.0])

@@ -95,3 +95,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k[..., :8], v[..., :8])
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_path_moves_neither_launch_counter(dtype):
+    """Both counters, the tensor-core one included, count kernel launches
+    only; on the CPU the wrapper is the plain version in either dtype."""
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _inputs(1, 70, 70, 4, 2, 80, 5))
+    before = dict(LAUNCHES)
+    assert set(before) == {"flash_attention_fwd", "flash_attention_fwd_tc"}
+    out = flash_attention(q, k, v, causal=True)
+    assert LAUNCHES == before
+    assert torch.equal(out, flash_attention_ref(q, k, v, causal=True))
