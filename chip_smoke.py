@@ -48,7 +48,10 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM
 PEAK_OPS_PER_S = {"bfloat16": 989e12,      # dense tensor-core rate
-                  "float32": 67e12}        # outside the tensor cores
+                  "float32": 67e12,        # outside the tensor cores
+                  # float32 products as three TF32 products (3xTF32) at
+                  # the tensor cores' 495 TFLOP/s in TF32
+                  "float32_3xtf32": 495e12 / 3}
 
 # tolerances of kernel vs plain over 16 chained steps: float32 differs only
 # in the order of the sum; bfloat16 can flip the rounding of h by one ulp
@@ -174,23 +177,32 @@ def phase_build() -> dict:
     return info
 
 
-def _cell_inputs(B, H, gen, dev):
+def _cell_inputs(B, H, gen, dev, S=16):
     import torch
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    return (randn(16, B, 3 * H), randn(B, H, scale=0.3),
+    return (randn(S, B, 3 * H), randn(B, H, scale=0.3),
             randn(B, H, scale=0.3), randn(H, 3 * H, scale=H ** -0.5))
 
 
+# the cell kernel's main-path shapes (B, S): a serving decode tick, a
+# training client batch, an admission prefill of a 16-token prompt
+CELL_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16))
+
+
 def phase_kernel(dev) -> dict:
-    """cifg_cell_fwd vs cifg_cell_ref on the card: bf16 and f32, ragged
-    (B 3, H 200) and full shapes, 16 chained steps; the row-position check;
-    timings."""
+    """cifg_cell_fwd (one launch per sequence) vs the plain recurrence on
+    the card: bf16 and f32, B 1, 3, 10, 256 x H 64, 200, 256 (ragged), 16
+    steps; bitwise: rows independent of B and position, the prefix property
+    and S = 1 chaining; a refused width raises; timings at the decode,
+    training and prefill shapes."""
     import torch
 
-    from repro_torch.kernels.cifg_cell import cell_fwd, cifg_cell_ref
+    from repro_torch.kernels.cifg_cell import (MAX_HIDDEN, cell_fwd,
+                                               cell_seq_fwd, cifg_cell_ref,
+                                               cifg_states)
     from repro_torch.utils.numerics import round_to
 
     gen = torch.Generator().manual_seed(1234)
@@ -198,95 +210,134 @@ def phase_kernel(dev) -> dict:
     for cd in (torch.bfloat16, torch.float32):
         name = str(cd).split(".")[-1]
         atol, rtol = TOL[name]
-        for B in (1, 3, 256):
+        for B in (1, 3, 10, 256):
             for H in (64, 200, 256):
                 zxs, h0, c0, w = _cell_inputs(B, H, gen, dev)
                 w = w.to(cd)
-                hk, ck, hr, cr = h0, c0, h0, c0
-                err_h = err_c = 0.0
-                for t in range(16):
-                    hk, ck = cell_fwd(zxs[t], hk, ck, w)
-                    hr, cr = cifg_cell_ref(zxs[t], hr, cr, w)
-                    torch.cuda.synchronize()
-                    for a, b in ((hk, hr), (ck, cr)):
-                        if not bool(torch.isfinite(a).all()):
-                            fail(f"kernel output not finite ({name} B={B} "
-                                 f"H={H} step {t})")
-                        if not bool(((a - b).abs()
-                                     <= atol + rtol * b.abs()).all()):
-                            fail(f"kernel disagrees with plain ({name} B={B} "
-                                 f"H={H} step {t}): max abs err "
-                                 f"{float((a - b).abs().max()):.3e}")
-                    err_h = max(err_h, float((hk - hr).abs().max()))
-                    err_c = max(err_c, float((ck - cr).abs().max()))
+                hk, ck = cell_seq_fwd(zxs, h0, c0, w)
+                hr, cr = cifg_states(zxs, h0, c0, w, cell="seq")
+                torch.cuda.synchronize()
+                for what, a, b in (("h", hk, hr), ("c", ck, cr)):
+                    if not bool(torch.isfinite(a).all()):
+                        fail(f"kernel {what} not finite ({name} B={B} H={H})")
+                    if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+                        fail(f"kernel disagrees with plain ({name} B={B} "
+                             f"H={H}): max abs err "
+                             f"{float((a - b).abs().max()):.3e}")
+                err_h = float((hk - hr).abs().max())
+                err_c = float((ck - cr).abs().max())
                 worst = max(worst, err_h, err_c)
-                say(f"kernel: cifg_cell_fwd {name} B={B} H={H} 16 steps: "
-                    f"max abs err h {err_h:.3e} c {err_c:.3e} "
-                    f"(tol atol {atol:g} rtol {rtol:g})")
+                # the prefix property and S = 1 chaining, bit for bit
+                for t in (0, 4, 15):
+                    hp, cp = cell_seq_fwd(zxs[:t + 1].contiguous(), h0, c0, w)
+                    if not (torch.equal(hp[-1], hk[t])
+                            and torch.equal(cp[-1], ck[t])):
+                        fail(f"kernel prefix property broken at step {t} "
+                             f"({name} B={B} H={H})")
+                h, c = h0, c0
+                for t in range(16):
+                    h, c = cell_fwd(zxs[t], h, c, w)
+                if not (torch.equal(h, hk[-1]) and torch.equal(c, ck[-1])):
+                    fail(f"16 chained one-step launches differ from one "
+                         f"16-step launch ({name} B={B} H={H})")
+                say(f"kernel: cifg_cell_fwd {name} B={B} H={H} 16 steps in "
+                    f"one launch: max abs err h {err_h:.3e} c {err_c:.3e} "
+                    f"(tol atol {atol:g} rtol {rtol:g}); prefix and 16 "
+                    f"chained S=1 launches bitwise equal")
 
     # the engine (B = slots) must match the reference (B = 1) bit for bit
-    zxs, h0, c0, w = _cell_inputs(256, 256, gen, dev)
-    w = w.to(torch.bfloat16)
-    hb, cb = cell_fwd(zxs[0], h0, c0, w)
-    for r in (0, 17, 255):
-        h1, c1 = cell_fwd(zxs[0, r:r + 1].contiguous(),
-                          h0[r:r + 1].contiguous(), c0[r:r + 1].contiguous(),
-                          w)
-        if not (torch.equal(h1[0], hb[r]) and torch.equal(c1[0], cb[r])):
-            fail(f"kernel row {r} differs between B=256 and B=1")
-    say("kernel: rows of B=256 are bitwise those of B=1")
+    for cd in (torch.bfloat16, torch.float32):
+        zxs, h0, c0, w = _cell_inputs(256, 256, gen, dev)
+        w = w.to(cd)
+        hb, cb = cell_seq_fwd(zxs, h0, c0, w)
+        for r in (0, 17, 255):
+            h1, c1 = cell_seq_fwd(zxs[:, r:r + 1].contiguous(),
+                                  h0[r:r + 1].contiguous(),
+                                  c0[r:r + 1].contiguous(), w)
+            if not (torch.equal(h1[:, 0], hb[:, r])
+                    and torch.equal(c1[:, 0], cb[:, r])):
+                fail(f"kernel row {r} differs between B=256 and B=1 ({cd})")
+    say("kernel: rows of B=256 are bitwise those of B=1 over 16 steps, bf16 "
+        "and f32")
+    zxs, h0, c0, w = _cell_inputs(2, MAX_HIDDEN + 8, gen, dev, S=2)
+    try:
+        cell_seq_fwd(zxs, h0, c0, w.to(torch.bfloat16))
+    except RuntimeError as e:
+        say(f"kernel: H={MAX_HIDDEN + 8} refused as it should be: {e}")
+    else:
+        fail(f"cifg_cell_fwd took H={MAX_HIDDEN + 8} above its limit")
 
-    # timings at the decode shape of the serving path: device time (CUDA
-    # graph) for the kernel, its plain version and the PyTorch yardstick;
-    # then the time of one eager call through the wrapper
-    B, H, cd = 256, 256, torch.bfloat16
-    zx, h, c = zxs[0], h0, c0
-    w32 = round_to(w, cd)
+    # timings at the main path's shapes: device time (CUDA graph) of the
+    # kernel, of its plain version and of the PyTorch yardstick (S x addmm
+    # + gates); then one eager call through the wrapper
+    H, cd = 256, torch.bfloat16
+    rows = {}
+    for what, B, S in CELL_SHAPES:
+        zx, h0, c0, w = _cell_inputs(B, H, gen, dev, S=S)
+        w = w.to(cd)
+        w32 = round_to(w, cd)
+        hs = torch.empty((S, B, H), device=dev)
+        cs = torch.empty_like(hs)
 
-    def library():
-        z = torch.addmm(zx, round_to(h, cd), w32)
-        f = torch.sigmoid(z[:, :H] + 1.0)
-        o = torch.sigmoid(z[:, H:2 * H])
-        g = torch.tanh(z[:, 2 * H:])
-        cn = f * c + (1.0 - f) * g
-        return o * torch.tanh(cn), cn
+        def library():
+            h, c = h0, c0
+            for t in range(S):
+                z = torch.addmm(zx[t], round_to(h, cd), w32)
+                f = torch.sigmoid(z[:, :H] + 1.0)
+                o = torch.sigmoid(z[:, H:2 * H])
+                g = torch.tanh(z[:, 2 * H:])
+                c = f * c + (1.0 - f) * g
+                h = o * torch.tanh(c)
+            return h, c
 
-    zx1, h1, c1 = (t[:1].contiguous() for t in (zx, h, c))
-    ms = graph_time_ms(lambda: cell_fwd(zx, h, c, w))
-    plain_ms = graph_time_ms(lambda: cifg_cell_ref(zx, h, c, w))
-    library_ms = graph_time_ms(library)
-    ms_b1 = graph_time_ms(lambda: cell_fwd(zx1, h1, c1, w))
-    eager_ms = cuda_time_ms(lambda: cell_fwd(zx, h, c, w), 2000)
-    eager_b1 = cuda_time_ms(lambda: cell_fwd(zx1, h1, c1, w), 2000)
-    nbytes = (zx.numel() + h.numel() + c.numel() + 2 * B * H) * 4 \
-        + w.numel() * w.element_size()
-    ops = 2 * B * H * 3 * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    say(f"kernel: cifg_cell_fwd bf16 B={B} H={H}, device time: "
-        f"{ms * 1e3:.2f} us/launch; plain {plain_ms * 1e3:.2f} us; "
-        f"addmm+gates {library_ms * 1e3:.2f} us; bound "
-        f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
-        f"GFLOP); B=1 (a prefill step) {ms_b1 * 1e3:.2f} us")
-    say(f"kernel: cifg_cell_fwd one eager call through the wrapper: B={B} "
-        f"{eager_ms * 1e3:.2f} us, B=1 {eager_b1 * 1e3:.2f} us")
+        def plain():
+            h, c = h0, c0
+            for t in range(S):
+                h, c = cifg_cell_ref(zx[t], h, c, w)
+            return h, c
+
+        ms = graph_time_ms(lambda: cell_seq_fwd(zx, h0, c0, w, hs=hs, cs=cs))
+        plain_ms = graph_time_ms(plain, per_graph=max(1, 50 // S))
+        library_ms = graph_time_ms(library, per_graph=max(1, 50 // S))
+        eager_ms = cuda_time_ms(lambda: cell_seq_fwd(zx, h0, c0, w, hs=hs,
+                                                     cs=cs), 1000)
+        nbytes = (zx.numel() + 2 * B * H + 2 * S * B * H) * 4 \
+            + w.numel() * w.element_size()
+        ops = 2 * S * B * H * 3 * H
+        bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
+        rows[what] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        say(f"kernel: cifg_cell_fwd bf16 {what} B={B} S={S} H={H}, device "
+            f"time: {ms * 1e3:.2f} us/launch ({ms * 1e3 / S:.2f} us a step); "
+            f"plain {plain_ms * 1e3:.2f} us; {S} x (addmm + gates) "
+            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+            f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP, {bound_by}); one "
+            f"eager call {eager_ms * 1e3:.2f} us")
+    for cd in (torch.bfloat16, torch.float32):
+        zx, h0, c0, w = _cell_inputs(256, 256, gen, dev, S=1)
+        w = w.to(cd)
+        regs, smem, blocks = kernel_resources(
+            lambda: cell_seq_fwd(zx, h0, c0, w), "cifg_seq_kernel")
+        say(f"kernel: cifg_cell_fwd {str(cd).split('.')[-1]}, from the "
+            f"profiler's trace: {regs} registers per thread, {smem} bytes of "
+            f"shared memory per block of 192 threads (clusters of 8): "
+            f"{blocks} resident blocks per SM")
+    # the row of the kernels line: the decode tick's shape, as before
     return {"name": "cifg_cell_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/cifg_cell/csrc/cifg_cell_fwd.cu",
             "replaces": "src/repro/kernels/cifg_cell/cifg_cell.py:77",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "max_abs_err": worst, **rows["decode"]}
 
 
 def _counting(fn, counts: dict, key: str, launches: dict):
     """Wrap a model entry point: add the kernel launches made inside each
-    call to ``counts[key]``."""
+    call to ``counts[key]`` and the calls to ``counts[key + "_calls"]``."""
     def wrapped(*args, **kw):
         before = launches["cifg_cell_fwd"]
         out = fn(*args, **kw)
         counts[key] += launches["cifg_cell_fwd"] - before
+        counts[key + "_calls"] += 1
         return out
     return wrapped
 
@@ -354,7 +405,8 @@ def phase_serve(dev, kernel: dict) -> dict:
         fail(f"fused forward disagrees with the plain cell: {fwd_err:.3e}")
 
     launches = cell_ops.LAUNCHES
-    counts = {"prefill": 0, "decode": 0}
+    counts = {"prefill": 0, "decode": 0, "prefill_calls": 0,
+              "decode_calls": 0}
     counted = model._replace(
         prefill=_counting(model.prefill, counts, "prefill", launches),
         decode_step=_counting(model.decode_step, counts, "decode", launches))
@@ -395,8 +447,12 @@ def phase_serve(dev, kernel: dict) -> dict:
     total_launches = launches["cifg_cell_fwd"]
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
 
-    if counts["prefill"] <= 0 or counts["decode"] <= 0:
-        fail(f"cell kernel not launched on both paths: {counts}")
+    # one launch per prefill (the whole prompt) and per decode tick
+    if counts["prefill"] <= 0 or counts["decode"] <= 0 \
+            or counts["prefill"] != counts["prefill_calls"] \
+            or counts["decode"] != counts["decode_calls"]:
+        fail(f"cell kernel not launched once per prefill and per decode "
+             f"step: {counts}")
     if not engine.bucketed_admission:
         fail("bucketed admission is off: the length probe failed")
     results = [engine.result(s) for s in sids]
@@ -438,8 +494,8 @@ def phase_serve(dev, kernel: dict) -> dict:
         f"{np.percentile(adm, 99):.2f} ms; peak device memory "
         f"{peak_mb:.1f} MiB; cell kernel {kernel['ms'] * 1e3:.2f} us = "
         f"{100 * kernel['ms'] / tick:.2f}% of a decode tick; launches "
-        f"prefill {counts['prefill']} decode {counts['decode']} (1 per "
-        f"tick); swap at tick {swap_tick}, {straddled} sessions crossed "
+        f"prefill {counts['prefill']} (1 per prefill call) decode "
+        f"{counts['decode']} (1 per tick); swap at tick {swap_tick}, {straddled} sessions crossed "
         f"it; 16/16 sampled sessions match reference_generate; fused vs "
         f"plain forward max abs err {fwd_err:.2e}")
 
@@ -455,10 +511,14 @@ def phase_serve(dev, kernel: dict) -> dict:
     return {"launches": total_launches}
 
 
-def _bound(nbytes: float, ops: float, dtype: str):
-    """(bound_ms, bound_by) of work moving ``nbytes`` and doing ``ops``."""
+def _bound(nbytes: float, ops, dtype: str | None = None):
+    """(bound_ms, bound_by) of work moving ``nbytes`` and doing ``ops`` at
+    ``dtype``'s peak rate; or, with no ``dtype``, ``ops`` maps each rate of
+    ``PEAK_OPS_PER_S`` to the operations done at it, and their times add."""
+    if dtype is not None:
+        ops = {dtype: ops}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -826,7 +886,8 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
     # one accumulate launch per leaf per live chunk (every chunk of a full
     # round of a multiple of 8 clients is live)
     chunks = clients // resolve_chunk(None, cohort // 8)
-    want = {"cifg_cell_fwd": seq_len * n_batches * clients,
+    # one cell launch per client batch (the whole sequence)
+    want = {"cifg_cell_fwd": n_batches * clients,
             "dp_sumsq": 5 * clients, "dp_clip_accumulate": 5 * chunks}
     for k, v in want.items():
         if launches[k] != v:
@@ -1133,24 +1194,34 @@ def _ssd_inputs(B, S, H, p, N, gen, dev):
     return [t.to(dev) for t in (x, dt, Bm, Cm, A)]
 
 
-def _ssd_ops(B: int, S: int, H: int, p: int, N: int) -> int:
+def _ssd_ops(B: int, S: int, H: int, p: int, N: int) -> dict:
     """Operations the chunked scan needs for these shapes from a zero
-    state. B and C have no head axis, so the lower triangle of C·Bᵀ is
-    needed once per (b, chunk); per (b, h, chunk) its two scalings (by L and
-    by dt) and W·x on the lower triangle, C·state for every chunk after the
-    first, and the state update."""
+    state, by the rate they run at: the float32 products in 3xTF32 on the
+    tensor cores, the elementwise scalings on the CUDA cores. B and C have
+    no head axis, so the lower triangle of C·Bᵀ is needed once per
+    (b, chunk); per (b, h, chunk) W·x on the lower triangle and the state
+    update, and C·state for every chunk after the first. The scalings: the
+    triangle by L and by dt, B by dt·decay for the state update, C by
+    exp(cum) for C·state."""
     Q, chunks = 128, -(-S // 128)
     tri = Q * (Q + 1) // 2
-    per_head = tri * 2 + tri * 2 * p + Q * N * (2 * p + 1)
-    return (B * chunks * tri * 2 * N
-            + B * H * (chunks * per_head + (chunks - 1) * Q * N * p * 2))
+    products = (B * chunks * tri * 2 * N
+                + B * H * (chunks * (tri * 2 * p + Q * N * 2 * p)
+                           + (chunks - 1) * Q * N * p * 2))
+    scalings = B * H * (chunks * (tri * 2 + Q * N) + (chunks - 1) * Q * N)
+    return {"float32_3xtf32": products, "float32": scalings}
 
 
 def phase_kernel_ssd(dev) -> dict:
     """ssd_scan vs the plain chunked scan at the hybrid prefill's shape
     (B 4, S 512, H 80, p 64, N 64) and around it (N 128, S 200, S 128), y
-    and the final state; timed at the path's shape against its bound and
-    the plain version (no single PyTorch call computes the scan)."""
+    and the final state; bitwise: a subset of the heads (A sliced to match)
+    equals those heads of the full call, and bf16 inputs give the result of
+    their f32 casts; timed at the path's shape (bf16 inputs, as the model
+    gives them; those inputs cast to f32 first, as a wrapper without the
+    bf16 kernels would; and f32) and at mamba2-370m's (H 32, p 64, N 128)
+    against the bound and the plain version (no single PyTorch call computes
+    the scan)."""
     import torch
     import torch.nn.functional as F
 
@@ -1178,30 +1249,65 @@ def phase_kernel_ssd(dev) -> dict:
                      f"H={H} p={p} N={N}): rel err {rel:.3e}")
             errs.append(rel)
             worst = max(worst, err)
+        heads = torch.tensor([0, H // 3, H - 1], device=dev)
+        ys, sts = ssd_scan(x[:, :, heads].contiguous(),
+                           dt[:, :, heads].contiguous(), Bm, Cm,
+                           A[heads].contiguous())
+        if not (torch.equal(ys, y[:, :, heads])
+                and torch.equal(sts, st[:, heads])):
+            fail(f"ssd_scan heads {heads.tolist()} alone differ from the "
+                 f"full call (B={B} S={S} H={H} p={p} N={N})")
+        xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+        yb, sb = ssd_scan(xb, dt, Bb, Cb, A)
+        yf, sf = ssd_scan(xb.float(), dt, Bb.float(), Cb.float(), A)
+        if not (torch.equal(yb, yf) and torch.equal(sb, sf)):
+            fail(f"ssd_scan on bf16 inputs differs from their f32 casts "
+                 f"(B={B} S={S} H={H} p={p} N={N})")
         say(f"kernel: ssd_scan B={B} S={S} H={H} p={p} N={N}: err / max "
-            f"|plain| y {errs[0]:.2e} state {errs[1]:.2e} (tol {TOL_SSD:g})")
+            f"|plain| y {errs[0]:.2e} state {errs[1]:.2e} (tol {TOL_SSD:g}); "
+            f"3 heads alone and bf16 inputs bitwise as required")
 
-    B, S, H, p, N = SSD_CASES[0]
-    x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, gen, dev)
-    h0 = torch.zeros((B, H, p, N), device=dev)
-    ms = graph_time_ms(lambda: ssd_scan(x, dt, Bm, Cm, A), per_graph=20)
-    plain_ms = graph_time_ms(lambda: ssd_chunked(x, dt, Bm, Cm, A, h0),
-                             per_graph=5)
-    eager_ms = cuda_time_ms(lambda: ssd_scan(x, dt, Bm, Cm, A), 100)
-    nbytes = 4 * (2 * x.numel() + dt.numel() + Bm.numel() + Cm.numel()
-                  + A.numel() + B * H * p * N)
-    ops = _ssd_ops(B, S, H, p, N)
-    bound_ms, bound_by = _bound(nbytes, ops, "float32")
-    say(f"kernel: ssd_scan f32 B={B} S={S} H={H} p={p} N={N}, device time: "
-        f"{ms * 1e3:.2f} us/launch; plain (chunked, PyTorch) "
-        f"{plain_ms * 1e3:.2f} us; no single PyTorch call; bound "
-        f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
-        f"GFLOP, {bound_by}); one eager call {eager_ms * 1e3:.2f} us")
+    row = None
+    for B, S, H, p, N in (SSD_CASES[0], SSD_CASES[1]):
+        x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, gen, dev)
+        xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+        h0 = torch.zeros((B, H, p, N), device=dev)
+        ms32 = graph_time_ms(lambda: ssd_scan(x, dt, Bm, Cm, A), per_graph=20)
+        ms = graph_time_ms(lambda: ssd_scan(xb, dt, Bb, Cb, A), per_graph=20)
+        cast_ms = graph_time_ms(lambda: ssd_scan(xb.float(), dt, Bb.float(),
+                                                 Cb.float(), A), per_graph=20)
+        plain_ms = graph_time_ms(lambda: ssd_chunked(xb, dt, Bb, Cb, A, h0),
+                                 per_graph=5)
+        eager_ms = cuda_time_ms(lambda: ssd_scan(xb, dt, Bb, Cb, A), 100)
+        nbytes = (2 * (x.numel() + Bm.numel() + Cm.numel())
+                  + 4 * (dt.numel() + A.numel() + x.numel() + B * H * p * N))
+        ops = _ssd_ops(B, S, H, p, N)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        say(f"kernel: ssd_scan B={B} S={S} H={H} p={p} N={N}, device time "
+            f"(3 kernels): bf16 inputs {ms * 1e3:.2f} us/call, the same cast "
+            f"to f32 first {cast_ms * 1e3:.2f} us, f32 inputs "
+            f"{ms32 * 1e3:.2f} us; plain (chunked, PyTorch) "
+            f"{plain_ms * 1e3:.2f} us; no single PyTorch call; bound "
+            f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB with bf16 inputs,"
+            f" {ops['float32_3xtf32'] / 1e9:.3f} GFLOP of products in 3xTF32 "
+            f"and {ops['float32'] / 1e9:.3f} of scalings on the CUDA cores, "
+            f"{bound_by}); one eager call {eager_ms * 1e3:.2f} us")
+        if row is None:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            for kname, threads in (("ssd_chunk_state_kernel", 512),
+                                   ("ssd_state_pass_kernel", 256),
+                                   ("ssd_chunk_scan_kernel", 512)):
+                regs, smem, blocks = kernel_resources(
+                    lambda: ssd_scan(xb, dt, Bb, Cb, A), kname)
+                say(f"kernel: ssd_scan's {kname}, from the profiler's trace:"
+                    f" {regs} registers per thread, {smem} bytes of shared "
+                    f"memory per block of {threads} threads: {blocks} "
+                    f"resident blocks per SM")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": worst, **row, "library_ms": None}
 
 
 def _rel(a, b) -> float:
@@ -1290,7 +1396,7 @@ def phase_hybrid(dev) -> dict:
     pre_ms = cuda_time_ms(pre, 3, warmup=1)
     pre_dev, pre_wall, kernels = profiled_device_ms(pre, 2, top=None)
     share = {name: sum(ms for k, ms, _ in kernels if name in k)
-             for name in ("ssd_scan_kernel", "flash_fwd")}
+             for name in ("ssd_", "flash_fwd")}
     _, cache = pre()
     tok = out[:, S0]
     dec = lambda: model.decode_step(params, tok, cache)  # noqa: E731

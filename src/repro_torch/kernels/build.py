@@ -60,8 +60,13 @@ def nvcc() -> str:
     return found
 
 
+def source_path(name: str) -> Path:
+    """The ``.cu`` source of library ``name``."""
+    return _KERNELS_DIR / SOURCES[name]
+
+
 def library_path(name: str) -> Path:
-    src = _KERNELS_DIR / SOURCES[name]
+    src = source_path(name)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -86,8 +91,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(_KERNELS_DIR / SOURCES[name])]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, path, time.perf_counter())

@@ -1,58 +1,146 @@
-// CIFG-LSTM cell forward for Hopper (sm_90a).
+// CIFG-LSTM recurrence forward for Hopper (sm_90a): a whole sequence in one
+// launch, w_h resident on chip for every step.
 //
 // Replaces src/repro/kernels/cifg_cell/cifg_cell.py::cell_fwd (the Pallas
-// kernel _fwd_kernel / _gates). One recurrent step, given the hoisted input
-// projection zx = x_t @ w_x + b_gates:
+// kernel _fwd_kernel / _gates), scanned over time as the reference's
+// cifg_states does. Each step, given the hoisted input projection
+// zx_t = x_t @ w_x + b_gates:
 //
-//   z   = zx + h @ w_h            product in the compute dtype, f32 sum
+//   z   = zx_t + h @ w_h          product in the compute dtype, f32 sum
 //   f   = sigmoid(z_f + 1)        forget bias 1
 //   o   = sigmoid(z_o),  g = tanh(z_g)
 //   c'  = f * c + (1 - f) * g     CIFG: i = 1 - f
 //   h'  = o * tanh(c')
 //
-// Layout: the model's natural one, row-major and contiguous:
-//   zx (B, 3H) f32, h and c (B, H) f32, w_h (H, 3H) in the compute dtype
-//   (bf16 or f32), gate columns [f | o | g]; outputs h' and c' (B, H) f32.
-// Ragged B and H are masked here; nothing is padded by the caller.
+// Layout: the model's own, row-major and contiguous: zx (S, B, 3H) f32,
+// h0 and c0 (B, H) f32, w_h (H, 3H) in the compute dtype (bf16 or f32),
+// gate columns [f | o | g]; outputs hs and cs (S, B, H) f32, the state after
+// every step. One step is this kernel at S = 1.
 //
-// What bounds it on an H100: at serving decode (B=256, H=256, bf16) one step
-// moves about 2.2 MB (w_h 0.39 MB, zx 0.79 MB, h, c, h', c' 1.05 MB) for
-// 0.1 GFLOP. At 3.35 TB/s that is about 0.7 us of memory traffic, against
-// about 0.1 us of bf16 tensor-core work: the kernel is bound by memory and,
-// at this size, by its launch.
+// What bounds it on an H100: a training sequence (S 16, B 10, H 256, bf16)
+// moves about 1.2 MB (zx, w_h, hs, cs) for 0.06 GFLOP: about 0.4 us of
+// memory traffic. The recurrence is serial, so the real limit is S times one
+// step's latency: a chain of tensor-core products, the gate math and one
+// exchange of h between the blocks that share the hidden columns.
 //
-// What this simple design does about it: every byte of zx, h, c, h' and c'
-// is read or written once, coalesced, and the three gate products, the gate
-// math and the state update are fused into one pass, so no (B, 3H) gate
-// block goes to device memory. Each block owns a 16-row x 32-column tile of
-// the output and stages tiles of h and of the three matching w_h column
-// slices in shared memory; w_h (0.39 MB) is re-read by each row tile from
-// L2. The products run as f32 FMAs on CUDA cores, not on tensor cores:
-// wgmma, TMA and a persistent kernel over time are for later work.
+// The design: one thread-block cluster of 8 CTAs per tile of 16 batch rows.
+// CTA r owns hidden columns [r*CW, (r+1)*CW), CW = ceil(H / 8) <= 32, and
+// with them the f, o and g columns of w_h, so the gate math and the c update
+// stay inside the CTA (c lives in registers for all S steps). Each CTA
+// loads its slice of w_h once (H x 96 values, padded): in bf16 every warp
+// keeps its 16 gate columns as mma A fragments in registers (64 registers
+// at H 256); in f32 the slice stays in shared memory (96 KB at H 256). Per
+// step:
+//   * bf16: z^T = w_h^T h^T on the tensor cores (mma.sync m16n8k16, f32
+//     accumulate), the batch on the n side: 6 warps x 2 n-tiles, the k-steps
+//     in two interleaved accumulator chains added in a fixed order;
+//     f32: 6 warps x 32 lanes, each thread one gate column and 8 rows, k
+//     ascending, one FMA per term, w from shared memory, h as broadcast
+//     float4 (3 loads per 8 FMAs; the old kernel made 5 per 6);
+//   * zx_{t+1} is loaded into registers while step t's products run;
+//   * the gates, c' and h' for the CTA's (column, row) pairs; h' and c' go to
+//     hs[t] and cs[t]; h' (rounded to the compute dtype, as the reference
+//     casts h) is stored into every peer CTA's next h buffer through
+//     distributed shared memory. h is double-buffered, so each step ends in
+//     one cluster barrier.
+// Registers are held to two CTAs per SM (__launch_bounds__), so that the
+// 16 clusters of a 256-row decode tick are resident at once. The width
+// limit is H <= 256 (8 CTAs x 32 columns); the entry point returns
+// cudaErrorInvalidValue above it.
 //
-// Where it stands: the design does not reach that bound. At B=256 its 128
-// blocks give each SM one block of 8 warps, and at B=1 its 8 blocks leave
-// the rest of the card idle; either way one SM runs a k-loop of 5
-// shared-memory loads per 6 FMAs for every output pair, and that loop, not
-// device memory, sets the time (PERF.md has the numbers from chip_smoke.py).
-// More outputs per thread from each load, and K split across warps with a
-// fixed-order sum, are the next steps.
+// Where it stands (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): a
+// step costs about 2 us; at S = 1 loading the slice of w_h dominates.
+// Removal builds time a step without one of its parts: -DCIFG_SKIP_PRODUCT,
+// -DCIFG_SKIP_GATES, -DCIFG_SKIP_EXCHANGE or -DCIFG_SKIP_BARRIER compile
+// that part out (the results are then wrong; only the time counts). The
+// script is repro_torch/kernels/removal.py, the split is in PERF.md.
 //
-// Determinism: each output element sums over k in ascending order with one
-// f32 FMA per term, whatever B is and wherever the row sits. The serving
-// engine (B = slots) therefore matches the single-session reference (B = 1)
-// bit for bit in the cell.
+// Determinism: each output element is a fixed sequence of operations on its
+// own row's data: the same k-steps in the same accumulator chains (bf16), or
+// k ascending with one FMA per term (f32), whatever B is and wherever the
+// row sits. So a row's result does not depend on the batch, hs[t] of an
+// S-step launch equals the state after a launch over the first t+1 steps,
+// and equals t+1 chained S = 1 launches, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kCols = 32;                // hidden columns per block (one per lane)
-constexpr int kThreadRows = 8;           // warps per block
-constexpr int kRowsPerThread = 2;
-constexpr int kRows = kThreadRows * kRowsPerThread;  // 16 rows per block
-constexpr int kTileK = 32;               // depth of one staged tile
+constexpr int kCluster = 8;              // CTAs per cluster (portable size)
+constexpr int kRows = 16;                // batch rows per cluster
+constexpr int kColsCta = 32;             // hidden columns per CTA, padded
+constexpr int kM = 3 * kColsCta;         // gate columns per CTA
+constexpr int kWarps = kM / 16;          // one 16-column m-tile per warp
+constexpr int kThreads = 32 * kWarps;    // 192
+constexpr int kMaxH = kCluster * kColsCta;   // 256
+constexpr int kMaxKSteps = kMaxH / 16;
+constexpr int kPairs = kColsCta * kRows;     // (column, row) pairs per CTA
+constexpr int kPairsPerThread = (kPairs + kThreads - 1) / kThreads;  // 3
+constexpr int kZld = kRows + 1;          // z staging row stride (floats)
+constexpr int kWld = kM + 8;             // bf16 w slice row stride (elements)
+constexpr int kLoadBatch = 16;           // w_h loads in flight per thread
+constexpr int kChains = 2;               // bf16: interleaved k-step chains
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, __nv_bfloat16 v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;"
+               :: "r"(addr), "h"(__bfloat16_as_ushort(v)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -63,121 +151,328 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Round an f32 value to the compute dtype (round to nearest even), keep f32.
 template <typename T>
-__device__ __forceinline__ float round_cd(float x);
+__device__ __forceinline__ T from_f32(float x);
 template <>
-__device__ __forceinline__ float round_cd<float>(float x) { return x; }
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ float round_cd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// Shared memory of one CTA, K padded to a multiple of 16:
+//   bf16: w slice [KP][kWld] bf16, h [2][kRows][KP + 8] bf16, z [kM][kZld];
+//   f32:  w slice [KP][kM] f32,   h [2][KP][kRows] f32 (transposed), z.
+template <typename T>
+__host__ __device__ constexpr int w_bytes(int KP) {
+  return sizeof(T) == 2 ? KP * kWld * 2 : KP * kM * 4;
+}
+template <typename T>
+__host__ __device__ constexpr int h_buf_elems(int KP) {
+  return sizeof(T) == 2 ? kRows * (KP + 8) : KP * kRows;
+}
+template <typename T>
+__host__ __device__ constexpr int smem_bytes(int KP) {
+  return w_bytes<T>(KP) + 2 * h_buf_elems<T>(KP) * static_cast<int>(sizeof(T))
+         + kM * kZld * 4;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kCols * kThreadRows)
-cifg_cell_fwd_kernel(const float* __restrict__ zx, const float* __restrict__ h,
-                     const float* __restrict__ c, const T* __restrict__ w_h,
-                     float* __restrict__ h_out, float* __restrict__ c_out,
-                     int B, int H) {
-  __shared__ float sh_h[kRows][kTileK];
-  __shared__ float sh_w[3][kTileK][kCols];
+__global__ void __launch_bounds__(kThreads, 2)
+cifg_seq_kernel(const float* __restrict__ zx, const float* __restrict__ h0,
+                const float* __restrict__ c0, const T* __restrict__ w_h,
+                float* __restrict__ hs, float* __restrict__ cs, int S, int B,
+                int H) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KP = (H + 15) & ~15;
+  T* ws = reinterpret_cast<T*>(smem);
+  T* hb = reinterpret_cast<T*>(smem + w_bytes<T>(KP));
+  float* zs = reinterpret_cast<float*>(
+      smem + w_bytes<T>(KP) + 2 * h_buf_elems<T>(KP) * sizeof(T));
+  const int hbuf = h_buf_elems<T>(KP);
+  const int hld = KP + 8;                // bf16 h row stride
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kCols + tx;
-  const int col0 = blockIdx.x * kCols;
+  const int rank = static_cast<int>(cluster_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int CW = (H + kCluster - 1) / kCluster;
+  const int col0 = rank * CW;
   const int row0 = blockIdx.y * kRows;
+  const int nrows = min(kRows, B - row0);
   const long long H3 = 3LL * H;
 
-  float acc[3][kRowsPerThread];
+  // the CTA's slice of w_h: local gate column m = g * 32 + jj is global
+  // column g * H + col0 + jj; padding (k >= H, jj >= CW, col >= H) is 0.
+  // Every thread keeps kLoadBatch loads in flight before it stores: 16-byte
+  // loads where the columns and w_h allow them, else one value per load.
+  constexpr int kVec = 16 / sizeof(T);
+  if (CW % kVec == 0 && H % kVec == 0 &&
+      reinterpret_cast<uintptr_t>(w_h) % 16 == 0) {
+    constexpr int kChunks = kM / kVec;           // 16-byte chunks per row
+    for (int base = tid; base < KP * kChunks; base += kThreads * kLoadBatch) {
+      uint4 v[kLoadBatch];
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int i = base + u * kThreads;
+        const int k = i / kChunks, m = (i - k * kChunks) * kVec;
+        const int g = m / kColsCta, jj = m - g * kColsCta;
+        const int col = col0 + jj;
+        v[u] = (k < H && jj < CW && col < H)
+                   ? *reinterpret_cast<const uint4*>(
+                         w_h + k * H3 + (long long)g * H + col)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) acc[g][r] = 0.0f;
-
-  for (int k0 = 0; k0 < H; k0 += kTileK) {
-    // h tile, rounded to the compute dtype as the reference casts h
-    for (int i = tid; i < kRows * kTileK; i += kCols * kThreadRows) {
-      const int r = i / kTileK, kk = i % kTileK;
-      const int row = row0 + r, k = k0 + kk;
-      sh_h[r][kk] = (row < B && k < H)
-                        ? round_cd<T>(h[(long long)row * H + k]) : 0.0f;
-    }
-    // the three gate column slices of w_h for this tile's k range
-    for (int i = tid; i < 3 * kTileK * kCols; i += kCols * kThreadRows) {
-      const int g = i / (kTileK * kCols);
-      const int rem = i % (kTileK * kCols);
-      const int kk = rem / kCols, jj = rem % kCols;
-      const int k = k0 + kk, col = col0 + jj;
-      sh_w[g][kk][jj] = (k < H && col < H)
-                            ? to_f32<T>(w_h[(long long)k * H3 + (long long)g * H + col])
-                            : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float wf = sh_w[0][kk][tx];
-      const float wo = sh_w[1][kk][tx];
-      const float wg = sh_w[2][kk][tx];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float hv = sh_h[ty * kRowsPerThread + r][kk];
-        acc[0][r] = fmaf(hv, wf, acc[0][r]);
-        acc[1][r] = fmaf(hv, wo, acc[1][r]);
-        acc[2][r] = fmaf(hv, wg, acc[2][r]);
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int i = base + u * kThreads;
+        const int k = i / kChunks, m = (i - k * kChunks) * kVec;
+        if (k < KP)
+          *reinterpret_cast<uint4*>(&ws[k * (kBf16 ? kWld : kM) + m]) = v[u];
       }
     }
-    __syncthreads();
+  } else {
+    const int m = tid % kM;
+    const int g = m / kColsCta, jj = m - g * kColsCta;
+    const int col = col0 + jj;
+    const bool in = jj < CW && col < H;
+    const T* src = w_h + (long long)g * H + col;
+    constexpr int kRowStep = kThreads / kM;      // 2
+    for (int k0 = tid / kM; k0 < KP; k0 += kRowStep * kLoadBatch) {
+      T v[kLoadBatch];
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int k = k0 + u * kRowStep;
+        v[u] = (in && k < H) ? src[k * H3] : from_f32<T>(0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int k = k0 + u * kRowStep;
+        if (k < KP) ws[k * (kBf16 ? kWld : kM) + m] = v[u];
+      }
+    }
+  }
+  // both h buffers zeroed (padding rows and columns stay 0), then h0 rounded
+  // to the compute dtype into buffer 0
+  for (int i = tid; i < 2 * hbuf; i += kThreads) hb[i] = from_f32<T>(0.0f);
+  __syncthreads();
+  for (int i = tid; i < nrows * H; i += kThreads) {
+    const int b = i / H, k = i - b * H;
+    const T v = from_f32<T>(h0[(long long)(row0 + b) * H + k]);
+    hb[kBf16 ? b * hld + k : k * kRows + b] = v;
   }
 
-  const int j = col0 + tx;
-  if (j >= H) return;
+  // the thread's (column, row) pairs: c in registers, zx prefetched
+  int pj[kPairsPerThread], pb[kPairsPerThread];
+  bool live[kPairsPerThread];
+  float creg[kPairsPerThread];
+  float zcur[kPairsPerThread][3], znext[kPairsPerThread][3];
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int row = row0 + ty * kRowsPerThread + r;
-    if (row >= B) continue;
-    const float* zrow = zx + (long long)row * H3;
-    const float zf = zrow[j] + acc[0][r];
-    const float zo = zrow[H + j] + acc[1][r];
-    const float zg = zrow[2 * H + j] + acc[2][r];
-    const float f = sigmoid_f32(zf + 1.0f);
-    const float o = sigmoid_f32(zo);
-    const float g = tanhf(zg);
-    const long long idx = (long long)row * H + j;
-    const float cn = f * c[idx] + (1.0f - f) * g;
-    c_out[idx] = cn;
-    h_out[idx] = o * tanhf(cn);
+  for (int i = 0; i < kPairsPerThread; ++i) {
+    const int p = tid + i * kThreads;
+    pj[i] = p % kColsCta;
+    pb[i] = p / kColsCta;
+    live[i] = p < kPairs && pj[i] < CW && col0 + pj[i] < H && pb[i] < nrows;
+    const long long r = row0 + pb[i];
+    creg[i] = live[i] ? c0[r * H + col0 + pj[i]] : 0.0f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      zcur[i][g] =
+          live[i] ? zx[r * H3 + (long long)g * H + col0 + pj[i]] : 0.0f;
+      znext[i][g] = 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // bf16: the warp's 16 gate columns of w_h^T as mma A fragments
+  const int nks = KP / 16;
+  const int m0 = warp * 16;
+  uint32_t afr[kBf16 ? kMaxKSteps : 1][4];
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int ks = 0; ks < kMaxKSteps; ++ks) {
+      if (ks < nks) {
+        const int k = ks * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int m = m0 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(afr[ks], &ws[k * kWld + m]);
+      }
+    }
+  }
+  // every CTA of the cluster is running before any peer store
+  cluster_sync();
+
+  const int g8 = lane >> 2, t4 = lane & 3;
+  for (int t = 0; t < S; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < S) {
+      const float* zrow = zx + (long long)(t + 1) * B * H3;
+#pragma unroll
+      for (int i = 0; i < kPairsPerThread; ++i) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          if (live[i])
+            znext[i][g] = zrow[(row0 + pb[i]) * H3 + (long long)g * H +
+                               col0 + pj[i]];
+      }
+    }
+
+    const T* hcur = hb + cur * hbuf;
+    if constexpr (kBf16) {
+      float acc[2][kChains][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < kChains; ++e)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][e][i] = 0.0f;
+#ifndef CIFG_SKIP_PRODUCT
+#pragma unroll
+      for (int ks = 0; ks < kMaxKSteps; ++ks) {
+        if (ks < nks) {
+          uint32_t bf[4];
+          const int n = (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4(bf, &hcur[n * hld + ks * 16 + ((lane >> 3) & 1) * 8]);
+          mma_bf16(acc[0][ks % kChains], afr[ks], bf[0], bf[1]);
+          mma_bf16(acc[1][ks % kChains], afr[ks], bf[2], bf[3]);
+        }
+      }
+#endif
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = m0 + g8 + (i >= 2 ? 8 : 0);
+          const int b = n * 8 + 2 * t4 + (i & 1);
+          zs[m * kZld + b] = acc[n][0][i] + acc[n][1][i];
+        }
+    } else {
+      const int m = tid % kM;
+      const int half = tid / kM;
+      float acc[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
+      const float* hf = reinterpret_cast<const float*>(hcur);
+      const float* wf = reinterpret_cast<const float*>(ws);
+#ifndef CIFG_SKIP_PRODUCT
+      for (int k = 0; k < H; ++k) {
+        const float w = wf[k * kM + m];
+        const float4 ha = *reinterpret_cast<const float4*>(
+            &hf[k * kRows + half * 8]);
+        const float4 hb4 = *reinterpret_cast<const float4*>(
+            &hf[k * kRows + half * 8 + 4]);
+        acc[0] = fmaf(ha.x, w, acc[0]);
+        acc[1] = fmaf(ha.y, w, acc[1]);
+        acc[2] = fmaf(ha.z, w, acc[2]);
+        acc[3] = fmaf(ha.w, w, acc[3]);
+        acc[4] = fmaf(hb4.x, w, acc[4]);
+        acc[5] = fmaf(hb4.y, w, acc[5]);
+        acc[6] = fmaf(hb4.z, w, acc[6]);
+        acc[7] = fmaf(hb4.w, w, acc[7]);
+      }
+#endif
+#pragma unroll
+      for (int r = 0; r < 8; ++r) zs[m * kZld + half * 8 + r] = acc[r];
+    }
+    __syncthreads();
+
+    // gates, state update, outputs; h' to every CTA's next buffer
+    T* hnext = hb + (cur ^ 1) * hbuf;
+    float* hs_t = hs + (long long)t * B * H;
+    float* cs_t = cs + (long long)t * B * H;
+#pragma unroll
+    for (int i = 0; i < kPairsPerThread; ++i) {
+      if (!live[i]) continue;
+      const int jj = pj[i], b = pb[i];
+      const float zf = zcur[i][0] + zs[jj * kZld + b];
+      const float zo = zcur[i][1] + zs[(kColsCta + jj) * kZld + b];
+      const float zg = zcur[i][2] + zs[(2 * kColsCta + jj) * kZld + b];
+#ifdef CIFG_SKIP_GATES
+      const float cn = zf + zg + creg[i];
+      const float hn = zo + cn;
+#else
+      const float f = sigmoid_f32(zf + 1.0f);
+      const float o = sigmoid_f32(zo);
+      const float g = tanhf(zg);
+      const float cn = f * creg[i] + (1.0f - f) * g;
+      const float hn = o * tanhf(cn);
+#endif
+      creg[i] = cn;
+      const long long idx = (long long)(row0 + b) * H + col0 + jj;
+      hs_t[idx] = hn;
+      cs_t[idx] = cn;
+#ifndef CIFG_SKIP_EXCHANGE
+      if (t + 1 < S) {
+        const int col = col0 + jj;
+        const uint32_t local = kBf16 ? smem_u32(&hnext[b * hld + col])
+                                     : smem_u32(&hnext[col * kRows + b]);
+        const T v = from_f32<T>(hn);
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r) st_peer(peer_addr(local, r), v);
+      }
+#endif
+#pragma unroll
+      for (int g2 = 0; g2 < 3; ++g2) zcur[i][g2] = znext[i][g2];
+    }
+    // h' of every CTA is in place before the next step's products; no peer
+    // store follows the last step, so a CTA may then exit
+#ifndef CIFG_SKIP_BARRIER
+    if (t + 1 < S) cluster_sync();
+#endif
   }
 }
 
 template <typename T>
-int launch(const float* zx, const float* h, const float* c, const void* w_h,
-           float* h_out, float* c_out, int B, int H, cudaStream_t stream) {
-  const dim3 block(kCols, kThreadRows);
-  const dim3 grid((H + kCols - 1) / kCols, (B + kRows - 1) / kRows);
-  cifg_cell_fwd_kernel<T><<<grid, block, 0, stream>>>(
-      zx, h, c, static_cast<const T*>(w_h), h_out, c_out, B, H);
+int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
+           float* hs, float* cs, int S, int B, int H, cudaStream_t stream) {
+  // the most shared memory any width takes, set once (one card per
+  // process; a launch inside a CUDA-graph capture after a first call then
+  // sets no attribute)
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cifg_seq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<T>(kMaxH));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int KP = (H + 15) & ~15;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes<T>(KP);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cifg_seq_kernel<T>, zx, h0, c0, static_cast<const T*>(w_h), hs,
+      cs, S, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. w_is_bf16 selects the compute
-// dtype of w_h (1 = bf16, 0 = f32). Returns the cudaError_t of the launch
-// (0 on success); a bad argument returns cudaErrorInvalidValue.
-extern "C" int cifg_cell_fwd(const float* zx, const float* h, const float* c,
-                             const void* w_h, int w_is_bf16, float* h_out,
-                             float* c_out, int B, int H, void* stream) {
-  if (B < 1 || H < 1 || B > 65535 * kRows) {
+// Plain C entry point, loaded with ctypes: S steps of the recurrence from
+// (h0, c0), writing the state after each step into hs[t] and cs[t].
+// w_is_bf16 selects the compute dtype of w_h (1 = bf16, 0 = f32). Returns
+// the cudaError_t of the launch (0 on success); shapes the kernel does not
+// take (H > 256, S or B < 1) return cudaErrorInvalidValue.
+extern "C" int cifg_cell_seq_fwd(const float* zx, const float* h0,
+                                 const float* c0, const void* w_h,
+                                 int w_is_bf16, float* hs, float* cs, int S,
+                                 int B, int H, void* stream) {
+  if (S < 1 || B < 1 || H < 1 || H > kMaxH || B > 65535 * kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_is_bf16) {
-    return launch<__nv_bfloat16>(zx, h, c, w_h, h_out, c_out, B, H, s);
+    return launch<__nv_bfloat16>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
   }
-  return launch<float>(zx, h, c, w_h, h_out, c_out, B, H, s);
+  return launch<float>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
 }

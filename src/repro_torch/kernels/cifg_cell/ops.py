@@ -1,12 +1,15 @@
 """The CIFG cell kernels' wrappers and the ops built on them.
 
-``cell_fwd`` and ``cell_bwd`` wrap the CUDA kernels ``csrc/cifg_cell_fwd.cu``
-and ``csrc/cifg_cell_bwd.cu`` (which replace the Pallas ``cell_fwd`` and
-``cell_bwd`` of the reference). They take the model's natural layout — zx
-(B, 3H), h and c (B, H) float32, w_h (H, 3H) in the compute dtype — with no
-packing or tile padding: the kernels mask ragged B and H themselves. For
-tensors on the CPU a wrapper computes the plain version (`ref.py`); for CUDA
-tensors it launches its kernel or raises.
+``cell_seq_fwd`` / ``cell_fwd`` and ``cell_bwd`` wrap the CUDA kernels
+``csrc/cifg_cell_fwd.cu`` and ``csrc/cifg_cell_bwd.cu`` (which replace the
+Pallas ``cell_fwd`` and ``cell_bwd`` of the reference). The forward kernel
+runs a whole sequence in one launch (``cell_seq_fwd``); one step
+(``cell_fwd``) is that kernel at S = 1. They take the model's natural
+layout — zx (S, B, 3H) or (B, 3H), h and c (B, H) float32, w_h (H, 3H) in
+the compute dtype — with no packing or tile padding: the kernels mask
+ragged B and H themselves. For tensors on the CPU a wrapper computes the
+plain version (`ref.py`); for CUDA tensors it launches its kernel or
+raises.
 
 ``LAUNCHES[name]`` counts kernel launches (only those), so a run can show
 that its path went through the kernels.
@@ -16,13 +19,14 @@ that its path went through the kernels.
   Differentiating through ``decode_step`` reaches it.
 * ``cifg_sequence`` — the whole recurrence with the reference's time-fused
   backward (``_cifg_sequence_fwd`` / ``_cifg_sequence_bwd``): the forward
-  launches the cell kernel once per step (``cell="fused"``) or steps the
+  is one launch of the sequence kernel (``cell="fused"``) or steps the
   plain cell (``"seq"``); the backward recomputes the gates in one product
   over all steps, runs one ``dz @ w_hᵀ`` per step in reverse and forms
   ``dw_h`` in one product. That backward is plain PyTorch, as it is jnp in
   the reference; training's forward and backward both go through it.
-* ``cifg_states`` — the forward-only recurrence of the prefills, writing
-  each step's state straight into preallocated (S, B, H) stacks.
+* ``cifg_states`` — the forward-only recurrence of the prefills (and of
+  ``cifg_sequence``'s forward), one launch writing each step's state
+  straight into preallocated (S, B, H) stacks.
 """
 from __future__ import annotations
 
@@ -36,14 +40,19 @@ from repro_torch.utils.numerics import round_to, torch_dtype
 
 LAUNCHES = {"cifg_cell_fwd": 0, "cifg_cell_bwd": 0}
 
+MAX_HIDDEN = 256   # the sequence kernel's width limit: 8 CTAs x 32 columns
+
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _kernel(name: str):
-    fn = getattr(build.load(name), name)
+    """The C entry point behind wrapper ``name``: the forward library's
+    entry is the sequence kernel, ``cifg_cell_seq_fwd``."""
+    symbol = {"cifg_cell_fwd": "cifg_cell_seq_fwd"}.get(name, name)
+    fn = getattr(build.load(name), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = {"cifg_cell_fwd": [p, p, p, p, i, p, p, i, i, p],
+        fn.argtypes = {"cifg_cell_fwd": [p, p, p, p, i, p, p, i, i, i, p],
                        "cifg_cell_bwd": [p, p, i, p, p, p, p, p, p, p, p, i,
                                          i, p]}[name]
         fn.restype = ctypes.c_int
@@ -82,8 +91,31 @@ def _check(name, zx, h, c, w_h, states=None):
                         f"compute dtype), got {w_h.dtype}")
 
 
+def _launch_seq(zx, h0, c0, w_h, hs, cs):
+    """One launch of the sequence kernel: zx (S, B, 3H), states (B, H),
+    outputs (S, B, H) — or, for one step, (B, 3H) and (B, H) views of the
+    same memory."""
+    _on_card("cifg_cell_fwd", {"zx": zx, "h": h0, "c": c0, "w_h": w_h,
+                               "hs": hs, "cs": cs}, h0.device)
+    S = zx.shape[0] if zx.dim() == 3 else 1
+    B, H = h0.shape
+    fn = _kernel("cifg_cell_fwd")
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream(h0.device).cuda_stream
+        err = fn(zx.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_h.data_ptr(),
+                 int(w_h.dtype == torch.bfloat16), hs.data_ptr(),
+                 cs.data_ptr(), S, B, H, stream)
+    if err != 0:   # 1 (invalid value): a shape the kernel does not take
+        raise RuntimeError(f"cifg_cell_fwd kernel launch failed with CUDA "
+                           f"error {err} (S={S}, B={B}, H={H}, w_h "
+                           f"{w_h.dtype}; the kernel takes H <= "
+                           f"{MAX_HIDDEN})")
+    LAUNCHES["cifg_cell_fwd"] += 1
+
+
 def cell_fwd(zx, h, c, w_h, *, h_out=None, c_out=None):
-    """One CIFG step → (h', c') float32, the product in ``w_h.dtype``.
+    """One CIFG step → (h', c') float32, the product in ``w_h.dtype``: the
+    sequence kernel at S = 1.
 
     ``h_out`` / ``c_out`` (optional, (B, H) float32, contiguous) receive the
     result in place; otherwise they are allocated."""
@@ -101,20 +133,46 @@ def cell_fwd(zx, h, c, w_h, *, h_out=None, c_out=None):
         h_out = torch.empty_like(h)
     if c_out is None:
         c_out = torch.empty_like(c)
-    _on_card("cell_fwd", {"zx": zx, "h": h, "c": c, "w_h": w_h,
-                          "h_out": h_out, "c_out": c_out}, h.device)
-    B, H = h.shape
-    fn = _kernel("cifg_cell_fwd")
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(zx.data_ptr(), h.data_ptr(), c.data_ptr(), w_h.data_ptr(),
-                 int(w_h.dtype == torch.bfloat16), h_out.data_ptr(),
-                 c_out.data_ptr(), B, H, stream)
-    if err != 0:
-        raise RuntimeError(f"cifg_cell_fwd kernel launch failed with CUDA "
-                           f"error {err} (B={B}, H={H}, w_h {w_h.dtype})")
-    LAUNCHES["cifg_cell_fwd"] += 1
+    _launch_seq(zx, h, c, w_h, h_out, c_out)
     return h_out, c_out
+
+
+def cell_seq_fwd(zx, h0, c0, w_h, *, hs=None, cs=None):
+    """S CIFG steps from (h0, c0) in one launch → the state stacks (hs, cs),
+    each (S, B, H) float32, the products in ``w_h.dtype``.
+
+    zx (S, B, 3H), h0 and c0 (B, H) float32, w_h (H, 3H) bfloat16 or
+    float32; ``hs`` / ``cs`` (optional, (S, B, H) float32, contiguous)
+    receive the result in place. For CPU tensors this is the plain
+    recurrence; for CUDA tensors it launches the kernel (H <= 256) or
+    raises. ``hs[t]`` is bitwise the final state of a call over the first
+    t + 1 steps and of t + 1 chained `cell_fwd` calls."""
+    if zx.dim() != 3 or zx.shape[0] < 1:
+        raise ValueError(f"cell_seq_fwd: zx must be (S, B, 3H) with S >= 1, "
+                         f"got {tuple(zx.shape)}")
+    S = zx.shape[0]
+    _check("cell_seq_fwd", zx[0], h0, c0, w_h)
+    for tname, t in (("hs", hs), ("cs", cs)):
+        if t is not None and (tuple(t.shape) != (S,) + tuple(h0.shape)
+                              or t.dtype != torch.float32):
+            raise ValueError(f"cell_seq_fwd: {tname} must be (S, B, H) "
+                             f"float32 = {(S,) + tuple(h0.shape)}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if hs is None:
+        hs = torch.empty((S,) + tuple(h0.shape), dtype=torch.float32,
+                         device=h0.device)
+    if cs is None:
+        cs = torch.empty_like(hs)
+    if h0.device.type == "cpu":
+        h, c = h0, c0
+        for t in range(S):
+            h, c = cifg_cell_ref(zx[t], h, c, w_h)
+            hs[t], cs[t] = h, c
+        return hs, cs
+    if h0.device.type != "cuda":
+        raise ValueError(f"cell_seq_fwd: unsupported device {h0.device}")
+    _launch_seq(zx, h0, c0, w_h, hs, cs)
+    return hs, cs
 
 
 def _check_sequence(name, zx, h0, c0, w_h):
@@ -200,8 +258,8 @@ def cifg_states(zx, h0, c0, w_h, *, cell: str = "seq", compute_dtype=None):
     """Forward-only whole-sequence CIFG recurrence → the full state stacks
     (hs, cs), each (S, B, H) float32. zx (S, B, 3H) is time-major.
 
-    ``cell="fused"`` launches the cell kernel once per step (the plain cell
-    for CPU tensors), writing each step's state into the stacks;
+    ``cell="fused"`` launches the sequence kernel once (the plain cell for
+    CPU tensors), writing each step's state into the stacks;
     ``cell="seq"`` steps the plain cell. The recurrence is causal, so
     ``(hs[t], cs[t])`` of a right-padded run equals the final state of an
     unpadded run of ``t + 1`` steps."""
@@ -216,10 +274,7 @@ def cifg_states(zx, h0, c0, w_h, *, cell: str = "seq", compute_dtype=None):
     cs = torch.empty_like(hs)
     h, c = h0.to(f32).contiguous(), c0.to(f32).contiguous()
     if cell == "fused":
-        w = w_h.to(cd).contiguous()
-        for t in range(S):
-            h, c = cell_fwd(zx[t], h, c, w, h_out=hs[t], c_out=cs[t])
-        return hs, cs
+        return cell_seq_fwd(zx, h, c, w_h.to(cd).contiguous(), hs=hs, cs=cs)
     for t in range(S):
         h, c = cifg_cell_ref(zx[t], h, c, w_h, compute_dtype=cd)
         hs[t], cs[t] = h, c
@@ -293,8 +348,8 @@ def cifg_sequence(zx, h0, c0, w_h, *, cell: str = "seq", compute_dtype=None,
     zx (S, B, 3H) float32, time-major (``x @ w_x + b_gates`` for every
     step); h0, c0 (B, H); w_h (H, 3H) as the parameter (cast to the compute
     dtype inside). Returns ``(hs (S, B, H) float32, (h_fin, c_fin))``.
-    ``cell="fused"`` launches the cell kernel once per step (the plain cell
-    for CPU tensors), ``"seq"`` steps the plain cell; both share the
+    ``cell="fused"`` launches the sequence kernel once (the plain cell for
+    CPU tensors), ``"seq"`` steps the plain cell; both share the
     backward. ``remat=True`` keeps no state stacks for the backward and
     recomputes them there; the gradients are bitwise those without it."""
     _check_sequence("cifg_sequence", zx, h0, c0, w_h)

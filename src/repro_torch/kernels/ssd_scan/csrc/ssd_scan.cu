@@ -9,295 +9,646 @@
 //   y[q]       = y_intra[q] + y_inter[q]
 //   state'     = exp(cum_{Q-1}) state + sum_s x_s (dt_s exp(cum_{Q-1} - cum_s) B_s)
 //
-// Layout: the model's own, row-major and contiguous, all float32:
-//   x (B, S, H, p), dt (B, S, H), Bm and Cm (B, S, N) (one group: no head
-//   axis), A (H,); outputs y (B, S, H, p) and the final state (B, H, p, N).
-//   S is a multiple of Q (the wrapper pads with dt = 0, as the reference's
-//   ops.py does).
+// Layout: the model's own, row-major and contiguous: x (B, S, H, p) and
+// Bm, Cm (B, S, N) (one group: no head axis) in float32 or bfloat16 (read in
+// that dtype and converted in registers, which is exact), dt (B, S, H) and
+// A (H,) float32; outputs y (B, S, H, p) and the final state (B, H, p, N),
+// float32. S is a multiple of Q (the wrapper pads with dt = 0, as the
+// reference's ops.py does). Scratch from the wrapper: the chunk states
+// (B, S/Q, H, p, N) and the chunk decays (B, S/Q, H), float32.
 //
 // What bounds it on an H100: at zamba2-2.7b's prefill (B 4, S 512, H 80,
-// p 64, N 64) one call reads x (42 MB), dt, B and C and writes y (42 MB):
-// about 26 us of memory traffic at 3.35 TB/s. The float32 arithmetic the
-// function needs is about 3.75 GFLOP (the lower triangle of C.B^T once per
-// (b, chunk), since every head shares it; per head its scalings, the lower
-// triangle of W.x, C.state and the state update), about 56 us at the
-// 67 TFLOP/s of the CUDA cores. So the work, not the bytes, sets the bound.
-// This kernel does about 1.3 GFLOP more, as it forms C.B^T in every head.
+// p 64, N 64) one call reads x, dt, B and C and writes y and the state:
+// about 69 MB with bf16 inputs (y alone is 42 MB of f32), 21 us at
+// 3.35 TB/s. The function needs about 3.72 GFLOP of f32 products (the lower
+// triangle of C.B^T once per (b, chunk), since every head shares it; per
+// head the lower triangle of W.x, C.state and the state update), which this
+// kernel runs as three TF32 products each: about 23 us at a third of the
+// tensor cores' 495 TFLOP/s, plus 0.04 GFLOP of scalings on the CUDA
+// cores. So the products, just ahead of the bytes, set the bound.
 //
-// What this simple design does about it: one block per (b, h) walks the
-// chunks in order, in place of the TPU's sequential grid axis and its VMEM
-// state scratch. The chunk's x, B, C and dt, the (N x p) state and a
-// 32 x Q tile of the weights W = (C.B^T o L o dt) live in shared memory
-// (about 131 KB at N 64, 211 KB at N 128, above the 48 KB default, so the
-// entry point raises the block's limit). Rows of B and C are padded to
-// N + 1 floats, so the lanes of a warp, which walk s, hit distinct banks.
-// Each warp owns 4 rows of every W tile and the same rows of y, so the
-// W tile needs only __syncwarp between its product and its use. exp is
-// taken only where s <= q: above the diagonal cum_q - cum_s > 0 and could
-// overflow (the TPU kernel forms exp over the whole square and selects).
-// The products are float32 FMAs on the CUDA cores, read from shared memory
-// at about 0.75 loads per FMA, so shared-memory bandwidth, not the FMA
-// rate, limits each SM; the tensor cores are unused.
+// The design: the split of Mamba-2's own GPU kernels, in three kernels.
+//   1. ssd_chunk_state_kernel: per (b, chunk, group of heads), each head's
+//      chunk state from zero, x^T (dt exp(cum_end - cum) B), and its decay
+//      exp(cum_end); all chunks in parallel.
+//   2. ssd_state_pass_kernel: per (b, h, p, n) element, the walk over the
+//      chunks: the state entering chunk c replaces chunk c's own state in
+//      place, and the state after the last chunk is the output.
+//   3. ssd_chunk_scan_kernel: per (b, chunk, group of heads), C.B^T's lower
+//      triangle once, kept in shared memory for every head of the group;
+//      per head y = (C.B^T o L o dt) x + (exp(cum) C) state_in^T, written
+//      once.
+// The group size spreads the blocks over the card's SMs (heads_per_block);
+// a head's arithmetic is the same whatever group it is in. Kernels 1 and 3 run 16
+// warps a block (one block per SM) and load the next head's x and dt into
+// registers while the current head computes. All products run on the
+// tensor cores in 3xTF32 (mma.sync m16n8k8): each f32 operand is split into
+// a TF32 high part and a TF32 remainder, and a_lo b_hi + a_hi b_lo +
+// a_hi b_hi are accumulated in f32, which keeps about the accuracy of f32
+// products (one pass of TF32 keeps about three digits). exp is taken only
+// where s <= q: above the diagonal cum_q - cum_s > 0 and could overflow.
+// Shared-memory rows are padded so that no fragment load has a bank
+// conflict. p and N are padded with zeros to 64 or 128 (one instantiation
+// each), so the limits are p, N <= 128 (206 KB of shared memory in kernel 3
+// at p = N = 128).
 //
-// Left for later work: C.B^T is the same for all H heads of one (b, chunk)
-// (a single group), and this kernel recomputes it in each of the H blocks;
-// computing it once per (b, chunk), and the intra-chunk products on the
-// tensor cores (wgmma), are the redesign.
+// Where it stands (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): a
+// call at zamba2's shape takes about 11 times that bound, two thirds of it
+// in kernel 3, whose warps each build their 3xTF32 fragments from shared
+// memory; W formed once per head and wgmma are the next steps (PERF.md).
+//
+// Removal builds time a call without one part of kernel 3: -DSSD_SKIP_CB
+// (C.B^T), -DSSD_SKIP_INTRA (W x) or -DSSD_SKIP_INTER (C.state) compile
+// that part out (the results are then wrong; only the time counts). The
+// script is repro_torch/kernels/removal.py, the split is in PERF.md.
+//
+// Determinism: every sum has a fixed order and no atomics; a batch row's
+// and a head's results do not depend on the other rows or heads of the call.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kQ = 128;                       // chunk (the reference's CHUNK)
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 32;                  // rows of one W tile
-constexpr int kRowsPerWarp = kRowTile / kWarps;   // 4
+constexpr int kPassThreads = 256;             // ssd_state_pass_kernel
 constexpr int kMaxP = 128;
 constexpr int kMaxN = 128;
-constexpr int kMaxPJ = kMaxP / 32;            // head-dim columns per lane
-constexpr int kMaxSmemBytes = 232448;         // per block on an H100
+constexpr int kCbLd = kQ + 4;                 // C.B^T row stride (floats)
+constexpr int kStageBatch = 8;                // loads in flight per thread
 
-inline int smem_floats(int P, int N) {
-  return 2 * kQ * (N + 1) + kQ * P + N * P + kRowTile * kQ + 3 * kQ;
+// shared floats of each kernel for padded widths PP, NP (64 or 128)
+inline __host__ __device__ int state_smem_floats(int PP, int NP) {
+  return kQ * (NP + 8) + kQ * (PP + 8) + 3 * kQ;
+}
+inline __host__ __device__ int scan_union_floats(int PP, int NP) {
+  const int bs = kQ * (NP + 4), xs = kQ * (PP + 8), st = PP * (NP + 4);
+  return bs > xs ? (bs > st ? bs : st) : (xs > st ? xs : st);
+}
+inline __host__ __device__ int scan_smem_floats(int PP, int NP) {
+  return kQ * (NP + 4) + kQ * kCbLd + scan_union_floats(PP, NP) + 3 * kQ;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ Bm, const float* __restrict__ Cm,
-                const float* __restrict__ A, float* __restrict__ y,
-                float* __restrict__ state_out, int S, int H, int P, int N) {
-  extern __shared__ float smem[];
-  const int ldn = N + 1;
-  float* Cs = smem;                   // [kQ][ldn]
-  float* Bs = Cs + kQ * ldn;          // [kQ][ldn]
-  float* xs = Bs + kQ * ldn;          // [kQ][P]
-  float* st = xs + kQ * P;            // [N][P]: the state, transposed
-  float* Wt = st + N * P;             // [kRowTile][kQ]
-  float* cum = Wt + kRowTile * kQ;    // [kQ]
-  float* dts = cum + kQ;              // [kQ]
-  float* fs = dts + kQ;               // [kQ]: dt_s exp(cum_{Q-1} - cum_s)
+__device__ __forceinline__ float ld_f32(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float a_h = A[h];
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));
+}
 
-  for (int i = tid; i < N * P; i += kThreads) st[i] = 0.0f;
+// d += a b, one m16n8k8 TF32 product with f32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  for (int c0 = 0; c0 < S; c0 += kQ) {
-    const long long t0 = (long long)b * S + c0;   // first row of the chunk
-    for (int i = tid; i < kQ * P; i += kThreads) {
-      const int q = i / P, j = i - q * P;
-      xs[i] = x[((t0 + q) * H + h) * P + j];
+// An A fragment (m16k8) or B fragment (k8n8) of f32 values split into TF32
+// high parts and remainders.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float v0, float v1, float v2,
+                                      float v3) {
+    split_tf32(v0, hi[0], lo[0]);
+    split_tf32(v1, hi[1], lo[1]);
+    split_tf32(v2, hi[2], lo[2]);
+    split_tf32(v3, hi[3], lo[3]);
+  }
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float v0, float v1) {
+    split_tf32(v0, hi[0], lo[0]);
+    split_tf32(v1, hi[1], lo[1]);
+  }
+};
+
+// acc[i] += a b[i] for kN n-tiles, in 3xTF32: the three passes (a_lo b_hi,
+// a_hi b_lo, a_hi b_hi) each run over all n-tiles, so consecutive products
+// are independent
+template <int kN>
+__device__ __forceinline__ void mma3(float (*acc)[4], const FragA& a,
+                                     const FragB* b) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(acc[i], a.lo, b[i].hi);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(acc[i], a.hi, b[i].lo);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(acc[i], a.hi, b[i].hi);
+}
+
+// dst[r * ld + col] = load(r, col) for r < rows, col < cols (cols a
+// multiple of 16, at most 128, so it divides the block): a thread keeps one
+// column and steps down the rows, with kStageBatch loads in flight before
+// it stores; no division per element
+template <typename F>
+__device__ __forceinline__ void stage(float* dst, int ld, int rows, int cols,
+                                      F load) {
+  const int col = threadIdx.x % cols;
+  const int step = kThreads / cols;
+  for (int r0 = threadIdx.x / cols; r0 < rows; r0 += step * kStageBatch) {
+    float v[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int r = r0 + k * step;
+      if (r < rows) v[k] = load(r, col);
     }
-    for (int i = tid; i < kQ * N; i += kThreads) {
-      const int q = i / N, n = i - q * N;
-      Bs[q * ldn + n] = Bm[(t0 + q) * N + n];
-      Cs[q * ldn + n] = Cm[(t0 + q) * N + n];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int r = r0 + k * step;
+      if (r < rows) dst[r * ld + col] = v[k];
     }
-    if (tid < kQ) dts[tid] = dt[(t0 + tid) * H + h];
+  }
+}
+
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// One head's chunk of x (kQ x PP, zero past P) and dt, prefetched into
+// registers while the previous head computes, then stored to shared memory.
+// A thread keeps the column pair (j, j + 1) and rows q0, q0 + kStep, ...;
+// the pair is one load when P is even and x is aligned for it.
+template <typename T, int PP>
+struct HeadPrefetch {
+  static constexpr int kStep = kThreads / (PP / 2);
+  static constexpr int kRowsEach = kQ / kStep;
+  float2 xv[kRowsEach];
+  float dtv;
+  __device__ __forceinline__ void load(const T* x, const float* dt,
+                                       long long t0, int h, int H, int P) {
+    const int j = 2 * (threadIdx.x % (PP / 2));
+    const int q0 = threadIdx.x / (PP / 2);
+    const long long row = (long long)H * P;
+    const T* src = x + (t0 + q0) * row + (long long)h * P + j;
+    const bool pairs =
+        P % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+    if (pairs) {
+#pragma unroll
+      for (int k = 0; k < kRowsEach; ++k)
+        xv[k] = j < P ? ld_pair(src + k * kStep * row) : make_float2(0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRowsEach; ++k) {
+        xv[k].x = j < P ? ld_f32(src + k * kStep * row) : 0.0f;
+        xv[k].y = j + 1 < P ? ld_f32(src + k * kStep * row + 1) : 0.0f;
+      }
+    }
+    if (threadIdx.x < kQ) dtv = dt[(t0 + threadIdx.x) * H + h];
+  }
+  __device__ __forceinline__ void store(float* Xs, int ldx,
+                                        float* dts) const {
+    const int j = 2 * (threadIdx.x % (PP / 2));
+    const int q0 = threadIdx.x / (PP / 2);
+#pragma unroll
+    for (int k = 0; k < kRowsEach; ++k)
+      *reinterpret_cast<float2*>(&Xs[(q0 + k * kStep) * ldx + j]) = xv[k];
+    if (threadIdx.x < kQ) dts[threadIdx.x] = dtv;
+  }
+};
+
+// cum = running sum of dt * A over the chunk, by warp 0: 4 per lane, then a
+// shuffle scan of the lane totals. Kernels 1 and 3 both call this, so their
+// cum are the same bits.
+__device__ __forceinline__ void chunk_cum(const float* dts, float a_h,
+                                          float* cum, int lane) {
+  float v[4];
+  float run = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    run = __fadd_rn(run, __fmul_rn(dts[lane * 4 + k], a_h));
+    v[k] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, tot, off);
+    if (lane >= off) tot = __fadd_rn(tot, o);
+  }
+  const float before = __fsub_rn(tot, run);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cum[lane * 4 + k] = __fadd_rn(before, v[k]);
+}
+
+// 1. chunk states from zero: st_c[j][n] = sum_s x[s][j] f_s B[s][n],
+//    f_s = dt_s exp(cum_end - cum_s); M = j, N = n, K = s. A warp owns one
+//    16-row m-tile and two 8-column n-tiles.
+template <typename T, int PP, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                       const T* __restrict__ Bm, const float* __restrict__ A,
+                       float* __restrict__ chunk_states,
+                       float* __restrict__ decay, int S, int H, int P, int N,
+                       int G) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ldb = NP + 8, ldx = PP + 8;
+  float* Bs = smem;                   // [kQ][ldb]
+  float* Xs = Bs + kQ * ldb;          // [kQ][ldx]
+  float* dts = Xs + kQ * ldx;         // [kQ]
+  float* cum = dts + kQ;              // [kQ]
+  float* fs = cum + kQ;               // [kQ]
+
+  const int b = blockIdx.z, c = blockIdx.y;
+  const int nc = gridDim.y;
+  const int h_begin = blockIdx.x * G;
+  const int h_end = min(H, h_begin + G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const long long t0 = (long long)b * S + (long long)c * kQ;
+
+  HeadPrefetch<T, PP> pre;
+  pre.load(x, dt, t0, h_begin, H, P);
+  stage(Bs, ldb, kQ, NP, [&](int q, int n) {
+    return n < N ? ld_f32(&Bm[(t0 + q) * N + n]) : 0.0f;
+  });
+  constexpr int MT = PP / 16, NG = NP / 16;
+  for (int h = h_begin; h < h_end; ++h) {
+    pre.store(Xs, ldx, dts);
     __syncthreads();
-
-    // cum = running sum of dt * A over the chunk: warp 0, 4 per lane, then
-    // a shuffle scan of the lane totals
-    if (warp == 0) {
-      float v[4];
-      float run = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        run = __fadd_rn(run, __fmul_rn(dts[lane * 4 + k], a_h));
-        v[k] = run;
-      }
-      float tot = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, tot, off);
-        if (lane >= off) tot = __fadd_rn(tot, o);
-      }
-      const float before = __fsub_rn(tot, run);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) cum[lane * 4 + k] = __fadd_rn(before, v[k]);
-    }
+    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P);
+    if (warp == 0) chunk_cum(dts, A[h], cum, lane);
     __syncthreads();
-
-    const int r0 = warp * kRowsPerWarp;
-    for (int q0 = 0; q0 < kQ; q0 += kRowTile) {
-      const int ns = q0 / 32 + 1;     // 32-wide groups of s with s <= q0 + 31
-
-      // W tile: Wt[r][s] = (C_q . B_s) exp(cum_q - cum_s) dt_s, q = q0 + r,
-      // for s <= q; 0 above the diagonal. Lanes walk s, the warp's 4 rows
-      // share each B load.
-      {
-        float acc[kRowsPerWarp][4];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
-        for (int n = 0; n < N; ++n) {
-          float cv[kRowsPerWarp];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i)
-            cv[i] = Cs[(q0 + r0 + i) * ldn + n];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (k < ns) {
-              const float bv = Bs[(lane + 32 * k) * ldn + n];
-#pragma unroll
-              for (int i = 0; i < kRowsPerWarp; ++i)
-                acc[i][k] = fmaf(cv[i], bv, acc[i][k]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const int q = q0 + r0 + i;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (k < ns) {
-              const int s = lane + 32 * k;
-              Wt[(r0 + i) * kQ + s] =
-                  s <= q ? acc[i][k] * expf(cum[q] - cum[s]) * dts[s] : 0.0f;
-            }
-          }
-        }
-      }
-      __syncwarp();
-
-      // y rows of the tile: W.x over s < 32 ns, plus exp(cum_q) C_q . state
-      // from the state carried in (zero for the first chunk). Lanes walk
-      // the head dim.
-      {
-        float yi[kRowsPerWarp][kMaxPJ];
-        float ye[kRowsPerWarp][kMaxPJ];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-          for (int m = 0; m < kMaxPJ; ++m) yi[i][m] = ye[i][m] = 0.0f;
-        const int s_end = 32 * ns;
-        for (int s = 0; s < s_end; ++s) {
-          float wv[kRowsPerWarp];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) wv[i] = Wt[(r0 + i) * kQ + s];
-#pragma unroll
-          for (int m = 0; m < kMaxPJ; ++m) {
-            const int j = lane + 32 * m;
-            if (j < P) {
-              const float xv = xs[s * P + j];
-#pragma unroll
-              for (int i = 0; i < kRowsPerWarp; ++i)
-                yi[i][m] = fmaf(wv[i], xv, yi[i][m]);
-            }
-          }
-        }
-        if (c0 > 0) {
-          for (int n = 0; n < N; ++n) {
-            float cv[kRowsPerWarp];
-#pragma unroll
-            for (int i = 0; i < kRowsPerWarp; ++i)
-              cv[i] = Cs[(q0 + r0 + i) * ldn + n];
-#pragma unroll
-            for (int m = 0; m < kMaxPJ; ++m) {
-              const int j = lane + 32 * m;
-              if (j < P) {
-                const float sv = st[n * P + j];
-#pragma unroll
-                for (int i = 0; i < kRowsPerWarp; ++i)
-                  ye[i][m] = fmaf(cv[i], sv, ye[i][m]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const int q = q0 + r0 + i;
-          const float eq = expf(cum[q]);
-#pragma unroll
-          for (int m = 0; m < kMaxPJ; ++m) {
-            const int j = lane + 32 * m;
-            if (j < P) y[((t0 + q) * H + h) * P + j] = yi[i][m] + eq * ye[i][m];
-          }
-        }
-      }
-      __syncwarp();   // the next tile overwrites this warp's rows of Wt
-    }
-
-    // state update, once every warp has read the state carried in
     if (tid < kQ) fs[tid] = dts[tid] * expf(cum[kQ - 1] - cum[tid]);
+    if (tid == 0) decay[((long long)b * nc + c) * H + h] = expf(cum[kQ - 1]);
     __syncthreads();
-    const float decay = expf(cum[kQ - 1]);
-    for (int n0 = warp * 4; n0 < N; n0 += kWarps * 4) {
-      float acc[4][kMaxPJ];
+
+    float* out = chunk_states + (((long long)b * nc + c) * H + h) * P * N;
+    for (int u = warp; u < MT * NG; u += kWarps) {
+      const int mt = u % MT, ng = u / MT;
+      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      const int j0 = mt * 16 + g8;
+#pragma unroll 4
+      for (int s0 = 0; s0 < kQ; s0 += 8) {
+        const int sa = s0 + t4, sb = sa + 4;
+        FragA a;
+        a.set(Xs[sa * ldx + j0], Xs[sa * ldx + j0 + 8], Xs[sb * ldx + j0],
+              Xs[sb * ldx + j0 + 8]);
+        const float fa = fs[sa], fb = fs[sb];
+        FragB bf[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int nt = 0; nt < 2; ++nt) {
+          const int n = ng * 16 + nt * 8 + g8;
+          bf[nt].set(fa * Bs[sa * ldb + n], fb * Bs[sb * ldb + n]);
+        }
+        mma3<2>(acc, a, bf);
+      }
 #pragma unroll
-        for (int m = 0; m < kMaxPJ; ++m) acc[i][m] = 0.0f;
-      for (int s = 0; s < kQ; ++s) {
-        const float f = fs[s];
-        float bv[4];
+      for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          bv[i] = n0 + i < N ? f * Bs[s * ldn + n0 + i] : 0.0f;
-#pragma unroll
-        for (int m = 0; m < kMaxPJ; ++m) {
-          const int j = lane + 32 * m;
-          if (j < P) {
-            const float xv = xs[s * P + j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[i][m] = fmaf(bv[i], xv, acc[i][m]);
+        for (int i = 0; i < 4; i += 2) {
+          const int j = mt * 16 + g8 + (i >= 2 ? 8 : 0);
+          const int n = ng * 16 + nt * 8 + 2 * t4;
+          if (j >= P) continue;
+          if (N % 2 == 0 && n < N) {
+            *reinterpret_cast<float2*>(&out[j * N + n]) =
+                make_float2(acc[nt][i], acc[nt][i + 1]);
+          } else {
+            if (n < N) out[j * N + n] = acc[nt][i];
+            if (n + 1 < N) out[j * N + n + 1] = acc[nt][i + 1];
           }
         }
       }
+    }
+    __syncthreads();   // the next head overwrites Xs, dts, cum and fs
+  }
+}
+
+// 2. the walk over the chunks, one thread per (b, h, j, n): the state
+//    entering chunk c replaces chunk c's own state; the last is the output.
+//    Up to 8 chunks' loads are in flight before the walk uses them.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass_kernel(float* __restrict__ chunk_states,
+                      const float* __restrict__ decay,
+                      float* __restrict__ state_out, int B, int nc, int H,
+                      int PN) {
+  const long long e = (long long)blockIdx.x * kPassThreads + threadIdx.x;
+  const long long per_b = (long long)H * PN;
+  if (e >= B * per_b) return;
+  const long long b = e / per_b;
+  const long long rest = e - b * per_b;
+  const int h = static_cast<int>(rest / PN);
+  float run = 0.0f;
+  for (int c0 = 0; c0 < nc; c0 += 8) {
+    float own[8], dec[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + i;
-        if (n >= N) continue;
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k < nc) {
+        own[k] = chunk_states[(b * nc + c0 + k) * per_b + rest];
+        dec[k] = decay[(b * nc + c0 + k) * H + h];
+      }
+    }
 #pragma unroll
-        for (int m = 0; m < kMaxPJ; ++m) {
-          const int j = lane + 32 * m;
-          if (j < P) st[n * P + j] = decay * st[n * P + j] + acc[i][m];
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k < nc) {
+        chunk_states[(b * nc + c0 + k) * per_b + rest] = run;
+        run = dec[k] * run + own[k];
+      }
+    }
+  }
+  state_out[b * per_b + rest] = run;
+}
+
+// 3. per (b, chunk, group of heads): C.B^T's lower triangle once, then per
+//    head y = W x + (exp(cum) C) state_in^T with W = C.B^T o L o dt. A warp
+//    owns the m-tiles {w % 4, 7 - w % 4} (equal shares of the triangle) and
+//    a quarter of the head dim's n-tiles.
+template <typename T, int PP, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                      const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      const float* __restrict__ A,
+                      const float* __restrict__ states_in,
+                      float* __restrict__ y, int S, int H, int P, int N,
+                      int G) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int ldc = NP + 4, ldx = PP + 8, lds = NP + 4;
+  float* Cs = smem;                          // [kQ][ldc]
+  float* CB = Cs + kQ * ldc;                 // [kQ][kCbLd]
+  float* U = CB + kQ * kCbLd;                // B, then x, then the state
+  float* dts = U + scan_union_floats(PP, NP);
+  float* cum = dts + kQ;
+  float* eq = cum + kQ;                      // exp(cum)
+  float* Bs = U;                             // [kQ][ldc]
+  float* Xs = U;                             // [kQ][ldx]
+  float* St = U;                             // [PP][lds]: state_in[j][n]
+
+  const int b = blockIdx.z, c = blockIdx.y;
+  const int nc = gridDim.y;
+  const int h_begin = blockIdx.x * G;
+  const int h_end = min(H, h_begin + G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const long long t0 = (long long)b * S + (long long)c * kQ;
+
+  HeadPrefetch<T, PP> pre;
+  pre.load(x, dt, t0, h_begin, H, P);
+  stage(Cs, ldc, kQ, NP, [&](int q, int n) {
+    return n < N ? ld_f32(&Cm[(t0 + q) * N + n]) : 0.0f;
+  });
+  stage(Bs, ldc, kQ, NP, [&](int q, int n) {
+    return n < N ? ld_f32(&Bm[(t0 + q) * N + n]) : 0.0f;
+  });
+  __syncthreads();
+
+  // C.B^T on the tiles that touch the lower triangle: m-tile mi (16 rows
+  // q) with n-tiles ni <= 2 mi + 1 (8 columns s each), 72 tiles; the three
+  // passes in three accumulators, added in a fixed order
+#ifndef SSD_SKIP_CB
+  for (int i = warp; i < 72; i += kWarps) {
+    int mi = 0;
+    while ((mi + 1) * (mi + 2) <= i) ++mi;
+    const int ni = i - mi * (mi + 1);
+    const int q0 = mi * 16 + g8, s = ni * 8 + g8;
+    float acc[3][4] = {};
+#pragma unroll 2
+    for (int n0 = 0; n0 < NP; n0 += 8) {
+      FragA a;
+      a.set(Cs[q0 * ldc + n0 + t4], Cs[(q0 + 8) * ldc + n0 + t4],
+            Cs[q0 * ldc + n0 + t4 + 4], Cs[(q0 + 8) * ldc + n0 + t4 + 4]);
+      FragB bf;
+      bf.set(Bs[s * ldc + n0 + t4], Bs[s * ldc + n0 + t4 + 4]);
+      mma_tf32(acc[0], a.lo, bf.hi);
+      mma_tf32(acc[1], a.hi, bf.lo);
+      mma_tf32(acc[2], a.hi, bf.hi);
+    }
+    const int col = ni * 8 + 2 * t4;
+    CB[q0 * kCbLd + col] = (acc[0][0] + acc[1][0]) + acc[2][0];
+    CB[q0 * kCbLd + col + 1] = (acc[0][1] + acc[1][1]) + acc[2][1];
+    CB[(q0 + 8) * kCbLd + col] = (acc[0][2] + acc[1][2]) + acc[2][2];
+    CB[(q0 + 8) * kCbLd + col + 1] = (acc[0][3] + acc[1][3]) + acc[2][3];
+  }
+#endif
+  __syncthreads();   // Bs is dead: its space takes x
+
+  constexpr int kNtq = PP / 8 / 4;           // n-tiles per warp
+  const int jt0 = (warp >> 2) * kNtq;
+  const int mtile[2] = {warp & 3, 7 - (warp & 3)};
+  for (int h = h_begin; h < h_end; ++h) {
+    pre.store(Xs, ldx, dts);
+    __syncthreads();
+    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P);
+    if (warp == 0) chunk_cum(dts, A[h], cum, lane);
+    __syncthreads();
+    if (tid < kQ) eq[tid] = expf(cum[tid]);
+
+    float acc[2][kNtq][4];
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int nt = 0; nt < kNtq; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mm][nt][i] = 0.0f;
+
+    // intra-chunk: W x over s <= q
+#ifndef SSD_SKIP_INTRA
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm) {
+      const int q0 = mtile[mm] * 16 + g8, q1 = q0 + 8;
+      const float cq0 = cum[q0], cq1 = cum[q1];
+      const int s_end = (mtile[mm] + 1) * 16;
+#pragma unroll 2
+      for (int s0 = 0; s0 < s_end; s0 += 8) {
+        const int sa = s0 + t4, sb = sa + 4;
+        const float ca = cum[sa], cb = cum[sb];
+        const float da = dts[sa], db = dts[sb];
+        FragA a;
+        a.set(sa <= q0 ? CB[q0 * kCbLd + sa] * expf(cq0 - ca) * da : 0.0f,
+              sa <= q1 ? CB[q1 * kCbLd + sa] * expf(cq1 - ca) * da : 0.0f,
+              sb <= q0 ? CB[q0 * kCbLd + sb] * expf(cq0 - cb) * db : 0.0f,
+              sb <= q1 ? CB[q1 * kCbLd + sb] * expf(cq1 - cb) * db : 0.0f);
+        FragB bf[kNtq];
+#pragma unroll
+        for (int nt = 0; nt < kNtq; ++nt) {
+          const int j = (jt0 + nt) * 8 + g8;
+          bf[nt].set(Xs[sa * ldx + j], Xs[sb * ldx + j]);
+        }
+        mma3<kNtq>(acc[mm], a, bf);
+      }
+    }
+#endif
+    __syncthreads();   // x is dead: its space takes the state
+
+    // inter-chunk: (exp(cum_q) C_q) . state_in, zero for the first chunk
+#ifndef SSD_SKIP_INTER
+    if (c > 0) {
+      const float* src = states_in + (((long long)b * nc + c) * H + h) * P * N;
+      stage(St, lds, PP, NP, [&](int j, int n) {
+        return (j < P && n < N) ? src[j * N + n] : 0.0f;
+      });
+      __syncthreads();
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        const int q0 = mtile[mm] * 16 + g8, q1 = q0 + 8;
+        const float e0 = eq[q0], e1 = eq[q1];
+#pragma unroll 2
+        for (int n0 = 0; n0 < NP; n0 += 8) {
+          const int na = n0 + t4, nb = na + 4;
+          FragA a;
+          a.set(e0 * Cs[q0 * ldc + na], e1 * Cs[q1 * ldc + na],
+                e0 * Cs[q0 * ldc + nb], e1 * Cs[q1 * ldc + nb]);
+          FragB bf[kNtq];
+#pragma unroll
+          for (int nt = 0; nt < kNtq; ++nt) {
+            const int j = (jt0 + nt) * 8 + g8;
+            bf[nt].set(St[j * lds + na], St[j * lds + nb]);
+          }
+          mma3<kNtq>(acc[mm], a, bf);
         }
       }
     }
-    __syncthreads();   // the next chunk overwrites xs, Bs, Cs and reads st
-  }
+#endif
 
-  for (int i = tid; i < P * N; i += kThreads) {
-    const int j = i / N, n = i - j * N;
-    state_out[(((long long)b * H + h) * P + j) * N + n] = st[n * P + j];
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int nt = 0; nt < kNtq; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          const int q = mtile[mm] * 16 + g8 + (i >= 2 ? 8 : 0);
+          const int j = (jt0 + nt) * 8 + 2 * t4;
+          float* dst = y + ((t0 + q) * H + h) * P + j;
+          if (P % 2 == 0 && j < P) {
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(acc[mm][nt][i], acc[mm][nt][i + 1]);
+          } else {
+            if (j < P) dst[0] = acc[mm][nt][i];
+            if (j + 1 < P) dst[1] = acc[mm][nt][i + 1];
+          }
+        }
+      }
+    __syncthreads();   // the next head overwrites x / the state, dt and cum
   }
+}
+
+// Heads per block. Kernels 1 and 3 run one block per SM, so a split into
+// `groups` blocks per (b, chunk) takes ceil(B nc groups / sms) rounds of up
+// to G = ceil(H / groups) heads each, and every block also stages its
+// chunk's B and C (and forms C.B^T in kernel 3), about one head's work. The
+// G with the least rounds x (G + 1) wins, the fewest groups among equals.
+inline int heads_per_block(int B, int nc, int H, int sms) {
+  int best_G = H;
+  long long best = -1;
+  for (int G = H; G >= 1; --G) {
+    const long long groups = (H + G - 1) / G;
+    const long long rounds = ((long long)B * nc * groups + sms - 1) / sms;
+    const long long cost = rounds * (G + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_G = G;
+    }
+  }
+  return best_G;
+}
+
+template <typename T, int PP, int NP>
+cudaError_t set_smem_limits() {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_state_kernel<T, PP, NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, state_smem_floats(PP, NP) * 4);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      ssd_chunk_scan_kernel<T, PP, NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, scan_smem_floats(PP, NP) * 4);
+}
+
+template <typename T, int PP, int NP>
+int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
+                 const float* A, float* y, float* state, float* chunk_states,
+                 float* decay, int B, int S, int H, int P, int N, int sms,
+                 cudaStream_t stream) {
+  const int nc = S / kQ;
+  const int G = heads_per_block(B, nc, H, sms);
+  const dim3 grid((H + G - 1) / G, nc, B);
+  ssd_chunk_state_kernel<T, PP, NP>
+      <<<grid, kThreads, state_smem_floats(PP, NP) * 4, stream>>>(
+          x, dt, Bm, A, chunk_states, decay, S, H, P, N, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long elems = (long long)B * H * P * N;
+  ssd_state_pass_kernel<<<static_cast<unsigned>((elems + kPassThreads - 1) /
+                                                kPassThreads),
+                          kPassThreads, 0, stream>>>(chunk_states, decay,
+                                                     state, B, nc, H, P * N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_chunk_scan_kernel<T, PP, NP>
+      <<<grid, kThreads, scan_smem_floats(PP, NP) * 4, stream>>>(
+          x, dt, Bm, Cm, A, chunk_states, y, S, H, P, N, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p and N are padded to 64 or 128 (zeros), one instantiation each
+template <typename T>
+int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
+           const float* A, float* y, float* state, float* chunk_states,
+           float* decay, int B, int S, int H, int P, int N,
+           cudaStream_t stream) {
+  // the card's SM count and every instantiation's shared-memory limit,
+  // read and set once (one card per process; a launch inside a CUDA-graph
+  // capture after a first call then queries and sets nothing)
+  static bool configured = false;
+  static int sms = 0;
+  if (!configured) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 64>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 128>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 64>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 128>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(Bm);
+  const T* ct = static_cast<const T*>(Cm);
+#define SSD_LAUNCH(PP, NP)                                                   \
+  return launch_sized<T, PP, NP>(xt, dt, bt, ct, A, y, state, chunk_states, \
+                                 decay, B, S, H, P, N, sms, stream)
+  if (P <= 64) {
+    if (N <= 64) SSD_LAUNCH(64, 64);
+    SSD_LAUNCH(64, 128);
+  }
+  if (N <= 64) SSD_LAUNCH(128, 64);
+  SSD_LAUNCH(128, 128);
+#undef SSD_LAUNCH
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
-// launch (0 on success); shapes the kernel does not take return
-// cudaErrorInvalidValue.
-extern "C" int ssd_scan_fwd(const float* x, const float* dt, const float* Bm,
-                            const float* Cm, const float* A, float* y,
-                            float* state, int B, int S, int H, int P, int N,
+// Plain C entry point, loaded with ctypes. x, Bm and Cm are bf16 when
+// in_is_bf16 is 1, else float32. Runs the three kernels on `stream`.
+// Returns the cudaError_t of the launches (0 on success); shapes the kernel
+// does not take return cudaErrorInvalidValue.
+extern "C" int ssd_scan_fwd(const void* x, const float* dt, const void* Bm,
+                            const void* Cm, const float* A, float* y,
+                            float* state, float* chunk_states, float* decay,
+                            int in_is_bf16, int B, int S, int H, int P, int N,
                             void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || S < kQ || S % kQ ||
+  if (B < 1 || B > 65535 || H < 1 || S < kQ || S % kQ || S / kQ > 65535 ||
       P < 1 || P > kMaxP || N < 1 || N > kMaxN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bytes = smem_floats(P, N) * static_cast<int>(sizeof(float));
-  if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  // raise the block's shared-memory limit to the most asked for so far (one
-  // card per process), so that a launch inside a CUDA-graph capture, after
-  // a warm-up call, sets no attribute
-  static int configured = 0;
-  if (bytes > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = bytes;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_is_bf16) {
+    return launch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, state, chunk_states,
+                                 decay, B, S, H, P, N, s);
   }
-  ssd_scan_kernel<<<dim3(H, B), kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, dt, Bm, Cm, A, y, state, S, H, P, N);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, dt, Bm, Cm, A, y, state, chunk_states, decay, B, S,
+                       H, P, N, s);
 }

@@ -2,11 +2,15 @@
 
 ``ssd_scan(x, dt, Bm, Cm, A)`` computes the Mamba-2 chunked scan from a zero
 state: ``y`` (B,S,H,p) and the final state (B,H,p,N), both float32. Like the
-reference it casts every input to float32 and pads S to a multiple of
-``CHUNK`` with dt = 0, which makes the padding an identity step of the
-recurrence. For tensors on the CPU it computes the plain chunked form
-(`ref.ssd_chunked`); for CUDA tensors it launches ``csrc/ssd_scan.cu`` or
-raises. ``LAUNCHES["ssd_scan"]`` counts kernel launches only.
+reference it pads S to a multiple of ``CHUNK`` with dt = 0, which makes the
+padding an identity step of the recurrence, and computes in float32. For
+tensors on the CPU it computes the plain chunked form (`ref.ssd_chunked`)
+on float32 casts; for CUDA tensors it runs ``csrc/ssd_scan.cu`` or raises.
+The kernel reads x, Bm and Cm in bfloat16 when all three are bfloat16 (as
+the hybrid model gives them) and converts them in registers, which is
+exact: the result is bitwise that of their float32 casts. One call runs the
+kernel's three CUDA kernels (chunk states, the pass over the chunks, the
+chunk scan) and counts one in ``LAUNCHES["ssd_scan"]``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ def _kernel():
     fn = build.load("ssd_scan").ssd_scan_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p] * 9 + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -64,23 +68,32 @@ def ssd_scan(x, dt, Bm, Cm, A):
         dt = F.pad(dt, (0, 0, 0, pad))    # dt = 0: identity on the padding
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
-    x, dt, Bm, Cm, A = (t.float().contiguous() for t in (x, dt, Bm, Cm, A))
     if x.device.type == "cpu":
+        x, dt, Bm, Cm, A = (t.float() for t in (x, dt, Bm, Cm, A))
         h0 = torch.zeros((Bsz, H, p, N), dtype=torch.float32)
         y, state = ssd_chunked(x, dt, Bm, Cm, A, h0)
         return y[:, :S], state
+    io = (torch.bfloat16 if x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
+          else torch.float32)
+    x, Bm, Cm = (t.to(io).contiguous() for t in (x, Bm, Cm))
+    dt, A = (t.float().contiguous() for t in (dt, A))
+    Sp = x.shape[1]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, p, N), dtype=torch.float32, device=x.device)
+    chunk_states = torch.empty((Bsz, Sp // CHUNK, H, p, N),
+                               dtype=torch.float32, device=x.device)
+    decay = torch.empty((Bsz, Sp // CHUNK, H), dtype=torch.float32,
+                        device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 A.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz,
-                 x.shape[1], H, p, N, stream)
+                 A.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 chunk_states.data_ptr(), decay.data_ptr(),
+                 int(io == torch.bfloat16), Bsz, Sp, H, p, N, stream)
     if err != 0:   # 1 (invalid value): a shape the kernel does not take
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
-                           f"{err} (B={Bsz}, S={x.shape[1]}, H={H}, p={p}, "
-                           f"N={N}; the kernel takes p, N <= 128 and B <= "
-                           f"65535)")
+                           f"{err} (B={Bsz}, S={Sp}, H={H}, p={p}, N={N}; "
+                           f"the kernel takes p, N <= 128 and B <= 65535)")
     LAUNCHES["ssd_scan"] += 1
     return (y[:, :S] if pad else y), state

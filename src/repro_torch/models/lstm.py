@@ -9,7 +9,8 @@ projection ``(H → d)`` feeds the tied embedding's logits.
 ``cfg.cell_path`` selects the recurrent cell:
 
 * ``"fused"`` — `kernels.cifg_cell.cifg_sequence` with the hand-written CUDA
-  cell kernel as the per-step forward and the time-fused backward (gate
+  sequence kernel as the forward (one launch per sequence) and the
+  time-fused backward (gate
   recompute and ``dw_h`` batched over time outside the reverse loop); a
   single step (``decode_step``) runs the forward kernel with the CUDA
   backward kernel as its gradient. For CPU tensors the kernel wrappers

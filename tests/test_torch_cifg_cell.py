@@ -1,8 +1,10 @@
 """The port's CIFG cell (`repro_torch.kernels.cifg_cell`) against the JAX
 package's: the plain cell against ``cifg_cell_ref``, the op against the
-Pallas ``cifg_step`` run by its interpreter, ``cifg_states`` against the JAX
-``cifg_states``; the wrapper's checks, its CPU rule and launch counter, the
-row stability the serving engine relies on, and the kernel build.
+Pallas ``cifg_step`` run by its interpreter, ``cifg_states`` and the
+sequence entry ``cell_seq_fwd`` against the JAX ``cifg_states`` (the Pallas
+cell scanned, in interpret mode); the wrappers' checks, their CPU rule and
+launch counter, the row stability the serving engine relies on, and the
+kernel build.
 
 Tolerances: float32 results differ only in the order of the sums, so
 atol 1e-5 / rtol 1e-4; with bfloat16 products a one-ulp difference in a
@@ -19,8 +21,9 @@ from repro.kernels.cifg_cell import cifg_cell_ref as jax_cell_ref
 from repro.kernels.cifg_cell import cifg_states as jax_states
 from repro.kernels.cifg_cell import cifg_step as jax_step
 from repro_torch.kernels import build
-from repro_torch.kernels.cifg_cell import (LAUNCHES, cell_fwd, cifg_cell_ref,
-                                           cifg_states, cifg_step)
+from repro_torch.kernels.cifg_cell import (LAUNCHES, cell_fwd, cell_seq_fwd,
+                                           cifg_cell_ref, cifg_states,
+                                           cifg_step)
 from repro_torch.utils.numerics import ROW_TILE, rowstable_mm
 
 TOL = {"float32": dict(atol=1e-5, rtol=1e-4),
@@ -102,6 +105,66 @@ def test_cell_fwd_on_cpu_is_the_plain_cell_and_counts_no_launch():
     ho, co = cell_fwd(zx, h, c, w, h_out=h_out, c_out=c_out)
     assert ho is h_out and co is c_out and torch.equal(h_out, hr)
     assert LAUNCHES["cifg_cell_fwd"] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H", [(3, 32), (10, 64)])
+def test_cell_seq_fwd_matches_jax_fused_states_interpret(B, H, dtype):
+    """The sequence entry (the plain recurrence on CPU tensors) against the
+    JAX ``cifg_states(cell="fused")``, the Pallas cell scanned over time by
+    its interpreter; tolerance as above (TOL)."""
+    zx, h0, c0, w = _inputs(B, H, seed=20, S=7)
+    hj, cj = jax_states(zx, h0, c0, w, cell="fused", compute_dtype=dtype,
+                        interpret=True)
+    wt = torch.from_numpy(w).to(getattr(torch, dtype))
+    hp, cp = cell_seq_fwd(*_t(zx, h0, c0), wt)
+    assert hp.shape == cp.shape == (7, B, H)
+    _close(hp, hj, dtype, "hs")
+    _close(cp, cj, dtype, "cs")
+
+
+def test_cell_seq_fwd_on_cpu_is_the_plain_recurrence_and_counts_no_launch():
+    zx, h0, c0, w = _t(*_inputs(4, 24, seed=21, S=6))
+    w = w.to(torch.bfloat16)
+    before = LAUNCHES["cifg_cell_fwd"]
+    hs, cs = cell_seq_fwd(zx, h0, c0, w)
+    h, c = h0, c0
+    for t in range(6):
+        h, c = cifg_cell_ref(zx[t], h, c, w)
+        assert torch.equal(hs[t], h) and torch.equal(cs[t], c)
+    hs2, cs2 = torch.empty_like(hs), torch.empty_like(cs)
+    out = cell_seq_fwd(zx, h0, c0, w, hs=hs2, cs=cs2)
+    assert out[0] is hs2 and out[1] is cs2 and torch.equal(hs2, hs)
+    # one step of the sequence entry is cell_fwd, bit for bit
+    h1, c1 = cell_fwd(zx[0], h0, c0, w)
+    assert torch.equal(h1, hs[0]) and torch.equal(c1, cs[0])
+    assert LAUNCHES["cifg_cell_fwd"] == before
+
+
+@pytest.mark.parametrize("bad", ["zx_rank", "zx_width", "w_shape", "h_rank",
+                                 "zx_dtype", "w_dtype", "out_shape",
+                                 "device"])
+def test_cell_seq_fwd_rejects_what_the_kernel_does_not_take(bad):
+    zx, h0, c0, w = _t(*_inputs(2, 8, seed=22, S=3))
+    kw = {}
+    if bad == "zx_rank":
+        zx = zx[0]
+    elif bad == "zx_width":
+        zx = zx[:, :, :-1]
+    elif bad == "w_shape":
+        w = w[:, :-3]
+    elif bad == "h_rank":
+        h0 = h0[0]
+    elif bad == "zx_dtype":
+        zx = zx.double()
+    elif bad == "w_dtype":
+        w = w.half()
+    elif bad == "out_shape":
+        kw = {"hs": torch.empty(2, 2, 8), "cs": torch.empty(3, 2, 8)}
+    else:
+        zx, h0, c0, w = (t.to("meta") for t in (zx, h0, c0, w))
+    with pytest.raises((ValueError, TypeError)):
+        cell_seq_fwd(zx, h0, c0, w, **kw)
 
 
 @pytest.mark.parametrize("bad", ["zx_shape", "w_shape", "h_rank", "zx_dtype",

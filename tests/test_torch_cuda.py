@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.cifg_cell import (LAUNCHES, cell_fwd, cifg_cell_ref,
+from repro_torch.kernels.cifg_cell import (LAUNCHES, MAX_HIDDEN, cell_fwd,
+                                           cell_seq_fwd, cifg_cell_ref,
                                            cifg_states)
 from repro_torch.models import build
 from repro_torch.serve import NwpRequest, ServeEngine, reference_generate
@@ -84,10 +85,55 @@ def test_kernel_states_match_plain_cell(cuda_device):
     zx, h0, c0, w = _inputs(5, 128, cuda_device, seed=11, S=7)
     before = LAUNCHES["cifg_cell_fwd"]
     hs, cs = cifg_states(zx, h0, c0, w, cell="fused", compute_dtype="float32")
-    assert LAUNCHES["cifg_cell_fwd"] == before + 7
+    assert LAUNCHES["cifg_cell_fwd"] == before + 1     # one per sequence
     hr, cr = cifg_states(zx, h0, c0, w, cell="seq", compute_dtype="float32")
     _close(hs, hr, "float32", "hs")
     _close(cs, cr, "float32", "cs")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H", [(1, 64), (3, 200), (10, 256), (256, 256),
+                                 (20, 96)])
+def test_sequence_kernel_matches_plain_on_card(cuda_device, B, H, dtype):
+    zx, h0, c0, w = _inputs(B, H, cuda_device, seed=30, S=16)
+    w = w.to(getattr(torch, dtype))
+    before = LAUNCHES["cifg_cell_fwd"]
+    hs, cs = cell_seq_fwd(zx, h0, c0, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_fwd"] == before + 1
+    hr, cr = cifg_states(zx, h0, c0, w, cell="seq")
+    _close(hs, hr, dtype, "hs")
+    _close(cs, cr, dtype, "cs")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H", [(3, 200), (17, 256)])
+def test_sequence_kernel_prefix_and_one_step_chaining_are_bitwise(
+        cuda_device, B, H, dtype):
+    """hs[t] of a 9-step launch is the final state of a (t+1)-step launch
+    and of t+1 chained one-step launches, bit for bit; a row does not depend
+    on the batch."""
+    zx, h0, c0, w = _inputs(B, H, cuda_device, seed=31, S=9)
+    w = w.to(getattr(torch, dtype))
+    hs, cs = cell_seq_fwd(zx, h0, c0, w)
+    h, c = h0, c0
+    for t in range(9):
+        hp, cp = cell_seq_fwd(zx[:t + 1].contiguous(), h0, c0, w)
+        assert torch.equal(hp[-1], hs[t]) and torch.equal(cp[-1], cs[t])
+        h, c = cell_fwd(zx[t], h, c, w)
+        assert torch.equal(h, hs[t]) and torch.equal(c, cs[t])
+    r = B - 1
+    h1, c1 = cell_seq_fwd(zx[:, r:r + 1].contiguous(), h0[r:r + 1].contiguous(),
+                          c0[r:r + 1].contiguous(), w)
+    assert torch.equal(h1[:, 0], hs[:, r]) and torch.equal(c1[:, 0], cs[:, r])
+
+
+def test_sequence_kernel_refuses_a_width_above_its_limit(cuda_device):
+    zx, h0, c0, w = _inputs(2, MAX_HIDDEN + 8, cuda_device, seed=32, S=2)
+    before = LAUNCHES["cifg_cell_fwd"]
+    with pytest.raises(RuntimeError, match=f"H <= {MAX_HIDDEN}"):
+        cell_seq_fwd(zx, h0, c0, w.to(torch.bfloat16))
+    assert LAUNCHES["cifg_cell_fwd"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -372,7 +418,8 @@ def _ssd_inputs(B, S, H, p, N, dev, seed):
 
 @pytest.mark.parametrize("B,S,H,p,N", [
     (2, 256, 4, 64, 32), (1, 128, 2, 32, 16), (1, 384, 3, 16, 8),
-    (1, 200, 2, 64, 64), (2, 512, 8, 64, 64), (1, 256, 4, 64, 128)])
+    (1, 200, 2, 64, 64), (2, 512, 8, 64, 64), (1, 256, 4, 64, 128),
+    (1, 512, 32, 64, 128), (1, 256, 3, 128, 128), (1, 128, 5, 65, 33)])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, B, S, H, p, N):
     from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
@@ -399,3 +446,26 @@ def test_ssd_kernel_rows_do_not_depend_on_batch(cuda_device):
     for b in (0, 2):
         y1, st1 = ssd_scan(*(t[b:b + 1] for t in args[:4]), args[4])
         assert torch.equal(y1[0], y[b]) and torch.equal(st1[0], st[b])
+
+
+@pytest.mark.parametrize("B,S,H,p,N", [(2, 512, 80, 64, 64),
+                                       (1, 384, 32, 64, 128)])
+def test_ssd_kernel_heads_do_not_depend_on_the_call(cuda_device, B, S, H, p,
+                                                    N):
+    """A subset of the heads (A sliced to match) gives those heads of the
+    full call bit for bit, and bf16 x, B and C give exactly the result of
+    their float32 casts."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, cuda_device, 6)
+    y, st = ssd_scan(x, dt, Bm, Cm, A)
+    for heads in ([0], [1, H // 2, H - 1], list(range(3, H, 7))):
+        idx = torch.tensor(heads, device=cuda_device)
+        ys, sts = ssd_scan(x[:, :, idx].contiguous(),
+                           dt[:, :, idx].contiguous(), Bm, Cm,
+                           A[idx].contiguous())
+        assert torch.equal(ys, y[:, :, idx]) and torch.equal(sts, st[:, idx])
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    yb, sb = ssd_scan(xb, dt, Bb, Cb, A)
+    yf, sf = ssd_scan(xb.float(), dt, Bb.float(), Cb.float(), A)
+    assert torch.equal(yb, yf) and torch.equal(sb, sf)

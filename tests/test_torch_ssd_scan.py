@@ -5,7 +5,8 @@ recurrence `ssd_scan_ref`, against the JAX package's Pallas kernel in
 interpret mode, its ``ssd_scan_ref`` and the JAX model's
 ``mamba2.ssd_chunked``, on the same inputs made with numpy. Both y and the
 final state are compared. The CUDA kernel is held against the plain version
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``), where bf16
+inputs are also checked to give bitwise the result of their float32 casts.
 
 Tolerance 1e-4 (atol = rtol), the JAX test's: float32 sums in another order.
 """
@@ -39,13 +40,23 @@ def _close(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-@pytest.mark.parametrize("B,S,H,p,N", GRID)
-def test_wrapper_matches_jax_kernel_and_oracle(B, S, H, p, N):
-    arrays = _inputs(B, S, H, p, N, seed=S + N)
+@pytest.mark.parametrize(
+    "B,S,H,p,N,io",
+    [pytest.param(*g, torch.float32, id="-".join(map(str, g))) for g in GRID]
+    + [pytest.param(*g, torch.bfloat16, id="-".join(map(str, g)) + "-bf16")
+       for g in ((1, 128, 2, 32, 16), (1, 200, 2, 64, 64))])
+def test_wrapper_matches_jax_kernel_and_oracle(B, S, H, p, N, io):
+    """x, B and C in ``io``: the hybrid model hands them over in bfloat16,
+    and the JAX side then gets their exact float32 casts."""
+    x, dt, Bm, Cm, A = (torch.from_numpy(a)
+                        for a in _inputs(B, S, H, p, N, seed=S + N))
+    x, Bm, Cm = (t.to(io) for t in (x, Bm, Cm))
+    arrays = [t.float().numpy() for t in (x, dt, Bm, Cm, A)]
     before = LAUNCHES["ssd_scan"]
-    got = ssd_scan(*(torch.from_numpy(a) for a in arrays))
+    got = ssd_scan(x, dt, Bm, Cm, A)
     assert LAUNCHES["ssd_scan"] == before        # no kernel on the CPU
     assert got[0].shape == (B, S, H, p) and got[1].shape == (B, H, p, N)
+    assert got[0].dtype == got[1].dtype == torch.float32
     _close(got, jax_ssd_scan(*arrays))
     _close(got, jax_ssd_ref(*arrays))
 
