@@ -10,7 +10,9 @@ line each (any failure exits non-zero and prints no result):
 1. card  — name and power limit, as ``nvidia-smi`` reports them;
 2. build — compiles every kernel from the checkout's sources;
 3. kernel vs plain — each kernel against its plain PyTorch version on the
-   card (``cifg_cell_fwd``, ``cifg_cell_bwd``, ``dp_sumsq``,
+   card (``cifg_cell_fwd`` at H up to 520, both of its routes;
+   ``cifg_cell_bwd``, the per-step form and the sequence form
+   ``cifg_cell_bwd_seq``; ``dp_sumsq``, one leaf and a chunk of clients;
    ``dp_clip_accumulate``, ``flash_attention_fwd``, ``ssd_scan``), at the
    shapes its path gives it and around them, then timed against its bound,
    the plain version and one PyTorch call where there is one;
@@ -19,10 +21,13 @@ line each (any failure exits non-zero and prints no result):
    launch counts of every kernel on prefill and decode, token-for-token
    agreement with ``reference_generate`` on sampled sessions;
 5. train — DP-FedAvg of the same model through ``FederatedTrainer``
-   (host backend): 1000 users, cohort 128, 3 rounds; launch counts, the
-   fused path against the plain one on one round, the round sum bitwise
-   across cohort chunks, the noise's std, rounds/s and where a round's
-   time goes; then the training CLI on a tiny run;
+   (host backend): 1000 users, cohort 128, 3 rounds; launch counts (one
+   forward and one backward cell launch per client batch, one sum-of-squares
+   launch per chunk of clients), the fused path against the plain one on
+   one round, the round sum bitwise across cohort chunks, the noise's std,
+   rounds/s and where a round's time goes (a client step and a chunk's clip
+   with and without this slice's kernels, timed in the same run); then the
+   training CLI on a tiny run;
 6. grad through decode — the gradient of a loss through 4 ``decode_step``
    calls, through the backward cell kernel, against plain autograd;
 7. hybrid serve — ``zamba2-2.7b`` at its published widths (54 Mamba-2
@@ -61,6 +66,12 @@ TOL = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 0.0)}  # (atol, rtol)
 # terms; in bfloat16 a one-ulp difference in z can flip the rounding of a
 # dz entry before the products
 TOL_BWD = {"float32": (1e-5, 1e-4), "bfloat16": (3e-2, 0.0)}
+# the sequence backward (float32 throughout) against its plain loop: the
+# order of the product's sums and the last bit of exp and tanh differ, over
+# 16 reverse steps (atol, rtol)
+TOL_BWD_SEQ = (1e-5, 1e-4)
+# the chunked sum of squares against the plain float32 sums (rtol)
+TOL_SUMSQ = 1e-5
 # the training path at full width, fused (CUDA kernels, time-fused
 # backward over f32 w_h) against plain (autograd through the plain cell,
 # bf16-rounded cotangents), 3 SGD steps per client: relative L2 of the
@@ -192,18 +203,45 @@ def _cell_inputs(B, H, gen, dev, S=16):
 CELL_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16))
 
 
-def phase_kernel(dev) -> dict:
-    """cifg_cell_fwd (one launch per sequence) vs the plain recurrence on
-    the card: bf16 and f32, B 1, 3, 10, 256 x H 64, 200, 256 (ragged), 16
-    steps; bitwise: rows independent of B and position, the prefix property
-    and S = 1 chaining; a refused width raises; timings at the decode,
-    training and prefill shapes."""
+# the cell kernels' widths: the 8-CTA route (H <= 256) and the wide route,
+# w_h resident (264) and streamed (520)
+CELL_WIDTHS = (64, 200, 256, 264, 520)
+
+
+def _addmm_loop(zx, h0, c0, w):
+    """The PyTorch yardstick of the cell kernel: S × (``addmm`` in the
+    compute dtype's values, f32 sums, + the gates) → a function of no
+    arguments returning (h, c)."""
     import torch
 
-    from repro_torch.kernels.cifg_cell import (MAX_HIDDEN, cell_fwd,
-                                               cell_seq_fwd, cifg_cell_ref,
-                                               cifg_states)
     from repro_torch.utils.numerics import round_to
+
+    S, H, cd = zx.shape[0], h0.shape[1], w.dtype
+    w32 = round_to(w, cd)
+
+    def loop():
+        h, c = h0, c0
+        for t in range(S):
+            z = torch.addmm(zx[t], round_to(h, cd), w32)
+            f = torch.sigmoid(z[:, :H] + 1.0)
+            o = torch.sigmoid(z[:, H:2 * H])
+            g = torch.tanh(z[:, 2 * H:])
+            c = f * c + (1.0 - f) * g
+            h = o * torch.tanh(c)
+        return h, c
+    return loop
+
+
+def phase_kernel(dev) -> dict:
+    """cifg_cell_fwd (one launch per sequence) vs the plain recurrence on
+    the card: bf16 and f32, B 1, 3, 10, 256 x H 64, 200, 256, 264, 520
+    (ragged; both routes), 16 steps; bitwise: rows independent of B and
+    position, the prefix property and S = 1 chaining; timings at the
+    decode, training and prefill shapes, and of the wide route."""
+    import torch
+
+    from repro_torch.kernels.cifg_cell import (cell_fwd, cell_seq_fwd,
+                                               cifg_cell_ref, cifg_states)
 
     gen = torch.Generator().manual_seed(1234)
     worst = 0.0
@@ -211,7 +249,7 @@ def phase_kernel(dev) -> dict:
         name = str(cd).split(".")[-1]
         atol, rtol = TOL[name]
         for B in (1, 3, 10, 256):
-            for H in (64, 200, 256):
+            for H in CELL_WIDTHS:
                 zxs, h0, c0, w = _cell_inputs(B, H, gen, dev)
                 w = w.to(cd)
                 hk, ck = cell_seq_fwd(zxs, h0, c0, w)
@@ -247,25 +285,20 @@ def phase_kernel(dev) -> dict:
 
     # the engine (B = slots) must match the reference (B = 1) bit for bit
     for cd in (torch.bfloat16, torch.float32):
-        zxs, h0, c0, w = _cell_inputs(256, 256, gen, dev)
-        w = w.to(cd)
-        hb, cb = cell_seq_fwd(zxs, h0, c0, w)
-        for r in (0, 17, 255):
-            h1, c1 = cell_seq_fwd(zxs[:, r:r + 1].contiguous(),
-                                  h0[r:r + 1].contiguous(),
-                                  c0[r:r + 1].contiguous(), w)
-            if not (torch.equal(h1[:, 0], hb[:, r])
-                    and torch.equal(c1[:, 0], cb[:, r])):
-                fail(f"kernel row {r} differs between B=256 and B=1 ({cd})")
+        for H in (256, 264, 520):
+            zxs, h0, c0, w = _cell_inputs(256, H, gen, dev)
+            w = w.to(cd)
+            hb, cb = cell_seq_fwd(zxs, h0, c0, w)
+            for r in (0, 17, 255):
+                h1, c1 = cell_seq_fwd(zxs[:, r:r + 1].contiguous(),
+                                      h0[r:r + 1].contiguous(),
+                                      c0[r:r + 1].contiguous(), w)
+                if not (torch.equal(h1[:, 0], hb[:, r])
+                        and torch.equal(c1[:, 0], cb[:, r])):
+                    fail(f"kernel row {r} differs between B=256 and B=1 "
+                         f"({cd}, H={H})")
     say("kernel: rows of B=256 are bitwise those of B=1 over 16 steps, bf16 "
-        "and f32")
-    zxs, h0, c0, w = _cell_inputs(2, MAX_HIDDEN + 8, gen, dev, S=2)
-    try:
-        cell_seq_fwd(zxs, h0, c0, w.to(torch.bfloat16))
-    except RuntimeError as e:
-        say(f"kernel: H={MAX_HIDDEN + 8} refused as it should be: {e}")
-    else:
-        fail(f"cifg_cell_fwd took H={MAX_HIDDEN + 8} above its limit")
+        "and f32, H 256, 264 and 520")
 
     # timings at the main path's shapes: device time (CUDA graph) of the
     # kernel, of its plain version and of the PyTorch yardstick (S x addmm
@@ -275,20 +308,9 @@ def phase_kernel(dev) -> dict:
     for what, B, S in CELL_SHAPES:
         zx, h0, c0, w = _cell_inputs(B, H, gen, dev, S=S)
         w = w.to(cd)
-        w32 = round_to(w, cd)
         hs = torch.empty((S, B, H), device=dev)
         cs = torch.empty_like(hs)
-
-        def library():
-            h, c = h0, c0
-            for t in range(S):
-                z = torch.addmm(zx[t], round_to(h, cd), w32)
-                f = torch.sigmoid(z[:, :H] + 1.0)
-                o = torch.sigmoid(z[:, H:2 * H])
-                g = torch.tanh(z[:, 2 * H:])
-                c = f * c + (1.0 - f) * g
-                h = o * torch.tanh(c)
-            return h, c
+        library = _addmm_loop(zx, h0, c0, w)
 
         def plain():
             h, c = h0, c0
@@ -314,15 +336,38 @@ def phase_kernel(dev) -> dict:
             f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
             f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP, {bound_by}); one "
             f"eager call {eager_ms * 1e3:.2f} us")
+    # the wide route at the training shape, informational: H 264 (w_h
+    # resident, 16-CTA clusters) and 520 (streamed)
+    for H in (264, 520):
+        zx, h0, c0, w = _cell_inputs(10, H, gen, dev, S=16)
+        w = w.to(torch.bfloat16)
+
+        def plain():
+            h, c = h0, c0
+            for t in range(16):
+                h, c = cifg_cell_ref(zx[t], h, c, w)
+            return h, c
+
+        ms = graph_time_ms(lambda: cell_seq_fwd(zx, h0, c0, w))
+        plain_ms = graph_time_ms(plain, per_graph=3)
+        library_ms = graph_time_ms(_addmm_loop(zx, h0, c0, w), per_graph=3)
+        nbytes = (zx.numel() + 2 * 10 * H + 2 * 16 * 10 * H) * 4 \
+            + w.numel() * 2
+        bound_ms, bound_by = _bound(nbytes, 2 * 16 * 10 * H * 3 * H,
+                                    "bfloat16")
+        say(f"kernel: cifg_cell_fwd bf16 wide route "
+            f"({'resident' if H <= 512 else 'streamed'} w_h) B=10 S=16 "
+            f"H={H}, device time: {ms * 1e3:.2f} us/launch; plain "
+            f"{plain_ms * 1e3:.2f} us; 16 x (addmm + gates) "
+            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+            f"({bound_by})")
     for cd in (torch.bfloat16, torch.float32):
         zx, h0, c0, w = _cell_inputs(256, 256, gen, dev, S=1)
         w = w.to(cd)
-        regs, smem, blocks = kernel_resources(
-            lambda: cell_seq_fwd(zx, h0, c0, w), "cifg_seq_kernel")
-        say(f"kernel: cifg_cell_fwd {str(cd).split('.')[-1]}, from the "
-            f"profiler's trace: {regs} registers per thread, {smem} bytes of "
-            f"shared memory per block of 192 threads (clusters of 8): "
-            f"{blocks} resident blocks per SM")
+        res = kernel_resources(lambda: cell_seq_fwd(zx, h0, c0, w),
+                               "cifg_seq_kernel")
+        say(f"kernel: cifg_cell_fwd {str(cd).split('.')[-1]} (clusters of "
+            f"8), from the profiler's trace: {res}")
     # the row of the kernels line: the decode tick's shape, as before
     return {"name": "cifg_cell_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/cifg_cell/csrc/cifg_cell_fwd.cu",
@@ -533,10 +578,12 @@ def _bwd_inputs(B, H, gen, dev, cd):
             randn(B, H, scale=0.1), randn(B, H, scale=0.1))
 
 
-def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
-    """cifg_cell_bwd vs cell_bwd_ref on the card: bf16 and f32, B 1, 10,
-    256 × H 64, 200, 256, all four outputs; repeatability; timings at the
-    decode-gradient shape (B_main, H 256, bf16) and at B=256."""
+def phase_kernel_bwd(dev, B_main: int = 10) -> None:
+    """cifg_cell_bwd (the per-step form, cifg_step's gradient) vs
+    cell_bwd_ref on the card: bf16 and f32, B 1, 10, 256 × H 64, 200, 256,
+    264, 520, all four outputs; repeatability; timings at the
+    decode-gradient shape (B_main, H 256, bf16) and at B=256, printed (the
+    kernels line reports the sequence form)."""
     import torch
 
     from repro_torch.kernels.cifg_cell import cell_bwd, cell_bwd_ref
@@ -548,7 +595,7 @@ def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
         name = str(cd).split(".")[-1]
         atol, rtol = TOL_BWD[name]
         for B in (1, 10, 256):
-            for H in (64, 200, 256):
+            for H in CELL_WIDTHS:
                 args = _bwd_inputs(B, H, gen, dev, cd)
                 got = cell_bwd(*args)
                 want = cell_bwd_ref(*args)
@@ -572,10 +619,6 @@ def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
                     f"bitwise repeatable")
 
     H, cd = 256, torch.bfloat16
-    out = {"name": "cifg_cell_bwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/cifg_cell/csrc/cifg_cell_bwd.cu",
-           "replaces": "src/repro/kernels/cifg_cell/cifg_cell.py:122",
-           "max_abs_err": worst}
     for B in (B_main, 256):
         zx, w, h, c, dh, dc = _bwd_inputs(B, H, gen, dev, cd)
         w32, hc = round_to(w, cd), round_to(h, cd)
@@ -601,15 +644,190 @@ def phase_kernel_bwd(dev, B_main: int = 10) -> dict:
                   + B * 3 * H * 4 + 2 * B * H * 4 + H * 3 * H * 4)
         ops = 3 * 2 * B * H * 3 * H
         bound_ms, bound_by = _bound(nbytes, ops, "bfloat16")
-        say(f"kernel: cifg_cell_bwd bf16 B={B} H={H}, device time: "
-            f"{ms * 1e3:.2f} us/launch (4 kernels); plain {plain_ms * 1e3:.2f}"
-            f" us; cuBLAS products + elementwise {library_ms * 1e3:.2f} us; "
-            f"bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, "
-            f"{ops / 1e9:.3f} GFLOP); one eager call {eager_ms * 1e3:.2f} us")
-        if B == B_main:
-            out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-    return out
+        say(f"kernel: cifg_cell_bwd (per step) bf16 B={B} H={H}, device "
+            f"time: {ms * 1e3:.2f} us/launch (4 kernels); plain "
+            f"{plain_ms * 1e3:.2f} us; cuBLAS products + elementwise "
+            f"{library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+            f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, {bound_by}); "
+            f"one eager call {eager_ms * 1e3:.2f} us; worst max abs err "
+            f"{worst:.2e}")
+
+
+def _bwd_seq_inputs(S, B, H, gen, dev):
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    return (randn(S, B, 3 * H), randn(S, B, H, scale=0.3),
+            randn(B, H, scale=0.3), randn(S, B, H, scale=0.1),
+            randn(B, H, scale=0.1), randn(B, H, scale=0.1),
+            randn(H, 3 * H, scale=H ** -0.5))
+
+
+def _bwd_seq_bound(S, B, H):
+    """(bound_ms, bound_by, MB, GFLOP) of cell_bwd_seq at (S, B, H): z, cs,
+    c0, dhs, dh_fin, dc_fin and w_h read once, dz, dh0 and dc0 written once;
+    the f32 products plus about 30 operations a (step, row, column) for the
+    elementwise step (exp and tanh counted as one), at the CUDA cores'
+    float32 rate."""
+    nbytes = 4 * (2 * S * B * 3 * H + 2 * S * B * H + 5 * B * H + 3 * H * H)
+    ops = 2 * S * B * H * 3 * H + 30 * S * B * H
+    bound_ms, bound_by = _bound(nbytes, ops, "float32")
+    return bound_ms, bound_by, nbytes / 1e6, ops / 1e9
+
+
+def _reverse_loop(z, cs, c0, dhs, dhf, dcf, w):
+    """The reverse recursion as training ran it before the sequence kernel:
+    the factors precomputed, then S × (elementwise + f32 ``torch.mm``) →
+    a function of no arguments returning (dh0, dc0)."""
+    import torch
+
+    S, H = z.shape[0], w.shape[0]
+    f = torch.sigmoid(z[..., :H] + 1.0)
+    o = torch.sigmoid(z[..., H:2 * H])
+    g = torch.tanh(z[..., 2 * H:])
+    t = torch.tanh(cs)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    A, Bf = o * (1.0 - t * t), (c_prev - g) * f * (1.0 - f)
+    Co, Dg = t * o * (1.0 - o), (1.0 - f) * (1.0 - g * g)
+    w_t = w.t()
+    dz = torch.empty_like(z)
+
+    def loop():
+        dh_next, dc_next = dhf, dcf
+        for s in range(S - 1, -1, -1):
+            dh = dh_next + dhs[s]
+            dct = dc_next + dh * A[s]
+            torch.mul(dct, Bf[s], out=dz[s, :, :H])
+            torch.mul(dh, Co[s], out=dz[s, :, H:2 * H])
+            torch.mul(dct, Dg[s], out=dz[s, :, 2 * H:])
+            dh_next = torch.mm(dz[s], w_t)
+            dc_next = dct * f[s]
+        return dh_next, dc_next
+    return loop
+
+
+def phase_kernel_bwd_seq(dev) -> dict:
+    """cifg_cell_bwd_seq (the reverse recursion of a sequence in one
+    launch) vs its plain loop on the card: B 1, 10, 256 × H 64, 200, 256,
+    264, 520 × S 1, 16, all three outputs, bitwise repeatable; a row does
+    not depend on B; cifg_sequence(cell="fused") takes one launch per
+    backward in bf16 and f32 compute, remat bitwise; timed at the training
+    shape (B 10, S 16, H 256) against its bound, the plain version and the
+    reverse loop as training ran it before (16 × (elementwise + f32
+    torch.mm)), the library yardstick; the wide route at H 264 and 520
+    against the same two."""
+    import torch
+
+    from repro_torch.kernels.cifg_cell import (LAUNCHES, cell_bwd_seq,
+                                               cell_bwd_seq_ref,
+                                               cifg_sequence)
+
+    gen = torch.Generator().manual_seed(8765)
+    atol, rtol = TOL_BWD_SEQ
+    worst = 0.0
+    for S in (1, 16):
+        for B in (1, 10, 256):
+            for H in CELL_WIDTHS:
+                args = _bwd_seq_inputs(S, B, H, gen, dev)
+                got = cell_bwd_seq(*args)
+                want = cell_bwd_seq_ref(*args)
+                torch.cuda.synchronize()
+                errs = []
+                for what, a, b in zip(("dz", "dh0", "dc0"), got, want):
+                    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                        fail(f"cifg_cell_bwd_seq {what} bad (S={S} B={B} "
+                             f"H={H})")
+                    if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+                        fail(f"cifg_cell_bwd_seq {what} disagrees with plain "
+                             f"(S={S} B={B} H={H}): max abs err "
+                             f"{float((a - b).abs().max()):.3e}")
+                    errs.append(float((a - b).abs().max()))
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, cell_bwd_seq(*args))):
+                    fail(f"cifg_cell_bwd_seq not repeatable (S={S} B={B} "
+                         f"H={H})")
+                if B == 256:
+                    z, cs, c0, dhs, dhf, dcf, w = args
+                    for r in (0, 255):
+                        col = lambda t: t[:, r:r + 1].contiguous()  # noqa
+                        row = lambda t: t[r:r + 1].contiguous()  # noqa
+                        one = cell_bwd_seq(col(z), col(cs), row(c0),
+                                           col(dhs), row(dhf), row(dcf), w)
+                        if not (torch.equal(one[0][:, 0], got[0][:, r])
+                                and torch.equal(one[1][0], got[1][r])
+                                and torch.equal(one[2][0], got[2][r])):
+                            fail(f"cifg_cell_bwd_seq row {r} differs between "
+                                 f"B=256 and B=1 (S={S} H={H})")
+                worst = max(worst, *errs)
+                say(f"kernel: cifg_cell_bwd_seq S={S} B={B} H={H}: max abs "
+                    f"err dz {errs[0]:.2e} dh0 {errs[1]:.2e} dc0 "
+                    f"{errs[2]:.2e} (tol atol {atol:g} rtol {rtol:g}); "
+                    f"bitwise repeatable"
+                    + ("; rows of B=256 bitwise B=1" if B == 256 else ""))
+
+    # the training op: one launch per backward, remat bitwise
+    for cd in ("bfloat16", "float32"):
+        for H in (256, 264):
+            zx, h0, c0, w = _cell_inputs(10, H, gen, dev, S=16)
+
+            def grads(remat):
+                a = [t.clone().requires_grad_(True) for t in (zx, h0, c0, w)]
+                hs, (hf, cf) = cifg_sequence(*a, cell="fused",
+                                             compute_dtype=cd, remat=remat)
+                return torch.autograd.grad((hs * hs).sum() + (hf * cf).sum(),
+                                           a)
+
+            before = LAUNCHES["cifg_cell_bwd_seq"]
+            g = grads(False)
+            torch.cuda.synchronize()
+            if LAUNCHES["cifg_cell_bwd_seq"] != before + 1:
+                fail(f"cifg_sequence's backward launched cifg_cell_bwd_seq "
+                     f"{LAUNCHES['cifg_cell_bwd_seq'] - before} times")
+            if not all(torch.equal(a, b) for a, b in zip(g, grads(True))):
+                fail(f"cifg_sequence gradients differ with remat ({cd} "
+                     f"H={H})")
+    say("kernel: cifg_sequence(cell=fused) backward: one cifg_cell_bwd_seq "
+        "launch per call, remat bitwise, bf16 and f32 compute, H 256 and 264")
+
+    S, B, H = 16, 10, 256
+    args = _bwd_seq_inputs(S, B, H, gen, dev)
+    library = _reverse_loop(*args)
+    ms = graph_time_ms(lambda: cell_bwd_seq(*args))
+    plain_ms = graph_time_ms(lambda: cell_bwd_seq_ref(*args), per_graph=3)
+    library_ms = graph_time_ms(library, per_graph=3)
+    eager_ms = cuda_time_ms(lambda: cell_bwd_seq(*args), 1000)
+    library_eager = cuda_time_ms(library, 100)
+    bound_ms, bound_by, mb, gflop = _bwd_seq_bound(S, B, H)
+    say(f"kernel: cifg_cell_bwd_seq f32 training shape S={S} B={B} H={H}, "
+        f"device time: {ms * 1e3:.2f} us/launch ({ms * 1e3 / S:.2f} us a "
+        f"step); plain {plain_ms * 1e3:.2f} us; the reverse loop (16 x "
+        f"elementwise + torch.mm) {library_ms * 1e3:.2f} us on the device, "
+        f"{library_eager * 1e3:.2f} us eager; bound {bound_ms * 1e3:.3f} us "
+        f"({mb:.2f} MB, {gflop:.4f} GFLOP, {bound_by}); one eager call "
+        f"{eager_ms * 1e3:.2f} us")
+    for H in (264, 520):
+        a = _bwd_seq_inputs(S, B, H, gen, dev)
+        wide_ms = graph_time_ms(lambda: cell_bwd_seq(*a))
+        wide_plain = graph_time_ms(lambda: cell_bwd_seq_ref(*a), per_graph=3)
+        wide_loop = graph_time_ms(_reverse_loop(*a), per_graph=3)
+        wb, wby, _, _ = _bwd_seq_bound(S, B, H)
+        say(f"kernel: cifg_cell_bwd_seq wide route "
+            f"({'resident' if H <= 512 else 'streamed'} w_h) S={S} B={B} "
+            f"H={H}, device time: {wide_ms * 1e3:.2f} us/launch; plain "
+            f"{wide_plain * 1e3:.2f} us; the reverse loop "
+            f"{wide_loop * 1e3:.2f} us; bound {wb * 1e3:.3f} us ({wby})")
+    a = _bwd_seq_inputs(S, 256, 256, gen, dev)
+    res = kernel_resources(lambda: cell_bwd_seq(*a), "cifg_bwd_seq_kernel")
+    say(f"kernel: cifg_cell_bwd_seq (clusters of 8), from the profiler's "
+        f"trace: {res}")
+    return {"name": "cifg_cell_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/cifg_cell/csrc/cifg_cell_bwd.cu",
+            "replaces": "src/repro/kernels/cifg_cell/cifg_cell.py:122",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 CLIP_SIZES = (1, 127, 32769, 983040, 196608)
@@ -692,16 +910,11 @@ def phase_kernel_clip(dev) -> list:
     eager_ms = cuda_time_ms(lambda: sumsq(x), 1000)
     nbytes = 4 * n + 4
     bound_ms, bound_by = _bound(nbytes, 2 * n, "float32")
-    say(f"kernel: dp_sumsq n={n} f32, device time: {ms * 1e3:.2f} us/launch;"
-        f" plain {plain_ms * 1e3:.2f} us; torch.dot {library_ms * 1e3:.2f} "
-        f"us; bound {bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB); one "
-        f"eager call {eager_ms * 1e3:.2f} us")
-    rows.append({"name": "dp_sumsq", "route": "cuda",
-                 "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
-                 "replaces": "src/repro/kernels/dp_clip/dp_clip.py:66",
-                 "max_abs_err": worst_ss, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": library_ms})
+    say(f"kernel: dp_sumsq one leaf n={n} f32, device time: "
+        f"{ms * 1e3:.2f} us/launch; plain {plain_ms * 1e3:.2f} us; "
+        f"torch.dot {library_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+        f"({nbytes / 1e6:.2f} MB); one eager call {eager_ms * 1e3:.2f} us")
+    rows.append(phase_sumsq_chunk(dev, gen, worst_ss))
 
     # the accumulate: C = 1 (warm L2: acc, delta and out are 11.8 MB) and
     # phase 5's chunk of C = 16 (63 MB of deltas, more than the 50 MB L2,
@@ -742,6 +955,116 @@ def phase_kernel_clip(dev) -> list:
     return rows
 
 
+# the leaves of gboard-cifg-lstm's update (embedding, w_x, w_h, b_gates,
+# w_proj), 1,278,720 f32
+CLIP_LEAVES = (983040, 73728, 196608, 768, 24576)
+
+
+def phase_sumsq_chunk(dev, gen, worst_ss: float) -> dict:
+    """sumsq_chunk (a chunk of clients, every leaf, one launch) at the
+    model's leaf sizes: each slot's ss, norm and factor bitwise those of
+    fused_sumsq (one launch per leaf) + clip_factor · mask, a masked slot's
+    factor 0, close to the plain float32 sums; bitwise the same in every
+    chunk width 1-16 and slot position; timed at C 1 and 16 against its
+    bound, the plain version and torch._foreach_norm over the same leaves.
+    Returns the dp_sumsq row (the chunk form at C 16)."""
+    import torch
+
+    from repro_torch.core.clipping import clip_factor
+    from repro_torch.kernels.dp_clip import fused_sumsq, sumsq_chunk
+    from repro_torch.kernels.dp_clip.ops import LAUNCHES, MAX_LEAVES
+    from repro_torch.kernels.dp_clip.ref import sumsq_chunk_ref
+
+    def trees(C, scale=1e-3):
+        return [{"abcde"[i]: (torch.randn((n,), generator=gen) * scale).to(dev)
+                 for i, n in enumerate(CLIP_LEAVES)} for _ in range(C)]
+
+    chunk = trees(16)
+    chunk[3] = {k: x * 1e3 for k, x in chunk[3].items()}   # a clipped slot
+    mask = [torch.tensor(float(c != 5), device=dev) for c in range(16)]
+    ss, norms, factors = sumsq_chunk(chunk, 0.8, mask)
+    p_ss, _, _ = sumsq_chunk_ref(
+        [[t[k].cpu() for k in sorted(t)] for t in chunk], 0.8)
+    torch.cuda.synchronize()
+    worst = worst_ss
+    for c, tree in enumerate(chunk):
+        s1 = fused_sumsq(tree)
+        n1 = torch.sqrt(s1)
+        if not (torch.equal(ss[c], s1) and torch.equal(norms[c], n1)
+                and torch.equal(factors[c], clip_factor(n1, 0.8) * mask[c])):
+            fail(f"sumsq_chunk slot {c} differs from fused_sumsq + "
+                 f"clip_factor")
+        rel = abs(float(ss[c]) - float(p_ss[c])) / float(p_ss[c])
+        if not rel <= TOL_SUMSQ:
+            fail(f"sumsq_chunk slot {c} disagrees with plain: rel {rel:.2e}")
+        worst = max(worst, abs(float(ss[c]) - float(p_ss[c])))
+    if float(factors[5]) != 0.0 or not float(factors[3]) < 1.0:
+        fail(f"sumsq_chunk factors {factors.tolist()}: the masked slot 5 "
+             f"must be 0 and slot 3 clipped")
+    for C in range(1, 17):
+        for c0 in sorted({0, (16 - C) // 2, 16 - C}):
+            got = sumsq_chunk(chunk[c0:c0 + C], 0.8, mask[c0:c0 + C])
+            if not all(torch.equal(a, b[c0:c0 + C])
+                       for a, b in zip(got, (ss, norms, factors))):
+                fail(f"sumsq_chunk differs in a chunk of {C} at {c0}")
+    say(f"kernel: dp_sumsq chunk of 16 x {len(CLIP_LEAVES)} leaves "
+        f"{CLIP_LEAVES}: ss, norm and factor bitwise fused_sumsq + "
+        f"clip_factor x mask in every slot, masked slot factor 0, within "
+        f"rtol {TOL_SUMSQ:g} of the plain sums; bitwise the same in chunks "
+        f"of 1-16 at every tested position")
+    # a tree of more leaves than one launch takes: the sums carried across
+    # launches of MAX_LEAVES leaves give the same bits
+    many = [{f"l{i:02d}": (torch.randn((97 * i + 5,), generator=gen)
+                           * 0.05).to(dev) for i in range(MAX_LEAVES + 5)}
+            for _ in range(16)]
+    before = LAUNCHES["dp_sumsq"]
+    got = sumsq_chunk(many, 0.8, mask)
+    n_launch = LAUNCHES["dp_sumsq"] - before
+    torch.cuda.synchronize()
+    for c, tree in enumerate(many):
+        s1 = fused_sumsq(tree)
+        n1 = torch.sqrt(s1)
+        if not (torch.equal(got[0][c], s1) and torch.equal(got[1][c], n1)
+                and torch.equal(got[2][c],
+                                clip_factor(n1, 0.8) * mask[c])):
+            fail(f"sumsq_chunk over {MAX_LEAVES + 5} leaves: slot {c} "
+                 f"differs from fused_sumsq + clip_factor")
+    say(f"kernel: dp_sumsq chunk of 16 x {MAX_LEAVES + 5} leaves in "
+        f"{n_launch} launches: "
+        f"every slot bitwise fused_sumsq + clip_factor x mask")
+
+    row = None
+    for C in (1, 16):
+        leaves = trees(C)
+        flat = [x for t in leaves for x in t.values()]
+        scales = [torch.ones((), device=dev)] * C
+        ms = graph_time_ms(lambda: sumsq_chunk(leaves, 0.8, scales),
+                           per_graph=20)
+        plain_ms = graph_time_ms(
+            lambda: sumsq_chunk_ref([list(t.values()) for t in leaves], 0.8,
+                                    torch.stack(scales)), per_graph=5)
+        library_ms = graph_time_ms(lambda: torch._foreach_norm(flat),
+                                   per_graph=20)
+        eager_ms = cuda_time_ms(lambda: sumsq_chunk(leaves, 0.8, scales), 200)
+        n_all = C * sum(CLIP_LEAVES)
+        nbytes = 4 * n_all + 3 * 4 * C
+        bound_ms, bound_by = _bound(nbytes, 2 * n_all, "float32")
+        say(f"kernel: dp_sumsq chunk C={C} x {sum(CLIP_LEAVES)} f32 "
+            f"({len(CLIP_LEAVES)} leaves each), device time: "
+            f"{ms * 1e3:.2f} us/launch ({ms * 1e3 / C:.2f} us a client); "
+            f"plain {plain_ms * 1e3:.2f} us; torch._foreach_norm over the "
+            f"{C * len(CLIP_LEAVES)} leaves {library_ms * 1e3:.2f} us; bound "
+            f"{bound_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {bound_by}); "
+            f"one eager call {eager_ms * 1e3:.2f} us")
+        row = {"name": "dp_sumsq", "route": "cuda",
+               "source": "src/repro_torch/kernels/dp_clip/csrc/dp_clip.cu",
+               "replaces": "src/repro/kernels/dp_clip/dp_clip.py:66",
+               "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+    return row
+
+
 def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
     """Device (kernel) time per ``fn()`` call over ``iters`` calls, from
     ``torch.profiler``'s CUDA activity, the host wall time per call of the
@@ -774,12 +1097,16 @@ def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
             wall * 1e3 / iters, top)
 
 
-def kernel_resources(fn, name: str):
-    """(registers per thread, shared memory per block, resident blocks per
-    SM) of the kernel whose name holds ``name``, as the profiler's trace
-    reports them for one ``fn()`` call; the blocks follow from the first two
-    and the H100's 64K registers and 228 KB of shared memory per SM (the
-    trace's own occupancy estimate is not filled in on this card)."""
+def kernel_resources(fn, name: str) -> str:
+    """The registers per thread, shared memory per block and resident
+    blocks per SM of the kernel whose name holds ``name``, as the profiler's
+    trace reports them for ``fn()`` calls, as text; the blocks follow from
+    the first two and the H100's 64K registers and 228 KB of shared memory
+    per SM (the trace's own occupancy estimate is not filled in on this
+    card). The profiler now and then delivers a trace without the calls'
+    kernels: up to five traces of three calls each are taken, and if none
+    holds the kernel its resources are "not measured" (they are
+    informational; no check reads them)."""
     import os
     import tempfile
 
@@ -788,30 +1115,36 @@ def kernel_resources(fn, name: str):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    for e in events:
-        args = e.get("args", {})
-        if e.get("cat") == "kernel" and name in e.get("name", ""):
-            regs = int(args["registers per thread"])
-            smem = int(args["shared memory"])
-            threads = 1
-            for d in args["block"]:
-                threads *= int(d)
-            # registers: allocated per warp in units of 256; shared memory:
-            # 1 KB reserved per block
-            per_warp = -(-regs * 32 // 256) * 256
-            by_regs = 65536 // (per_warp * -(-threads // 32))
-            by_smem = 233472 // (smem + 1024)
-            return regs, smem, min(by_regs, by_smem, 2048 // threads, 32)
-    fail(f"the profiler's trace holds no kernel named like {name!r}")
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        for e in events:
+            args = e.get("args", {})
+            if e.get("cat") == "kernel" and name in e.get("name", ""):
+                regs = int(args["registers per thread"])
+                smem = int(args["shared memory"])
+                threads = 1
+                for d in args["block"]:
+                    threads *= int(d)
+                # registers: allocated per warp in units of 256; shared
+                # memory: 1 KB reserved per block
+                per_warp = -(-regs * 32 // 256) * 256
+                by_regs = 65536 // (per_warp * -(-threads // 32))
+                by_smem = 233472 // (smem + 1024)
+                blocks = min(by_regs, by_smem, 2048 // threads, 32)
+                return (f"{regs} registers per thread, {smem} bytes of "
+                        f"shared memory per block of {threads} threads: "
+                        f"{blocks} resident blocks ({blocks * threads // 32} "
+                        f"of 64 warps) per SM")
+    return "not measured (five profiler traces held no such kernel)"
 
 
 def _fmt_ms(x) -> str:
@@ -830,7 +1163,8 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
     import torch
 
     from repro_torch.configs import ClientConfig, DPConfig, get_config
-    from repro_torch.core.clipping import clip_accumulate_tree
+    from repro_torch.core.clipping import (clip_accumulate_chunk_tree,
+                                           clip_accumulate_tree, clip_factor)
     from repro_torch.core.dp_fedavg import finalize_round
     from repro_torch.data.corpus import BigramCorpus
     from repro_torch.data.federated import FederatedDataset
@@ -883,12 +1217,14 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
              f"launch counts below assume full rounds of a multiple of 8")
     if not all(np.isfinite(r["loss"]) for r in recs):
         fail(f"training losses not finite: {[r['loss'] for r in recs]}")
-    # one accumulate launch per leaf per live chunk (every chunk of a full
-    # round of a multiple of 8 clients is live)
+    # one sum-of-squares launch and one accumulate launch per leaf per live
+    # chunk (every chunk of a full round of a multiple of 8 clients is live)
     chunks = clients // resolve_chunk(None, cohort // 8)
-    # one cell launch per client batch (the whole sequence)
+    # one forward and one backward cell launch per client batch (the whole
+    # sequence); the per-step backward is not on this path
     want = {"cifg_cell_fwd": n_batches * clients,
-            "dp_sumsq": 5 * clients, "dp_clip_accumulate": 5 * chunks}
+            "cifg_cell_bwd_seq": n_batches * clients, "cifg_cell_bwd": 0,
+            "dp_sumsq": chunks, "dp_clip_accumulate": 5 * chunks}
     for k, v in want.items():
         if launches[k] != v:
             fail(f"training launched {k} {launches[k]} times, expected {v} "
@@ -973,12 +1309,83 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
     step_dev, _, step_top = profiled_device_ms(step, 5)
     clip_eager = cuda_time_ms(clip, 200)
     clip_dev, _, _ = profiled_device_ms(clip, 20)
+
+    # before and after this slice's kernels, in turns in this run: a client
+    # step with the reverse recursion as the plain loop (16 f32 torch.mm and
+    # their elementwise ops, as training ran it before) against one
+    # cifg_cell_bwd_seq launch; a chunk's clip with one fused_sumsq per
+    # client and leaf against one sumsq_chunk launch
+    def plain_recursion(fn):
+        kernel = cell_ops.cell_bwd_seq
+        cell_ops.cell_bwd_seq = cell_ops.cell_bwd_seq_ref
+        try:
+            return fn()
+        finally:
+            cell_ops.cell_bwd_seq = kernel
+
+    deltas = [tree_map(lambda l: torch.randn_like(l) * 1e-3, params)
+              for _ in range(16)]
+    masks = [torch.ones((), device=dev)] * 16
+
+    def chunk_after():
+        return clip_accumulate_chunk_tree(acc, deltas, dp.clip_norm, masks)
+
+    def chunk_before():
+        factors, norms = [], []
+        for d, m in zip(deltas, masks):
+            ss = clip_ops.fused_sumsq(d)
+            factors.append(clip_factor(torch.sqrt(ss), dp.clip_norm) * m)
+            norms.append(torch.sqrt(ss))
+        f = torch.stack(factors)
+        new = tree_map(lambda a, *ds: clip_ops.clip_accumulate_chunk_leaf(
+            a, ds, f), acc, *deltas)
+        return new, norms, [(clip_factor(n, dp.clip_norm) < 1.0).float()
+                            for n in norms]
+
+    for a, b in zip(tree_leaves(chunk_after()[0]),
+                    tree_leaves(chunk_before()[0])):
+        if not torch.equal(a, b):
+            fail("the chunk's clip differs from one fused_sumsq per client")
+    turns = {"step": [], "step_plain": [], "chunk": [], "chunk_plain": []}
+    for order in (0, 1):
+        for plain in ((False, True) if order == 0 else (True, False)):
+            run = (lambda f: plain_recursion(f)) if plain else (lambda f: f())
+            key = "_plain" if plain else ""
+            eager = run(lambda: cuda_time_ms(step, 10, warmup=2))
+            dev_ms, _, _ = run(lambda: profiled_device_ms(step, 5))
+            turns["step" + key].append((eager, dev_ms))
+            fn = chunk_before if plain else chunk_after
+            turns["chunk" + key].append((cuda_time_ms(fn, 20, warmup=2),
+                                         profiled_device_ms(fn, 5)[0]))
+
+    def mean(key, i):
+        vals = [v[i] for v in turns[key]]
+        return None if None in vals else sum(vals) / len(vals)
+
+    def busy_share(dev_ms, eager_ms):
+        return ("not measured" if dev_ms is None
+                else f"{100 * dev_ms / eager_ms:.1f}%")
+
+    for what, unit, before in (
+            ("step", "client SGD step (batch 10 x 16)",
+             "the plain reverse loop"),
+            ("chunk", "clip + accumulate of a chunk of 16",
+             "one fused_sumsq per client")):
+        e1, d1 = mean(what, 0), mean(what, 1)
+        e0, d0 = mean(what + "_plain", 0), mean(what + "_plain", 1)
+        say(f"train: one {unit}, this slice's kernels against the path "
+            f"before them ({before}), mean of 2 turns each: eager "
+            f"{e1:.3f} ms vs {e0:.3f} ms; on the device {_fmt_ms(d1)} vs "
+            f"{_fmt_ms(d0)}; device busy {busy_share(d1, e1)} vs "
+            f"{busy_share(d0, e0)} of "
+            f"the eager time")
     round_dev, round_wall, _ = profiled_device_ms(trainer.run_round, 1,
                                                   warmup=False)
     busy = None if round_dev is None else 100 * round_dev / round_wall
     round_ms = run_s / rounds * 1e3
     say(f"train: one client SGD step (batch {batch} x {seq_len}) "
-        f"{step_eager:.3f} ms eager, {_fmt_ms(step_dev)} on the device; "
+        f"{step_eager:.3f} ms eager, {_fmt_ms(step_dev)} on the device "
+        f"(busy {busy_share(step_dev, step_eager)}); "
         f"clip + accumulate of one client {clip_eager:.3f} ms eager, "
         f"{_fmt_ms(clip_dev)} on the device; a round {round_ms:.1f} ms "
         f"= {cohort * n_batches} client steps x {step_eager:.3f} ms + "
@@ -1151,8 +1558,8 @@ def phase_kernel_flash(dev) -> dict:
     library_ms = graph_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), per_graph=20)
     eager_ms = cuda_time_ms(lambda: flash_attention(q, k, v), 100)
-    regs, smem, blocks = kernel_resources(lambda: flash_attention(q, k, v),
-                                          "flash_fwd_tc_kernel")
+    res = kernel_resources(lambda: flash_attention(q, k, v),
+                           "flash_fwd_tc_kernel")
     pairs = _attention_pairs(S, S, causal, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     ops = 4 * B * H * hd * pairs
@@ -1164,9 +1571,7 @@ def phase_kernel_flash(dev) -> dict:
         f"{ops / 1e9:.3f} GFLOP, {bound_by}); one eager call "
         f"{eager_ms * 1e3:.2f} us")
     say(f"kernel: flash_attention_fwd bf16 (tensor cores), from the "
-        f"profiler's trace: {regs} registers per thread, {smem} bytes of "
-        f"shared memory per block of 128 threads: {blocks} resident blocks "
-        f"({4 * blocks} of 64 warps) per SM")
+        f"profiler's trace: {res}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_fwd.cu",
@@ -1295,15 +1700,12 @@ def phase_kernel_ssd(dev) -> dict:
         if row is None:
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by}
-            for kname, threads in (("ssd_chunk_state_kernel", 512),
-                                   ("ssd_state_pass_kernel", 256),
-                                   ("ssd_chunk_scan_kernel", 512)):
-                regs, smem, blocks = kernel_resources(
-                    lambda: ssd_scan(xb, dt, Bb, Cb, A), kname)
+            for kname in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                          "ssd_chunk_scan_kernel"):
+                res = kernel_resources(lambda: ssd_scan(xb, dt, Bb, Cb, A),
+                                       kname)
                 say(f"kernel: ssd_scan's {kname}, from the profiler's trace:"
-                    f" {regs} registers per thread, {smem} bytes of shared "
-                    f"memory per block of {threads} threads: {blocks} "
-                    f"resident blocks per SM")
+                    f" {res}")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -1501,16 +1903,20 @@ def main() -> None:
     phase_card()
     phase_build()
     fwd = phase_kernel(dev)
-    bwd = phase_kernel_bwd(dev)
+    phase_kernel_bwd(dev)
+    bwd = phase_kernel_bwd_seq(dev)
     clip_rows = phase_kernel_clip(dev)
     flash = phase_kernel_flash(dev)
     ssd = phase_kernel_ssd(dev)
     serve = phase_serve(dev, fwd)
     train = phase_train(dev)
-    bwd["launches"] = phase_decode_grad(dev)
+    step_launches = phase_decode_grad(dev)
+    bwd["launches"] = train["launches"]["cifg_cell_bwd_seq"]
     fwd["launches"] = serve["launches"] + train["launches"]["cifg_cell_fwd"]
     say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
-        f"{train['launches']['cifg_cell_fwd']}")
+        f"{train['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
+        f"sequence form {bwd['launches']} in training, the per-step form "
+        f"{step_launches} through decode steps")
     for row in clip_rows:
         row["launches"] = train["launches"][row["name"]]
     hybrid = phase_hybrid(dev)

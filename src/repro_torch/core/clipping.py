@@ -5,8 +5,9 @@ the streaming form of the chunked cohort accumulator, one clip→fold step
 ``acc ← acc + scale·min(1, S/‖Δ‖)·Δ``, with two implementations:
 
 * ``"fused"`` — the hand-written dp_clip kernels (`repro_torch.kernels.
-  dp_clip`): one sum-of-squares pass and one scale-and-accumulate pass per
-  leaf (the plain versions for CPU tensors);
+  dp_clip`): one sum-of-squares launch over every leaf, which also forms
+  the norm and the factor, and one scale-and-accumulate pass per leaf (the
+  plain versions for CPU tensors);
 * ``"tree"`` — plain tensor ops on :func:`clip_by_global_norm`'s arithmetic,
   the oracle the fused path is held against.
 
@@ -14,8 +15,8 @@ Both compute the pre-clip norm, the factor and the was-clipped flag with the
 same formulas and differ only in the order of the sum of squares, so they
 agree within float tolerance and each is deterministic on its own.
 ``clip_accumulate_chunk_tree`` is the fused step for a whole chunk of
-clients, one accumulate launch per leaf, with the bits of one
-``clip_accumulate_tree`` per slot.
+clients, one sum-of-squares launch for the chunk and one accumulate launch
+per leaf, with the bits of one ``clip_accumulate_tree`` per slot.
 """
 from __future__ import annotations
 
@@ -70,5 +71,5 @@ def clip_accumulate_chunk_tree(acc, updates, clip_norm: float, scales):
     was-clipped flags)``, the last two lists in slot order."""
     new_acc, norms = dp_clip_ops.clip_accumulate_chunk(acc, updates,
                                                        clip_norm, scales)
-    flags = [(clip_factor(n, clip_norm) < 1.0).float() for n in norms]
-    return new_acc, norms, flags
+    flags = (clip_factor(norms, clip_norm) < 1.0).float()
+    return new_acc, list(norms.unbind()), list(flags.unbind())

@@ -10,8 +10,8 @@ canonical blocks of `repro_torch.fl.reduction`, each block is taken
 ``cohort_chunk`` clients at a time, and each client's clipped update is
 folded into the block's partial one slot at a time, left to right
 (:func:`chunk_accumulate`: on the default ``clip_path="fused"`` the CUDA
-dp_clip kernels, one sum of squares per client and leaf and one
-accumulate launch per leaf for the whole chunk, through
+dp_clip kernels, one sum-of-squares launch and one accumulate launch per
+leaf for the whole chunk, through
 `core.clipping.clip_accumulate_chunk_tree`). Peak update memory is
 O(cohort_chunk · |params|), and the sum is bit-identical for every
 ``cohort_chunk`` dividing the block size. ``cohort_chunk=0`` selects the

@@ -44,12 +44,28 @@
 //     distributed shared memory. h is double-buffered, so each step ends in
 //     one cluster barrier.
 // Registers are held to two CTAs per SM (__launch_bounds__), so that the
-// 16 clusters of a 256-row decode tick are resident at once. The width
-// limit is H <= 256 (8 CTAs x 32 columns); the entry point returns
-// cudaErrorInvalidValue above it.
+// 16 clusters of a 256-row decode tick are resident at once. That is the
+// route for H <= 256 (8 CTAs x 32 columns).
+//
+// Wider cells (H > 256) take the wide route, a second kernel of this file
+// (cifg_seq_wide_kernel): a cluster of 16 CTAs (a non-portable size) per 16
+// batch rows, CTA r owning hidden columns [r*CW, (r+1)*CW), CW = ceil(H/16),
+// in groups of 32. h is exchanged through global memory: each step reads
+// the state h_{t-1} (h0, or hs[t-1], which the peers wrote before the
+// step's cluster barrier) in k-tiles of 64 through L2, rounded to the
+// compute dtype as it is loaded, and c_{t-1} is read back from cs[t-1] by
+// the thread that wrote it. w_h is resident where the CTA's slice fits in
+// shared memory (one group of columns: H <= 512; 104 KB bf16, 192 KB f32 at
+// H 512) and streamed beyond that: a 64-row tile of the group's gate columns
+// loaded from global memory (L2) beside each tile of h. Where the slice
+// fits, resident is the faster form (PERF.md has both times). Products:
+// bf16 mma.sync m16n8k16 with A = w^T from ldmatrix.trans, one accumulator
+// chain over k ascending; f32 FMAs, k ascending. One cluster barrier a
+// step. The route is chosen by H alone, never by B or S.
 //
 // Where it stands (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): a
-// step costs about 2 us; at S = 1 loading the slice of w_h dominates.
+// step of the H <= 256 route costs about 2 us; at S = 1 loading the slice
+// of w_h dominates.
 // Removal builds time a step without one of its parts: -DCIFG_SKIP_PRODUCT,
 // -DCIFG_SKIP_GATES, -DCIFG_SKIP_EXCHANGE or -DCIFG_SKIP_BARRIER compile
 // that part out (the results are then wrong; only the time counts). The
@@ -58,9 +74,9 @@
 // Determinism: each output element is a fixed sequence of operations on its
 // own row's data: the same k-steps in the same accumulator chains (bf16), or
 // k ascending with one FMA per term (f32), whatever B is and wherever the
-// row sits. So a row's result does not depend on the batch, hs[t] of an
-// S-step launch equals the state after a launch over the first t+1 steps,
-// and equals t+1 chained S = 1 launches, bit for bit.
+// row sits, on either route. So a row's result does not depend on the
+// batch, hs[t] of an S-step launch equals the state after a launch over the
+// first t+1 steps, and equals t+1 chained S = 1 launches, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -422,20 +438,33 @@ cifg_seq_kernel(const float* __restrict__ zx, const float* __restrict__ h0,
   }
 }
 
+constexpr int kMaxDevices = 64;
+
+// Function attributes hold per device: set() runs at the first launch on
+// each device and not again, so a launch inside a CUDA-graph capture after
+// a first call sets no attribute. done[] is the kernel's own flag array.
+template <typename F>
+cudaError_t configure_once(bool* done, F set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 template <typename T>
 int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
            float* hs, float* cs, int S, int B, int H, cudaStream_t stream) {
-  // the most shared memory any width takes, set once (one card per
-  // process; a launch inside a CUDA-graph capture after a first call then
-  // sets no attribute)
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cifg_seq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<T>(kMaxH));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  // the most shared memory any width takes
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t set = configure_once(configured, [] {
+    return cudaFuncSetAttribute(cifg_seq_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_bytes<T>(kMaxH));
+  });
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int KP = (H + 15) & ~15;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, 1);
@@ -456,23 +485,287 @@ int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------- the wide route
+
+constexpr int kWideCluster = 16;         // CTAs per cluster (non-portable)
+constexpr int kWideThreads = kThreads;   // 6 warps x 16 gate columns
+constexpr int kKT = 64;                  // k-tile of h (and of w, streamed)
+constexpr int kWideResidentH = kWideCluster * kColsCta;   // 512
+
+template <typename T>
+__host__ __device__ constexpr int wide_ldw() {
+  return sizeof(T) == 2 ? kWld : kM;     // w row stride (elements)
+}
+template <typename T>
+__host__ __device__ constexpr int wide_ht_elems() {
+  // bf16: h tile [kRows][kKT + 8]; f32: [kKT][kRows] (transposed)
+  return sizeof(T) == 2 ? kRows * (kKT + 8) : kKT * kRows;
+}
+// w (the whole slice, KP rows, or one kKT-row tile), the h tile, z staging
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes(int KP, bool resident) {
+  return (resident ? KP : kKT) * wide_ldw<T>() * static_cast<int>(sizeof(T))
+         + wide_ht_elems<T>() * static_cast<int>(sizeof(T)) + kM * kZld * 4;
+}
+
+// rows [k0, k0 + rows) of the gate columns g * H + colbase + jj (jj < ncols)
+// of w_h into dst[(k - k0) * ldw + g * 32 + jj]; 0 past H and ncols
+template <typename T>
+__device__ __forceinline__ void load_w_rows(T* dst, const T* __restrict__ w_h,
+                                            int k0, int rows, int H,
+                                            int colbase, int ncols) {
+  constexpr int ldw = wide_ldw<T>();
+  constexpr int kRowStep = kWideThreads / kM;     // 2
+  const long long H3 = 3LL * H;
+  const int m = threadIdx.x % kM;
+  const int g = m / kColsCta, jj = m - g * kColsCta;
+  const bool in = jj < ncols;
+  const T* src = w_h + (long long)g * H + colbase + jj;
+  for (int r0 = threadIdx.x / kM; r0 < rows; r0 += kRowStep * kLoadBatch) {
+    T v[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int r = r0 + u * kRowStep;
+      v[u] = (in && r < rows && k0 + r < H) ? src[(k0 + r) * H3]
+                                           : from_f32<T>(0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int r = r0 + u * kRowStep;
+      if (r < rows) dst[r * ldw + m] = v[u];
+    }
+  }
+}
+
+// columns [k0, k0 + kKT) of rows row0 .. row0 + nrows - 1 of the f32 state
+// hprev (row stride H), rounded to the compute dtype; 0 past H and nrows.
+// Loaded through L2 (ld.global.cg): the peers wrote it in this launch.
+template <typename T>
+__device__ __forceinline__ void load_h_tile(T* ht, const float* hprev,
+                                            int row0, int nrows, int k0,
+                                            int H) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  for (int i = threadIdx.x; i < kRows * kKT; i += kWideThreads) {
+    const int b = i / kKT, kk = i - b * kKT, k = k0 + kk;
+    const float v = (b < nrows && k < H)
+                        ? __ldcg(hprev + (long long)(row0 + b) * H + k)
+                        : 0.0f;
+    ht[kBf16 ? b * (kKT + 8) + kk : kk * kRows + b] = from_f32<T>(v);
+  }
+}
+
+template <typename T, bool kResident>
+__global__ void __launch_bounds__(kWideThreads, 1)
+cifg_seq_wide_kernel(const float* __restrict__ zx,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ c0, const T* __restrict__ w_h,
+                     float* hs, float* cs, int S, int B, int H) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int ldw = wide_ldw<T>();
+  constexpr int hld = kKT + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int KP = (H + 15) & ~15;
+  const int w_elems = (kResident ? KP : kKT) * ldw;
+  T* ws = reinterpret_cast<T*>(smem);
+  T* ht = reinterpret_cast<T*>(smem + w_elems * sizeof(T));
+  float* zs = reinterpret_cast<float*>(
+      smem + (w_elems + wide_ht_elems<T>()) * sizeof(T));
+
+  const int rank = static_cast<int>(cluster_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int CW = (H + kWideCluster - 1) / kWideCluster;
+  const int col0 = rank * CW;
+  const int groups = (CW + kColsCta - 1) / kColsCta;
+  const int row0 = blockIdx.y * kRows;
+  const int nrows = min(kRows, B - row0);
+  const long long H3 = 3LL * H;
+  const long long BH = (long long)B * H;
+
+  // resident: one group of columns, its slice loaded once
+  if constexpr (kResident)
+    load_w_rows<T>(ws, w_h, 0, KP, H, col0, max(0, min(CW, H - col0)));
+
+  const int m0 = warp * 16;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  for (int t = 0; t < S; ++t) {
+    const float* hprev = t == 0 ? h0 : hs + (long long)(t - 1) * BH;
+    const float* cprev = t == 0 ? c0 : cs + (long long)(t - 1) * BH;
+    const float* zrow = zx + (long long)t * B * H3;
+    float* hs_t = hs + (long long)t * BH;
+    float* cs_t = cs + (long long)t * BH;
+    for (int grp = 0; grp < groups; ++grp) {
+      const int gcol = col0 + grp * kColsCta;
+      const int gn = max(0, min(min(kColsCta, CW - grp * kColsCta),
+                                H - gcol));
+      float acc[kBf16 ? 2 : 8][kBf16 ? 4 : 1];
+#pragma unroll
+      for (int a = 0; a < (kBf16 ? 2 : 8); ++a)
+#pragma unroll
+        for (int i = 0; i < (kBf16 ? 4 : 1); ++i) acc[a][i] = 0.0f;
+      for (int k0 = 0; k0 < H; k0 += kKT) {
+        // the previous tile's products and group's gates are done
+        __syncthreads();
+        load_h_tile<T>(ht, hprev, row0, nrows, k0, H);
+        if constexpr (!kResident)
+          load_w_rows<T>(ws, w_h, k0, kKT, H, gcol, gn);
+        __syncthreads();
+        const T* wt = kResident ? ws + k0 * ldw : ws;
+#ifndef CIFG_SKIP_PRODUCT
+        if constexpr (kBf16) {
+          const int nks = min(kKT, KP - k0) / 16;
+          for (int ks = 0; ks < nks; ++ks) {
+            uint32_t a[4], bf[4];
+            const int k = ks * 16 + (lane & 7) + ((lane >> 4) << 3);
+            ldmatrix_x4_trans(a, &wt[k * ldw + m0 + ((lane >> 3) & 1) * 8]);
+            const int n = (lane & 7) + ((lane >> 4) << 3);
+            ldmatrix_x4(bf, &ht[n * hld + ks * 16 + ((lane >> 3) & 1) * 8]);
+            mma_bf16(acc[0], a, bf[0], bf[1]);
+            mma_bf16(acc[1], a, bf[2], bf[3]);
+          }
+        } else {
+          const int m = tid % kM;
+          const int half = tid / kM;
+          const float* hf = reinterpret_cast<const float*>(ht);
+          const float* wf = reinterpret_cast<const float*>(wt);
+          const int kn = min(kKT, H - k0);
+          for (int kk = 0; kk < kn; ++kk) {
+            const float w = wf[kk * kM + m];
+            const float4 ha = *reinterpret_cast<const float4*>(
+                &hf[kk * kRows + half * 8]);
+            const float4 hb4 = *reinterpret_cast<const float4*>(
+                &hf[kk * kRows + half * 8 + 4]);
+            acc[0][0] = fmaf(ha.x, w, acc[0][0]);
+            acc[1][0] = fmaf(ha.y, w, acc[1][0]);
+            acc[2][0] = fmaf(ha.z, w, acc[2][0]);
+            acc[3][0] = fmaf(ha.w, w, acc[3][0]);
+            acc[4][0] = fmaf(hb4.x, w, acc[4][0]);
+            acc[5][0] = fmaf(hb4.y, w, acc[5][0]);
+            acc[6][0] = fmaf(hb4.z, w, acc[6][0]);
+            acc[7][0] = fmaf(hb4.w, w, acc[7][0]);
+          }
+        }
+#endif
+      }
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int m = m0 + g8 + (i >= 2 ? 8 : 0);
+            const int b = n * 8 + 2 * t4 + (i & 1);
+            zs[m * kZld + b] = acc[n][i];
+          }
+      } else {
+        const int m = tid % kM;
+        const int half = tid / kM;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) zs[m * kZld + half * 8 + r] = acc[r][0];
+      }
+      __syncthreads();
+
+      // gates and the state update of the group's (column, row) pairs; each
+      // pair is the same thread every step, so it reads back its own c
+#pragma unroll
+      for (int i = 0; i < kPairsPerThread; ++i) {
+        const int p = tid + i * kWideThreads;
+        const int jj = p % kColsCta, b = p / kColsCta;
+        if (p >= kPairs || jj >= gn || b >= nrows) continue;
+        const long long r = row0 + b;
+        const int col = gcol + jj;
+        const float zf = zrow[r * H3 + col] + zs[jj * kZld + b];
+        const float zo =
+            zrow[r * H3 + H + col] + zs[(kColsCta + jj) * kZld + b];
+        const float zg =
+            zrow[r * H3 + 2 * H + col] + zs[(2 * kColsCta + jj) * kZld + b];
+        const float c = cprev[r * H + col];
+#ifdef CIFG_SKIP_GATES
+        const float cn = zf + zg + c;
+        const float hn = zo + cn;
+#else
+        const float f = sigmoid_f32(zf + 1.0f);
+        const float o = sigmoid_f32(zo);
+        const float g = tanhf(zg);
+        const float cn = f * c + (1.0f - f) * g;
+        const float hn = o * tanhf(cn);
+#endif
+        hs_t[r * H + col] = hn;
+        cs_t[r * H + col] = cn;
+      }
+    }
+    // every CTA's h_t is in global memory before the next step reads it
+#ifndef CIFG_SKIP_BARRIER
+    if (t + 1 < S) cluster_sync();
+#endif
+  }
+}
+
+template <typename T, bool kResident>
+int launch_wide(const float* zx, const float* h0, const float* c0,
+                const void* w_h, float* hs, float* cs, int S, int B, int H,
+                cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t set = configure_once(configured, [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        cifg_seq_wide_kernel<T, kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wide_smem_bytes<T>(kWideResidentH, kResident));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          cifg_seq_wide_kernel<T, kResident>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return err;
+  });
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kWideCluster, (B + kRows - 1) / kRows, 1);
+  cfg.blockDim = dim3(kWideThreads, 1, 1);
+  cfg.dynamicSmemBytes = wide_smem_bytes<T>((H + 15) & ~15, kResident);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWideCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cifg_seq_wide_kernel<T, kResident>, zx, h0, c0,
+      static_cast<const T*>(w_h), hs, cs, S, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_any(const float* zx, const float* h0, const float* c0,
+               const void* w_h, float* hs, float* cs, int S, int B, int H,
+               cudaStream_t s) {
+  if (H <= kMaxH) return launch<T>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+  if (H <= kWideResidentH)
+    return launch_wide<T, true>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+  return launch_wide<T, false>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes: S steps of the recurrence from
 // (h0, c0), writing the state after each step into hs[t] and cs[t].
-// w_is_bf16 selects the compute dtype of w_h (1 = bf16, 0 = f32). Returns
-// the cudaError_t of the launch (0 on success); shapes the kernel does not
-// take (H > 256, S or B < 1) return cudaErrorInvalidValue.
+// w_is_bf16 selects the compute dtype of w_h (1 = bf16, 0 = f32). The route
+// follows H: the 8-CTA resident kernel up to 256, the 16-CTA wide kernel
+// beyond (w_h resident up to 512, streamed above). Returns the cudaError_t
+// of the launch (0 on success); S, B or H below 1 return
+// cudaErrorInvalidValue.
 extern "C" int cifg_cell_seq_fwd(const float* zx, const float* h0,
                                  const float* c0, const void* w_h,
                                  int w_is_bf16, float* hs, float* cs, int S,
                                  int B, int H, void* stream) {
-  if (S < 1 || B < 1 || H < 1 || H > kMaxH || B > 65535 * kRows) {
+  if (S < 1 || B < 1 || H < 1 || B > 65535 * kRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_is_bf16) {
-    return launch<__nv_bfloat16>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+    return launch_any<__nv_bfloat16>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
   }
-  return launch<float>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+  return launch_any<float>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
 }

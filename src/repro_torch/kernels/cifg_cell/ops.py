@@ -1,15 +1,17 @@
 """The CIFG cell kernels' wrappers and the ops built on them.
 
-``cell_seq_fwd`` / ``cell_fwd`` and ``cell_bwd`` wrap the CUDA kernels
-``csrc/cifg_cell_fwd.cu`` and ``csrc/cifg_cell_bwd.cu`` (which replace the
-Pallas ``cell_fwd`` and ``cell_bwd`` of the reference). The forward kernel
-runs a whole sequence in one launch (``cell_seq_fwd``); one step
-(``cell_fwd``) is that kernel at S = 1. They take the model's natural
-layout — zx (S, B, 3H) or (B, 3H), h and c (B, H) float32, w_h (H, 3H) in
-the compute dtype — with no packing or tile padding: the kernels mask
-ragged B and H themselves. For tensors on the CPU a wrapper computes the
-plain version (`ref.py`); for CUDA tensors it launches its kernel or
-raises.
+``cell_seq_fwd`` / ``cell_fwd``, ``cell_bwd_seq`` and ``cell_bwd`` wrap the
+CUDA kernels ``csrc/cifg_cell_fwd.cu`` and ``csrc/cifg_cell_bwd.cu`` (which
+replace the Pallas ``cell_fwd`` and ``cell_bwd`` of the reference). The
+forward kernel runs a whole sequence in one launch (``cell_seq_fwd``); one
+step (``cell_fwd``) is that kernel at S = 1. ``cell_bwd_seq`` runs the
+reverse recursion of a whole sequence in one launch; ``cell_bwd`` is the
+reverse of one step. They take the model's natural layout — zx (S, B, 3H)
+or (B, 3H), h and c (B, H) float32, w_h (H, 3H) in the compute dtype — with
+no packing or tile padding: the kernels mask ragged B and H themselves, and
+take any H (each kernel picks its route from H alone). For tensors on the
+CPU a wrapper computes the plain version (`ref.py`); for CUDA tensors it
+launches its kernel or raises.
 
 ``LAUNCHES[name]`` counts kernel launches (only those), so a run can show
 that its path went through the kernels.
@@ -21,9 +23,10 @@ that its path went through the kernels.
   backward (``_cifg_sequence_fwd`` / ``_cifg_sequence_bwd``): the forward
   is one launch of the sequence kernel (``cell="fused"``) or steps the
   plain cell (``"seq"``); the backward recomputes the gates in one product
-  over all steps, runs one ``dz @ w_hᵀ`` per step in reverse and forms
-  ``dw_h`` in one product. That backward is plain PyTorch, as it is jnp in
-  the reference; training's forward and backward both go through it.
+  over all steps, runs the reverse recursion (one ``cell_bwd_seq`` launch
+  for ``"fused"``, the plain loop of one ``dz @ w_hᵀ`` per step for
+  ``"seq"``) and forms ``dw_h`` in one product. Training's forward and
+  backward both go through it.
 * ``cifg_states`` — the forward-only recurrence of the prefills (and of
   ``cifg_sequence``'s forward), one launch writing each step's state
   straight into preallocated (S, B, H) stacks.
@@ -35,26 +38,33 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.cifg_cell.ref import cell_bwd_ref, cifg_cell_ref
+from repro_torch.kernels.cifg_cell.ref import (cell_bwd_ref, cell_bwd_seq_ref,
+                                               cifg_cell_ref)
 from repro_torch.utils.numerics import round_to, torch_dtype
 
-LAUNCHES = {"cifg_cell_fwd": 0, "cifg_cell_bwd": 0}
-
-MAX_HIDDEN = 256   # the sequence kernel's width limit: 8 CTAs x 32 columns
+LAUNCHES = {"cifg_cell_fwd": 0, "cifg_cell_bwd": 0, "cifg_cell_bwd_seq": 0}
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# counter → (library, C entry point, its argument types)
+_ENTRIES = {
+    "cifg_cell_fwd": ("cifg_cell_fwd", "cifg_cell_seq_fwd",
+                      [_p, _p, _p, _p, _i, _p, _p, _i, _i, _i, _p]),
+    "cifg_cell_bwd": ("cifg_cell_bwd", "cifg_cell_bwd",
+                      [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i,
+                       _p]),
+    "cifg_cell_bwd_seq": ("cifg_cell_bwd", "cifg_cell_bwd_seq",
+                          [_p] * 10 + [_i, _i, _i, _p]),
+}
+
 
 def _kernel(name: str):
-    """The C entry point behind wrapper ``name``: the forward library's
-    entry is the sequence kernel, ``cifg_cell_seq_fwd``."""
-    symbol = {"cifg_cell_fwd": "cifg_cell_seq_fwd"}.get(name, name)
-    fn = getattr(build.load(name), symbol)
+    """The C entry point behind wrapper ``name``."""
+    library, symbol, argtypes = _ENTRIES[name]
+    fn = getattr(build.load(library), symbol)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = {"cifg_cell_fwd": [p, p, p, p, i, p, p, i, i, i, p],
-                       "cifg_cell_bwd": [p, p, i, p, p, p, p, p, p, p, p, i,
-                                         i, p]}[name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -105,11 +115,10 @@ def _launch_seq(zx, h0, c0, w_h, hs, cs):
         err = fn(zx.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_h.data_ptr(),
                  int(w_h.dtype == torch.bfloat16), hs.data_ptr(),
                  cs.data_ptr(), S, B, H, stream)
-    if err != 0:   # 1 (invalid value): a shape the kernel does not take
+    if err != 0:
         raise RuntimeError(f"cifg_cell_fwd kernel launch failed with CUDA "
                            f"error {err} (S={S}, B={B}, H={H}, w_h "
-                           f"{w_h.dtype}; the kernel takes H <= "
-                           f"{MAX_HIDDEN})")
+                           f"{w_h.dtype})")
     LAUNCHES["cifg_cell_fwd"] += 1
 
 
@@ -144,7 +153,7 @@ def cell_seq_fwd(zx, h0, c0, w_h, *, hs=None, cs=None):
     zx (S, B, 3H), h0 and c0 (B, H) float32, w_h (H, 3H) bfloat16 or
     float32; ``hs`` / ``cs`` (optional, (S, B, H) float32, contiguous)
     receive the result in place. For CPU tensors this is the plain
-    recurrence; for CUDA tensors it launches the kernel (H <= 256) or
+    recurrence; for CUDA tensors it launches the kernel (any H) or
     raises. ``hs[t]`` is bitwise the final state of a call over the first
     t + 1 steps and of t + 1 chained `cell_fwd` calls."""
     if zx.dim() != 3 or zx.shape[0] < 1:
@@ -213,6 +222,55 @@ def cell_bwd(zx, w_h, h, c, dh_new, dc_new):
                            f"error {err} (B={B}, H={H}, w_h {w_h.dtype})")
     LAUNCHES["cifg_cell_bwd"] += 1
     return dzx, dh, dc, dwh
+
+
+def cell_bwd_seq(z, cs, c0, dhs, dh_fin, dc_fin, w_h):
+    """The reverse recursion of a whole CIFG sequence in one launch →
+    (dz (S, B, 3H), dh0 (B, H), dc0 (B, H)), all float32: for s = S-1 … 0,
+    dh += dhs[s], dct = dc + dh·A, dz[s] = [dct·Bf | dh·Co | dct·Dg],
+    dh = dz[s] @ w_hᵀ, dc = dct·f, the factors formed from the gates of
+    ``z`` and from ``cs`` and c_{s-1} (`ref.cell_bwd_seq_ref`).
+
+    z (S, B, 3H) the gate pre-activations (zx + h_{s-1} @ w_h), cs (S, B, H)
+    the cell states, c0 (B, H) the initial one, dhs (S, B, H), dh_fin and
+    dc_fin (B, H) the cotangents, w_h (H, 3H): all float32 (the product is
+    float32, as the reference's). For CPU tensors this is the plain loop;
+    for CUDA tensors it launches the kernel (any H) or raises."""
+    if cs.dim() != 3 or cs.shape[0] < 1:
+        raise ValueError(f"cell_bwd_seq: cs must be (S, B, H) with S >= 1, "
+                         f"got {tuple(cs.shape)}")
+    S, B, H = cs.shape
+    shapes = {"z": (S, B, 3 * H), "cs": (S, B, H), "c0": (B, H),
+              "dhs": (S, B, H), "dh_fin": (B, H), "dc_fin": (B, H),
+              "w_h": (H, 3 * H)}
+    named = {"z": z, "cs": cs, "c0": c0, "dhs": dhs, "dh_fin": dh_fin,
+             "dc_fin": dc_fin, "w_h": w_h}
+    for tname, t in named.items():
+        if tuple(t.shape) != shapes[tname]:
+            raise ValueError(f"cell_bwd_seq: expected {tname} "
+                             f"{shapes[tname]}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"cell_bwd_seq: {tname} must be float32, got "
+                            f"{t.dtype}")
+    if cs.device.type == "cpu":
+        return cell_bwd_seq_ref(z, cs, c0, dhs, dh_fin, dc_fin, w_h)
+    if cs.device.type != "cuda":
+        raise ValueError(f"cell_bwd_seq: unsupported device {cs.device}")
+    _on_card("cell_bwd_seq", named, cs.device)
+    dz = torch.empty_like(z)
+    dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+    fn = _kernel("cifg_cell_bwd_seq")
+    with torch.cuda.device(cs.device):
+        stream = torch.cuda.current_stream(cs.device).cuda_stream
+        err = fn(z.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
+                 dh_fin.data_ptr(), dc_fin.data_ptr(), w_h.data_ptr(),
+                 dz.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), S, B, H,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"cifg_cell_bwd_seq kernel launch failed with "
+                           f"CUDA error {err} (S={S}, B={B}, H={H})")
+    LAUNCHES["cifg_cell_bwd_seq"] += 1
+    return dz, dh0, dc0
 
 
 class _CifgStep(torch.autograd.Function):
@@ -299,8 +357,9 @@ class _CifgSequence(torch.autograd.Function):
         (S·B, H) @ (H, 3H) product over compute-dtype operands with float32
         sums, as in the forward, so the linearization point is the
         forward's; ``dw_h`` is one (H, S·B) @ (S·B, 3H) product after the
-        loop. Each reverse step does the elementwise (dh, dc) update and one
-        float32 ``dz @ w_hᵀ``."""
+        recursion. The recursion itself (the elementwise (dh, dc) update
+        and one float32 ``dz @ w_hᵀ`` a step) is one `cell_bwd_seq` launch
+        for ``cell="fused"`` and its plain loop for ``"seq"``."""
         if ctx.remat:
             zx, h0, c0, w_h = ctx.saved_tensors
             hs, cs = cifg_states(zx, h0, c0, w_h, cell=ctx.cell,
@@ -310,34 +369,16 @@ class _CifgSequence(torch.autograd.Function):
         f32 = torch.float32
         S, B, H = hs.shape
         h_prev = torch.cat([h0.to(f32)[None], hs[:-1]])
-        c_prev = torch.cat([c0.to(f32)[None], cs[:-1]])
-        z = zx.to(f32) + torch.mm(
+        z = (zx.to(f32) + torch.mm(
             round_to(h_prev.reshape(S * B, H), ctx.cd),
-            round_to(w_h, ctx.cd)).reshape(S, B, 3 * H)
-        f = torch.sigmoid(z[..., :H] + 1.0)
-        o = torch.sigmoid(z[..., H:2 * H])
-        g = torch.tanh(z[..., 2 * H:])
-        t = torch.tanh(cs)
-        # per-step cotangent factors, batched over time:
-        #   dct = dc + dh·A;  dzf = dct·Bf;  dzo = dh·Co;  dzg = dct·Dg
-        A = o * (1.0 - t * t)
-        Bf = (c_prev - g) * f * (1.0 - f)
-        Co = t * o * (1.0 - o)
-        Dg = (1.0 - f) * (1.0 - g * g)
-        w_t = w_h.to(f32).t()
-        dhs = dhs.to(f32)
-        dh_next, dc_next = dhf.to(f32), dcf.to(f32)
-        dz = torch.empty_like(z)
-        for s in range(S - 1, -1, -1):
-            dh = dh_next + dhs[s]
-            dct = dc_next + dh * A[s]
-            torch.mul(dct, Bf[s], out=dz[s, :, :H])
-            torch.mul(dh, Co[s], out=dz[s, :, H:2 * H])
-            torch.mul(dct, Dg[s], out=dz[s, :, 2 * H:])
-            dh_next = torch.mm(dz[s], w_t)
-            dc_next = dct * f[s]
+            round_to(w_h, ctx.cd)).reshape(S, B, 3 * H)).contiguous()
+        recursion = cell_bwd_seq if ctx.cell == "fused" else cell_bwd_seq_ref
+        dz, dh0, dc0 = recursion(
+            z, cs.contiguous(), c0.to(f32).contiguous(),
+            dhs.to(f32).contiguous(), dhf.to(f32).contiguous(),
+            dcf.to(f32).contiguous(), w_h.to(f32).contiguous())
         dwh = torch.mm(h_prev.reshape(S * B, H).t(), dz.reshape(S * B, -1))
-        return (dz.to(zx.dtype), dh_next.to(h0.dtype), dc_next.to(c0.dtype),
+        return (dz.to(zx.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype),
                 dwh.to(w_h.dtype), None, None, None)
 
 

@@ -53,3 +53,41 @@ def cell_bwd_ref(zx, w_h, h, c, dh_new, dc_new):
                     dct * (1.0 - f) * (1.0 - g * g)], dim=1)
     dzc = round_to(dz, cd)
     return dz, rowstable_mm(dzc, w.t()), dct * f, hc.t().mm(dzc)
+
+
+def cell_bwd_seq_ref(z, cs, c0, dhs, dh_fin, dc_fin, w_h):
+    """The reverse recursion of a CIFG sequence, the plain version of the
+    CUDA kernel ``cifg_cell_bwd_seq`` (``csrc/cifg_cell_bwd.cu``) and of the
+    reverse scan in the reference's ``_cifg_sequence_bwd``.
+
+    z (S, B, 3H) the gate pre-activations, cs (S, B, H) the cell states, c0
+    (B, H), the cotangents dhs (S, B, H), dh_fin and dc_fin (B, H), w_h
+    (H, 3H); float32 throughout, the product too. The per-step factors
+    A = o(1 − t²), Bf = (c_{s−1} − g)·f(1 − f), Co = t·o(1 − o),
+    Dg = (1 − f)(1 − g²) (t = tanh c_s) are formed batched over time; then
+    for s = S−1 … 0: dh += dhs[s], dct = dc + dh·A, dz[s] = [dct·Bf | dh·Co |
+    dct·Dg], dh = dz[s] @ w_hᵀ, dc = dct·f. Returns (dz, dh0, dc0)."""
+    f32 = torch.float32
+    S, B, H = cs.shape
+    c_prev = torch.cat([c0.to(f32)[None], cs[:-1]])
+    f = torch.sigmoid(z[..., :H] + 1.0)
+    o = torch.sigmoid(z[..., H:2 * H])
+    g = torch.tanh(z[..., 2 * H:])
+    t = torch.tanh(cs)
+    A = o * (1.0 - t * t)
+    Bf = (c_prev - g) * f * (1.0 - f)
+    Co = t * o * (1.0 - o)
+    Dg = (1.0 - f) * (1.0 - g * g)
+    w_t = w_h.to(f32).t()
+    dhs = dhs.to(f32)
+    dh_next, dc_next = dh_fin.to(f32), dc_fin.to(f32)
+    dz = torch.empty_like(z)
+    for s in range(S - 1, -1, -1):
+        dh = dh_next + dhs[s]
+        dct = dc_next + dh * A[s]
+        torch.mul(dct, Bf[s], out=dz[s, :, :H])
+        torch.mul(dh, Co[s], out=dz[s, :, H:2 * H])
+        torch.mul(dct, Dg[s], out=dz[s, :, 2 * H:])
+        dh_next = torch.mm(dz[s], w_t)
+        dc_next = dct * f[s]
+    return dz, dh_next, dc_next

@@ -32,3 +32,17 @@ def clip_factor_ref(sumsq, clip_norm: float) -> torch.Tensor:
     """min(1, S / max(√sumsq, 1e-12)) — a device scalar, no host sync."""
     norm = torch.sqrt(sumsq)
     return torch.clamp(clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def sumsq_chunk_ref(leaves_per_client, clip_norm: float, scales=None):
+    """The plain version of ``sumsq_chunk``: per client, the leaves' sums
+    of squares added in order from 0 (``fused_sumsq``), the norm
+    ``sqrt(ss)`` and the factor ``clip_factor_ref(ss, S)·scale`` →
+    (ss, norms, factors), each (C,) float32. ``scales``: a (C,) tensor or
+    None (no mask)."""
+    ss = torch.stack([sum(sumsq_ref(x) for x in leaves)
+                      for leaves in leaves_per_client])
+    factors = clip_factor_ref(ss, clip_norm)
+    if scales is not None:
+        factors = factors * scales
+    return ss, torch.sqrt(ss), factors

@@ -2,12 +2,15 @@
 
 A kernel's source compiles one of its parts out under a ``-D`` switch
 (``cifg_cell_fwd.cu``: ``CIFG_SKIP_PRODUCT``, ``CIFG_SKIP_GATES``,
-``CIFG_SKIP_EXCHANGE``, ``CIFG_SKIP_BARRIER``; ``ssd_scan.cu``:
+``CIFG_SKIP_EXCHANGE``, ``CIFG_SKIP_BARRIER``; ``cifg_cell_bwd.cu``'s
+sequence kernel: ``CIFGB_SKIP_ELEMENTWISE``, ``CIFGB_SKIP_EXCHANGE``,
+``CIFGB_SKIP_BARRIER``, ``CIFGB_SKIP_PRODUCT``; ``ssd_scan.cu``:
 ``SSD_SKIP_CB``, ``SSD_SKIP_INTRA``, ``SSD_SKIP_INTER``). This script builds
 each library once as it is and once per switch (one ``nvcc`` each, all
 started together, into ``build/kernels/removal/``), and times every build at
 a main-path shape with CUDA-graph replays, in turns (the full build, each
-removal, then the same again in reverse order), in one process on one card.
+removal, then the same again in reverse order), in one process on one card;
+the cell kernels' wide route (H 264 and 520) is timed whole, twice.
 A removal build's results are wrong; only its time counts. What a part
 costs is the full build's time less the time without it.
 
@@ -38,6 +41,12 @@ SWITCHES = {
         "CIFG_SKIP_GATES": "the gate math",
         "CIFG_SKIP_EXCHANGE": "the stores of h' to the peers",
         "CIFG_SKIP_BARRIER": "the cluster barrier",
+    },
+    "cifg_cell_bwd": {
+        "CIFGB_SKIP_ELEMENTWISE": "the elementwise reverse step",
+        "CIFGB_SKIP_EXCHANGE": "the stores of dz to the peers",
+        "CIFGB_SKIP_BARRIER": "the cluster barrier",
+        "CIFGB_SKIP_PRODUCT": "the product dz·w_hᵀ",
     },
     "ssd_scan": {
         "SSD_SKIP_CB": "C·Bᵀ",
@@ -135,6 +144,32 @@ def _cell_call(lib, B: int, S: int, H: int, gen):
     return call
 
 
+def _bwd_seq_call(lib, B: int, S: int, H: int, gen):
+    """One call of ``cifg_cell_bwd_seq`` at (S, B, H), all float32."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    z, w = randn(S, B, 3 * H), randn(H, 3 * H, scale=H ** -0.5)
+    cs, dhs = randn(S, B, H, scale=0.3), randn(S, B, H, scale=0.1)
+    c0, dhf, dcf = (randn(B, H, scale=0.1) for _ in range(3))
+    dz = torch.empty_like(z)
+    dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
+    fn = lib.cifg_cell_bwd_seq
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 10 + [i, i, i, p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        err = fn(z.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
+                 dhf.data_ptr(), dcf.data_ptr(), w.data_ptr(), dz.data_ptr(),
+                 dh0.data_ptr(), dc0.data_ptr(), S, B, H, _stream())
+        if err:
+            raise RuntimeError(f"cifg_cell_bwd_seq failed: CUDA error {err}")
+    return call
+
+
 def _ssd_call(lib, B: int, S: int, H: int, P: int, N: int, gen):
     """One call of ``ssd_scan_fwd`` at (B, S, H, p, N), bf16 x, B and C."""
     dev = torch.device("cuda")
@@ -163,14 +198,26 @@ def _ssd_call(lib, B: int, S: int, H: int, P: int, N: int, gen):
     return call
 
 
-# (library, label, call maker): the main-path shapes
+# (library, label, call maker): the main-path shapes, each build timed
 SHAPES = [
     ("cifg_cell_fwd", "bf16 B=10 S=16 H=256 (a training client batch)",
      lambda lib, gen: _cell_call(lib, 10, 16, 256, gen)),
     ("cifg_cell_fwd", "bf16 B=256 S=1 H=256 (a decode tick)",
      lambda lib, gen: _cell_call(lib, 256, 1, 256, gen)),
+    ("cifg_cell_bwd", "f32 B=10 S=16 H=256 (a training client batch's "
+     "reverse recursion)",
+     lambda lib, gen: _bwd_seq_call(lib, 10, 16, 256, gen)),
     ("ssd_scan", "bf16 inputs B=4 S=512 H=80 p=64 N=64 (zamba2-2.7b prefill)",
      lambda lib, gen: _ssd_call(lib, 4, 512, 80, 64, 64, gen)),
+]
+# the cell kernels' wide route (H > 256), whose kernels have no switches:
+# the full build only
+WHOLE = [
+    (name, f"{what} B=10 S=16 H={H} (the wide route)",
+     lambda lib, gen, call=call, H=H: call(lib, 10, 16, H, gen))
+    for H in (264, 520)
+    for name, what, call in (("cifg_cell_fwd", "bf16", _cell_call),
+                             ("cifg_cell_bwd", "f32", _bwd_seq_call))
 ]
 
 
@@ -183,8 +230,9 @@ def run(out: str | None = None) -> list:
     print(f"card: {card.strip()}", flush=True)
     libs = build_all()
     rows = []
-    for name, label, make in SHAPES:
-        order = [None, *SWITCHES[name]]
+    for (name, label, make), split in ([(s, True) for s in SHAPES]
+                                       + [(s, False) for s in WHOLE]):
+        order = [None, *SWITCHES[name]] if split else [None]
         calls = {d: make(libs[(name, d)], torch.Generator().manual_seed(7))
                  for d in order}
         times = {d: [] for d in order}
@@ -198,8 +246,8 @@ def run(out: str | None = None) -> list:
                          f"{times[d][0]:.2f}/{times[d][1]:.2f} us "
                          f"(it costs {full - t:.2f})")
         print(f"removal: {name} {label}: full build "
-              f"{times[None][0]:.2f}/{times[None][1]:.2f} us; "
-              + "; ".join(parts), flush=True)
+              f"{times[None][0]:.2f}/{times[None][1]:.2f} us"
+              + "".join(f"; {p}" for p in parts), flush=True)
         rows.append({"kernel": name, "shape": label, "card": card.strip(),
                      "us": {d or "full": v for d, v in times.items()}})
     if out:

@@ -239,3 +239,136 @@ def test_kernel_library_path_tracks_the_source():
         assert build.library_path(name).name.startswith(f"lib{name}-")
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
+
+
+# ------------------------------------------- the sequence backward
+
+
+def _vjp_inputs(S, B, H, seed):
+    """Forward inputs, the parameter w_h in float32, and the cotangents of
+    (hs, h_fin, c_fin), from numpy."""
+    zx, h0, c0, w = _inputs(B, H, seed=seed, S=S)
+    rng = np.random.default_rng(seed + 1)
+    cot = [(rng.standard_normal(shape) * 0.1).astype(np.float32)
+           for shape in ((S, B, H), (B, H), (B, H))]
+    return (zx, h0, c0, w), cot
+
+
+def _port_vjp(args, cot, *, cell, dtype, remat=False):
+    from repro_torch.kernels.cifg_cell import cifg_sequence
+
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    hs, (hf, cf) = cifg_sequence(*ts, cell=cell, compute_dtype=dtype,
+                                 remat=remat)
+    return torch.autograd.grad((hs, hf, cf), ts,
+                               [torch.from_numpy(c) for c in cot])
+
+
+# the port's backward against the reference's custom VJP: float32 differs
+# only in the order of sums (of up to 3H terms a step, over S steps and the
+# S·B terms of dw_h), so atol 1e-5 / rtol 1e-4; with bfloat16 products the
+# two forwards can round an h differently by one bf16 ulp (about 4e-3
+# relative), which the cotangents carry through S steps: atol 3e-2 / rtol
+# 2e-2 (dw_h sums S·B such terms)
+TOL_VJP = {"float32": dict(atol=1e-5, rtol=1e-4),
+           "bfloat16": dict(atol=3e-2, rtol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", ["seq", "fused"])
+@pytest.mark.parametrize("H", [64, 264, 520])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("S", [1, 16])
+def test_sequence_backward_matches_jax_vjp(S, B, H, cell, dtype):
+    """The gradients of cifg_sequence (the plain reverse recursion,
+    `cell_bwd_seq`'s CPU path) against ``jax.vjp`` of the reference's
+    cifg_sequence, whose forward is the Pallas cell in interpret mode for
+    ``cell="fused"``."""
+    import jax
+
+    from repro.kernels.cifg_cell import cifg_sequence as jax_sequence
+
+    args, cot = _vjp_inputs(S, B, H, seed=S * 1000 + B * 100 + H)
+
+    def f(zx, h0, c0, w):
+        hs, (hf, cf) = jax_sequence(zx, h0, c0, w, cell=cell,
+                                    compute_dtype=dtype, interpret=True)
+        return hs, hf, cf
+
+    _, vjp = jax.vjp(f, *args)
+    want = vjp(tuple(cot))
+    got = _port_vjp(args, cot, cell=cell, dtype=dtype)
+    for name, a, b in zip(("dzx", "dh0", "dc0", "dw_h"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL_VJP[dtype])
+
+
+@pytest.mark.parametrize("H", [8, 40])
+@pytest.mark.parametrize("S", [1, 6])
+def test_sequence_backward_is_chained_step_backwards(S, H):
+    """In float32, the reverse recursion equals S chained `cell_bwd_ref`
+    steps (each recomputing its gates), with dw_h their sum; float32
+    tolerance as above (the sums run in another order)."""
+    from repro_torch.kernels.cifg_cell import cell_bwd_ref
+
+    args, cot = _vjp_inputs(S, 3, H, seed=70 + S + H)
+    got = _port_vjp(args, cot, cell="seq", dtype="float32")
+    zx, h0, c0, w = (torch.from_numpy(a) for a in args)
+    dhs, dh, dc = (torch.from_numpy(c) for c in cot)
+    hs, cs = cifg_states(zx, h0, c0, w, cell="seq")
+    h_prev = torch.cat([h0[None], hs[:-1]])
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    dz = torch.empty_like(zx)
+    dw = torch.zeros_like(w)
+    for s in range(S - 1, -1, -1):
+        dz[s], dh, dc, dw_s = cell_bwd_ref(zx[s], w, h_prev[s], c_prev[s],
+                                           dh + dhs[s], dc)
+        dw = dw + dw_s
+    for name, a, b in zip(("dzx", "dh0", "dc0", "dw_h"), got,
+                          (dz, dh, dc, dw)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name,
+                                   **TOL_VJP["float32"])
+
+
+@pytest.mark.parametrize("cell", ["seq", "fused"])
+def test_sequence_backward_remat_is_bitwise(cell):
+    args, cot = _vjp_inputs(5, 3, 24, seed=80)
+    a = _port_vjp(args, cot, cell=cell, dtype="bfloat16")
+    b = _port_vjp(args, cot, cell=cell, dtype="bfloat16", remat=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cell_bwd_seq_on_cpu_is_the_plain_loop_and_counts_no_launch():
+    from repro_torch.kernels.cifg_cell import cell_bwd_seq, cell_bwd_seq_ref
+
+    rng = np.random.default_rng(81)
+    S, B, H = 4, 3, 16
+    shapes = ((S, B, 3 * H), (S, B, H), (B, H), (S, B, H), (B, H), (B, H),
+              (H, 3 * H))
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+    before = LAUNCHES["cifg_cell_bwd_seq"]
+    got = cell_bwd_seq(*args)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, cell_bwd_seq_ref(*args)))
+    assert [tuple(t.shape) for t in got] == [(S, B, 3 * H), (B, H), (B, H)]
+    assert LAUNCHES["cifg_cell_bwd_seq"] == before
+
+
+@pytest.mark.parametrize("bad", ["z_shape", "w_shape", "dtype", "cs_rank"])
+def test_cell_bwd_seq_rejects_what_the_kernel_does_not_take(bad):
+    from repro_torch.kernels.cifg_cell import cell_bwd_seq
+
+    S, B, H = 2, 2, 8
+    args = [torch.zeros(s) for s in ((S, B, 3 * H), (S, B, H), (B, H),
+                                     (S, B, H), (B, H), (B, H), (H, 3 * H))]
+    if bad == "z_shape":
+        args[0] = args[0][..., :-1]
+    elif bad == "w_shape":
+        args[6] = args[6][:, :-3]
+    elif bad == "dtype":
+        args[3] = args[3].double()
+    else:
+        args[1] = args[1][0]
+    with pytest.raises((ValueError, TypeError)):
+        cell_bwd_seq(*args)

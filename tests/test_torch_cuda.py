@@ -13,17 +13,20 @@ atol 3e-2. Flash attention: float32 within 1e-5 (the sum order differs),
 bfloat16 within 2e-2 (the tensor-core kernel rounds P to bf16 before PV and
 its output once; the plain version rounds its float32 output once). SSD
 scan: 1e-4 relative to the largest output (float32 sums in another order).
-The dp_clip accumulate is held bitwise: each step is a rounded product and
-a rounded sum in slot order, however many slots one launch folds.
+The sequence backward (`cell_bwd_seq`) is float32 throughout: atol 1e-5 /
+rtol 1e-4 (the order of the product's sums and the last bit of exp and tanh
+differ, over 16 reverse steps). The dp_clip accumulate is held bitwise: each
+step is a rounded product and a rounded sum in slot order, however many
+slots one launch folds; the chunked sum of squares is held bitwise to the
+per-leaf kernel plus the plain clip factor, and to itself across chunks.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.cifg_cell import (LAUNCHES, MAX_HIDDEN, cell_fwd,
-                                           cell_seq_fwd, cifg_cell_ref,
-                                           cifg_states)
+from repro_torch.kernels.cifg_cell import (LAUNCHES, cell_fwd, cell_seq_fwd,
+                                           cifg_cell_ref, cifg_states)
 from repro_torch.models import build
 from repro_torch.serve import NwpRequest, ServeEngine, reference_generate
 
@@ -128,12 +131,33 @@ def test_sequence_kernel_prefix_and_one_step_chaining_are_bitwise(
     assert torch.equal(h1[:, 0], hs[:, r]) and torch.equal(c1[:, 0], cs[:, r])
 
 
-def test_sequence_kernel_refuses_a_width_above_its_limit(cuda_device):
-    zx, h0, c0, w = _inputs(2, MAX_HIDDEN + 8, cuda_device, seed=32, S=2)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S", [(1, 264, 16), (4, 264, 1), (256, 264, 16),
+                                   (1, 520, 16), (4, 520, 16),
+                                   (256, 520, 1)])
+def test_sequence_kernel_takes_any_width(cuda_device, B, H, S, dtype):
+    """H > 256: the wide route (w_h resident up to 512, streamed beyond)
+    against the plain recurrence, one launch; prefix and S = 1 chaining
+    bitwise, and a row does not depend on the batch."""
+    zx, h0, c0, w = _inputs(B, H, cuda_device, seed=32, S=S)
+    w = w.to(getattr(torch, dtype))
     before = LAUNCHES["cifg_cell_fwd"]
-    with pytest.raises(RuntimeError, match=f"H <= {MAX_HIDDEN}"):
-        cell_seq_fwd(zx, h0, c0, w.to(torch.bfloat16))
-    assert LAUNCHES["cifg_cell_fwd"] == before
+    hs, cs = cell_seq_fwd(zx, h0, c0, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_fwd"] == before + 1
+    hr, cr = cifg_states(zx, h0, c0, w, cell="seq")
+    _close(hs, hr, dtype, "hs")
+    _close(cs, cr, dtype, "cs")
+    h, c = h0, c0
+    for t in range(S):
+        h, c = cell_fwd(zx[t], h, c, w)
+        assert torch.equal(h, hs[t]) and torch.equal(c, cs[t])
+    hp, cp = cell_seq_fwd(zx[:max(1, S // 2)].contiguous(), h0, c0, w)
+    assert torch.equal(hp, hs[:max(1, S // 2)])
+    r = B - 1
+    h1, c1 = cell_seq_fwd(zx[:, r:r + 1].contiguous(), h0[r:r + 1].contiguous(),
+                          c0[r:r + 1].contiguous(), w)
+    assert torch.equal(h1[:, 0], hs[:, r]) and torch.equal(c1[:, 0], cs[:, r])
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -203,6 +227,86 @@ def test_step_gradient_goes_through_the_backward_kernel(cuda_device):
         _close(a, b, "float32")
 
 
+def _seq_bwd_inputs(S, B, H, dev, seed):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((S, B, 3 * H)),
+              rng.standard_normal((S, B, H)) * 0.3,
+              rng.standard_normal((B, H)) * 0.3,
+              rng.standard_normal((S, B, H)) * 0.1,
+              rng.standard_normal((B, H)) * 0.1,
+              rng.standard_normal((B, H)) * 0.1,
+              rng.standard_normal((H, 3 * H)) / np.sqrt(H))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("S", [1, 16])
+@pytest.mark.parametrize("B,H", [(1, 64), (4, 64), (10, 256), (256, 256),
+                                 (1, 264), (4, 264), (256, 264), (4, 520),
+                                 (256, 520), (3, 200)])
+def test_sequence_backward_kernel_matches_plain_on_card(cuda_device, S, B,
+                                                         H):
+    """cell_bwd_seq (one launch for the whole reverse recursion) against its
+    plain loop, every route (H <= 256, the wide route resident and
+    streamed); the same bits on a second run."""
+    from repro_torch.kernels.cifg_cell import cell_bwd_seq, cell_bwd_seq_ref
+
+    args = _seq_bwd_inputs(S, B, H, cuda_device, seed=S * H + B)
+    before = LAUNCHES["cifg_cell_bwd_seq"]
+    got = cell_bwd_seq(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_bwd_seq"] == before + 1
+    for what, a, b in zip(("dz", "dh0", "dc0"), got, cell_bwd_seq_ref(*args)):
+        assert a.shape == b.shape
+        _close(a, b, "float32", what)
+    assert all(torch.equal(a, b) for a, b in zip(got, cell_bwd_seq(*args)))
+
+
+@pytest.mark.parametrize("H", [64, 256, 264])
+def test_sequence_backward_rows_do_not_depend_on_batch(cuda_device, H):
+    from repro_torch.kernels.cifg_cell import cell_bwd_seq
+
+    z, cs, c0, dhs, dhf, dcf, w = _seq_bwd_inputs(5, 40, H, cuda_device,
+                                                  seed=H)
+    full = cell_bwd_seq(z, cs, c0, dhs, dhf, dcf, w)
+    for r in (0, 17, 39):
+        col = lambda t: t[:, r:r + 1].contiguous()  # noqa: E731
+        row = lambda t: t[r:r + 1].contiguous()  # noqa: E731
+        one = cell_bwd_seq(col(z), col(cs), row(c0), col(dhs), row(dhf),
+                           row(dcf), w)
+        assert torch.equal(one[0][:, 0], full[0][:, r])
+        assert torch.equal(one[1][0], full[1][r])
+        assert torch.equal(one[2][0], full[2][r])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [96, 256, 264])
+def test_sequence_gradient_is_one_backward_launch_and_remat_bitwise(
+        cuda_device, H, dtype):
+    """cifg_sequence(cell="fused") on the card: the gradients come from one
+    cell_bwd_seq launch, remat=True gives the same bits, and in float32 they
+    agree with cell="seq" (the plain loop on the same card; in bfloat16 the
+    two forwards may round h differently, which the gradients amplify)."""
+    from repro_torch.kernels.cifg_cell import cifg_sequence
+
+    zx, h0, c0, w = _inputs(6, H, cuda_device, seed=40, S=12)
+
+    def grads(cell, remat):
+        args = [t.clone().requires_grad_(True) for t in (zx, h0, c0, w)]
+        hs, (hf, cf) = cifg_sequence(*args, cell=cell, compute_dtype=dtype,
+                                     remat=remat)
+        loss = (hs * hs).sum() + (hf * cf).sum()
+        return torch.autograd.grad(loss, args)
+
+    before = LAUNCHES["cifg_cell_bwd_seq"]
+    g = grads("fused", False)
+    assert LAUNCHES["cifg_cell_bwd_seq"] == before + 1
+    g_remat = grads("fused", True)
+    assert all(torch.equal(a, b) for a, b in zip(g, g_remat))
+    if dtype == "float32":
+        for a, b in zip(g, grads("seq", False)):
+            _close(a, b, dtype)
+
+
 @pytest.mark.parametrize("n", [1, 127, 32769, 983040])
 def test_clip_kernels_match_plain_on_card(cuda_device, n):
     from repro_torch.kernels.dp_clip import LAUNCHES as CLIP_LAUNCHES
@@ -228,6 +332,110 @@ def test_clip_kernels_match_plain_on_card(cuda_device, n):
     assert CLIP_LAUNCHES["dp_sumsq"] == before["dp_sumsq"] + 2
     assert CLIP_LAUNCHES["dp_clip_accumulate"] == \
         before["dp_clip_accumulate"] + 2
+
+
+def _clip_trees(C, dev, seed, offset=0):
+    """C update trees of the shapes of a narrow LSTM's leaves (one ragged),
+    from numpy; with ``offset`` 1 every leaf is a view one element into its
+    storage (not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    shapes = {"a": (301, 96), "b": (96, 768), "c": (7,), "d": (33, 5)}
+
+    def leaf(shape):
+        n = int(np.prod(shape))
+        a = (rng.standard_normal(n + offset) * 0.01).astype(np.float32)
+        return torch.from_numpy(a).to(dev)[offset:].view(shape)
+
+    return [{k: leaf(v) for k, v in shapes.items()} for _ in range(C)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sumsq_chunk_is_bitwise_the_per_leaf_kernel_and_clip_factor(
+        cuda_device, offset):
+    """One dp_sumsq launch for a chunk: each slot's ss, norm and factor are
+    the bits of fused_sumsq (one launch per leaf) + clip_factor · mask; a
+    masked slot's factor is 0; close to the plain float32 sums."""
+    from repro_torch.core.clipping import clip_factor
+    from repro_torch.kernels.dp_clip import (LAUNCHES as CLIP_LAUNCHES,
+                                             fused_sumsq, sumsq_chunk)
+    from repro_torch.kernels.dp_clip.ref import sumsq_ref
+
+    trees = _clip_trees(16, cuda_device, 5, offset)
+    trees[3] = {k: v * 1e3 for k, v in trees[3].items()}   # clipped
+    mask = [torch.tensor(float(c != 5), device=cuda_device) for c in range(16)]
+    before = CLIP_LAUNCHES["dp_sumsq"]
+    ss, norms, factors = sumsq_chunk(trees, 0.8, mask)
+    torch.cuda.synchronize()
+    assert CLIP_LAUNCHES["dp_sumsq"] == before + 1
+    for c, tree in enumerate(trees):
+        s1 = fused_sumsq(tree)
+        assert torch.equal(ss[c], s1)
+        assert torch.equal(norms[c], torch.sqrt(s1))
+        assert torch.equal(factors[c], clip_factor(torch.sqrt(s1), 0.8)
+                           * mask[c])
+        plain = sum(float(sumsq_ref(l)) for l in tree.values())
+        assert abs(float(ss[c]) - plain) <= 1e-5 * plain
+    assert float(factors[5]) == 0.0 and float(factors[3]) < 1.0
+
+
+def test_sumsq_chunk_is_invariant_to_chunk_width_and_position(cuda_device):
+    from repro_torch.kernels.dp_clip import sumsq_chunk
+
+    trees = _clip_trees(16, cuda_device, 6)
+    want = sumsq_chunk(trees, 0.5)
+    for C in range(1, 17):
+        for c0 in range(0, 16 - C + 1, max(1, C // 2)):
+            got = sumsq_chunk(trees[c0:c0 + C], 0.5)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b[c0:c0 + C])
+    # a client in every slot of a chunk of others
+    others = _clip_trees(8, cuda_device, 7)
+    for pos in range(8):
+        chunk = others[:pos] + [trees[0]] + others[pos + 1:]
+        got = sumsq_chunk(chunk, 0.5)
+        assert all(torch.equal(a[pos], b[0]) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("C", [1, 16])
+def test_clip_accumulate_chunk_takes_trees_of_many_leaves(cuda_device, C):
+    """A tree of more leaves than one dp_sumsq launch takes (MAX_LEAVES):
+    the sums carried from launch to launch give each slot the norm of
+    fused_sumsq, and the round sum is the slots folded with the factors of
+    clip_factor · mask."""
+    from repro_torch.core.clipping import clip_factor
+    from repro_torch.kernels.dp_clip import (LAUNCHES as CLIP_LAUNCHES,
+                                             clip_accumulate_chunk,
+                                             clip_accumulate_chunk_leaf,
+                                             fused_sumsq)
+    from repro_torch.kernels.dp_clip.ops import MAX_LEAVES, MAX_PTRS
+
+    rng = np.random.default_rng(11)
+
+    def tree(scale):
+        return {f"l{i:02d}": torch.from_numpy(
+            (rng.standard_normal(37 * i + 3) * scale).astype(np.float32)).to(
+                cuda_device) for i in range(MAX_LEAVES + 5)}
+
+    trees = [tree(5.0 if c == 0 else 0.05) for c in range(C)]   # 0 clipped
+    acc = tree(1.0)
+    mask = [torch.tensor(float(C == 1 or c != C - 1), device=cuda_device)
+            for c in range(C)]
+    before = CLIP_LAUNCHES["dp_sumsq"]
+    new_acc, norms = clip_accumulate_chunk(acc, trees, 0.8, mask)
+    torch.cuda.synchronize()
+    # two launches of leaves for each run of MAX_PTRS // MAX_LEAVES slots
+    assert CLIP_LAUNCHES["dp_sumsq"] == before + 2 * -(-C // (MAX_PTRS
+                                                             // MAX_LEAVES))
+    factors = []
+    for c, t in enumerate(trees):
+        n1 = torch.sqrt(fused_sumsq(t))
+        assert torch.equal(norms[c], n1)
+        factors.append(clip_factor(n1, 0.8) * mask[c])
+    assert float(factors[0]) < 1.0
+    f = torch.stack(factors)
+    for k, a in acc.items():
+        want = clip_accumulate_chunk_leaf(a, [t[k] for t in trees], f)
+        assert torch.equal(new_acc[k], want)
 
 
 def _chunk_inputs(C, n, dev, seed, offset=0):

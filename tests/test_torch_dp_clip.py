@@ -37,7 +37,7 @@ from repro_torch.kernels.dp_clip import (LAUNCHES, MAX_CHUNK,
                                          clip_accumulate_chunk,
                                          clip_accumulate_chunk_leaf,
                                          clip_accumulate_leaf, fused_sumsq,
-                                         sumsq)
+                                         sumsq, sumsq_chunk)
 from repro_torch.models import build
 from repro_torch.utils.params import from_jax_params, with_compute_copies
 from repro_torch.utils.pytree import tree_leaves, tree_map
@@ -394,3 +394,77 @@ def test_round_compute_ignores_cached_compute_copies():
     assert "compute" not in a[0] and set(a[0]) == set(clean)
     for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------- sum of squares of a chunk
+
+
+@pytest.mark.parametrize("C", [1, 3, 16])
+def test_sumsq_chunk_matches_jax_fused_sumsq_per_slot(C):
+    """Each slot's sum of squares against the reference's fused_sumsq (the
+    Pallas kernel in interpret mode); norms and factors against the
+    reference's clip factor; float32 sums in another order: rtol 1e-5."""
+    from repro.kernels.dp_clip.ref import clip_factor_ref as jfactor
+
+    trees = [_tree(90 + c, 0.3 if c % 2 else 3.0) for c in range(C)]
+    ss, norms, factors = sumsq_chunk([_t(t) for t in trees], 0.8)
+    assert ss.shape == norms.shape == factors.shape == (C,)
+    for c, tree in enumerate(trees):
+        want = jclip.fused_sumsq(tree, interpret=True)
+        np.testing.assert_allclose(float(ss[c]), float(want), rtol=1e-5)
+        np.testing.assert_allclose(float(norms[c]), float(np.sqrt(want)),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(factors[c]),
+                                   float(jfactor(want, 0.8)), rtol=1e-5)
+
+
+def test_sumsq_chunk_is_bitwise_fused_sumsq_and_clip_factor_in_any_chunk():
+    """A client's ss, norm and factor are the bits of fused_sumsq +
+    clip_factor · mask in every chunk width 1-16 and slot position; a
+    masked slot's factor is 0 (also over 1e30 garbage)."""
+    from repro_torch.core.clipping import clip_factor
+
+    trees = [_t(_tree(100 + c, 0.3 if c % 3 else 2.0)) for c in range(16)]
+    trees[7] = tree_map(lambda l: torch.full_like(l, 1e30), trees[7])
+    mask = [torch.tensor(0.0 if c in (5, 7) else 1.0) for c in range(16)]
+    ss, norms, factors = sumsq_chunk(trees, 0.8, mask)
+    for c, tree in enumerate(trees):
+        s1 = fused_sumsq(tree)
+        assert torch.equal(ss[c], s1)
+        assert torch.equal(norms[c], torch.sqrt(s1))
+        assert torch.equal(factors[c],
+                           clip_factor(torch.sqrt(s1), 0.8) * mask[c])
+    assert float(factors[5]) == 0.0 and float(factors[7]) == 0.0
+    for C in range(1, 17):
+        for c0 in range(0, 17 - C):
+            got = sumsq_chunk(trees[c0:c0 + C], 0.8, mask[c0:c0 + C])
+            for a, b in zip(got, (ss, norms, factors)):
+                assert torch.equal(a.view(torch.int32),
+                                   b[c0:c0 + C].view(torch.int32))
+
+
+def test_sumsq_chunk_without_scales_and_its_one_leaf_call():
+    trees = [_t(_tree(110 + c)) for c in range(3)]
+    ss, _, factors = sumsq_chunk(trees, 100.0)
+    _, _, masked = sumsq_chunk(trees, 100.0, [None, torch.tensor(1.0), None])
+    assert torch.equal(factors, masked) and torch.equal(factors,
+                                                        torch.ones(3))
+    x = torch.randn(4099)
+    assert torch.equal(sumsq_chunk([{"x": x}], 1.0)[0][0], sumsq(x))
+
+
+@pytest.mark.parametrize("bad", ["empty", "structure", "scales", "dtype"])
+def test_sumsq_chunk_rejects_what_the_kernel_does_not_take(bad):
+    trees = [{"a": torch.ones(5), "b": torch.ones(3)} for _ in range(2)]
+    kw = {}
+    if bad == "empty":
+        trees = []
+    elif bad == "structure":
+        trees[1] = {"a": torch.ones(5), "b": torch.ones(4)}
+    elif bad == "scales":
+        kw = {"scales": [None]}
+    else:
+        trees[1] = {"a": torch.ones(5), "b": torch.ones(3).double()}
+    with pytest.raises((ValueError, TypeError)):
+        sumsq_chunk(trees, 1.0, **kw)
+
