@@ -36,7 +36,15 @@ line each (any failure exits non-zero and prints no result):
    greedy and half sampled; one ``ssd_scan`` launch per mixer and one
    ``flash_attention_fwd`` launch per site in the prefill; prefill plus
    decode against ``forward`` at full depth; the card's kernels against the
-   CPU's plain versions at full width and 6 layers; timings.
+   CPU's plain versions at full width and 6 layers; timings;
+8. memorize — the Secret Sharer on the same CIFG-LSTM: 1000 users and the
+   paper's 27 canaries (189 synthetic devices) trained 20 rounds at cohort
+   128 through ``FederatedTrainer(backend="engine")`` with the canary eval
+   hook every 5 rounds, then Random-Sampling ranks at |R| = 2·10⁶ and
+   beam-search extraction of every canary; the engine's ``run`` against
+   ``run_python`` and against the host trainer on its draws (bitwise), the
+   round across cohort chunks (bitwise), the noise's std, launch counts,
+   and scores, RS ranks on a pool and the top-5 beams card against CPU.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -199,8 +207,14 @@ def _cell_inputs(B, H, gen, dev, S=16):
 
 
 # the cell kernel's main-path shapes (B, S): a serving decode tick, a
-# training client batch, an admission prefill of a 16-token prompt
-CELL_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16))
+# training client batch, an admission prefill of a 16-token prompt, a
+# Random-Sampling chunk of the Secret Sharer (27 canaries x 1024
+# continuations of 5 words) and the last step of its beam search
+CELL_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16),
+               ("rs", 27648, 5), ("beam", 5, 4))
+
+# the Secret Sharer's shapes (B, S): an RS chunk, the beam-search steps
+MEMORIZE_SHAPES = ((27648, 5), (1, 2), (5, 3), (5, 4))
 
 
 # the cell kernels' widths: the 8-CTA route (H <= 256) and the wide route,
@@ -299,6 +313,37 @@ def phase_kernel(dev) -> dict:
                          f"({cd}, H={H})")
     say("kernel: rows of B=256 are bitwise those of B=1 over 16 steps, bf16 "
         "and f32, H 256, 264 and 520")
+    # the Secret Sharer's shapes at H 256: against the plain recurrence, and
+    # rows of the RS chunk bitwise those of B = 1
+    for cd in (torch.bfloat16, torch.float32):
+        name = str(cd).split(".")[-1]
+        atol, rtol = TOL[name]
+        for B, S in MEMORIZE_SHAPES:
+            zxs, h0, c0, w = _cell_inputs(B, 256, gen, dev, S=S)
+            w = w.to(cd)
+            hk, ck = cell_seq_fwd(zxs, h0, c0, w)
+            hr, cr = cifg_states(zxs, h0, c0, w, cell="seq")
+            torch.cuda.synchronize()
+            for what, a, b in (("h", hk, hr), ("c", ck, cr)):
+                if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+                    fail(f"kernel disagrees with plain ({name} B={B} S={S} "
+                         f"H=256): max abs err "
+                         f"{float((a - b).abs().max()):.3e}")
+            worst = max(worst, float((hk - hr).abs().max()),
+                        float((ck - cr).abs().max()))
+            for r in ((0, B // 2, B - 1) if B > 1 else ()):
+                h1, c1 = cell_seq_fwd(zxs[:, r:r + 1].contiguous(),
+                                      h0[r:r + 1].contiguous(),
+                                      c0[r:r + 1].contiguous(), w)
+                if not (torch.equal(h1[:, 0], hk[:, r])
+                        and torch.equal(c1[:, 0], ck[:, r])):
+                    fail(f"kernel row {r} differs between B={B} and B=1 "
+                         f"({name}, S={S})")
+            say(f"kernel: cifg_cell_fwd {name} B={B} S={S} H=256 (the Secret "
+                f"Sharer's shape) against plain: max abs err h "
+                f"{float((hk - hr).abs().max()):.3e} c "
+                f"{float((ck - cr).abs().max()):.3e}; rows bitwise those of "
+                f"B=1")
 
     # timings at the main path's shapes: device time (CUDA graph) of the
     # kernel, of its plain version and of the PyTorch yardstick (S x addmm
@@ -1882,6 +1927,414 @@ def phase_hybrid(dev) -> dict:
     return launches
 
 
+# the card (kernels) against the CPU (plain versions) on canary scores at
+# full width, bf16 products: max abs error relative to the largest score
+# (the float32 sums run in another order, and a one-ulp flip of a bf16
+# rounding of h moves a score by far less than this; 9.8e-7 was measured on
+# an H100). A pool score (or a beam's) within this tolerance of the one it
+# is ranked against is a near tie, where the two sides may rank differently
+TOL_SCORE = 1e-4
+
+
+class HostDraws:
+    """The host trainer's draws behind the engine's draw methods
+    (`repro_torch.fl.engine.EngineDraws`): its numpy sampling
+    (`fl.sampling.sample_round` over its own `PopulationSim`), the
+    permutations of `FederatedDataset.user_tensor` as per-slot example
+    indices, and its noise generator on the card. Handed to the engine, they
+    give it the host trainer's cohorts, batches and noise."""
+
+    def __init__(self, ds, pop, seed, cohort, need, dev):
+        import numpy as np
+        import torch
+
+        self.ds, self.pop, self.size, self.need, self.dev = \
+            ds, pop, cohort, need, dev
+        self.rng = np.random.default_rng(seed)
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def begin_round(self, round_idx):
+        import numpy as np
+
+        from repro_torch.fl.sampling import sample_round
+
+        self.ids = sample_round(self.pop, self.rng, round_idx, self.size)
+        self.idx = np.stack([self.rng.permutation(np.resize(np.arange(
+            self.ds.users[int(u)].examples.shape[0]), self.need))
+            for u in self.ids])
+
+    def available(self, n):
+        import torch
+
+        return torch.zeros((n,), device=self.dev)
+
+    def cohort(self, weights, available, cohort):
+        import torch
+
+        return torch.from_numpy(self.ids).to(self.dev)
+
+    def example_indices(self, counts, need):
+        import torch
+
+        return torch.from_numpy(self.idx).to(self.dev)
+
+    def noise(self, like, std):
+        from repro_torch.utils.pytree import tree_noise
+
+        return tree_noise(self.gen, like, std)
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch.utils.pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _same_hist(a, b) -> bool:
+    import numpy as np
+
+    if set(a) != set(b):
+        return False
+    return all(_same_hist(a[k], b[k]) if isinstance(a[k], dict)
+               else np.array_equal(a[k], b[k]) for k in a)
+
+
+def _pool_scores(model, params, toks, pool, batch: int):
+    """(K, n) canary-prefixed pool scores, ``batch`` continuations a
+    forward."""
+    import torch
+
+    from repro_torch.core.secret_sharer import PREFIX_LEN, score_canaries
+
+    K, out = toks.shape[0], []
+    for i in range(0, pool.shape[0], batch):
+        c = pool[i:i + batch]
+        seqs = torch.cat([toks[:, None, :PREFIX_LEN].expand(K, c.shape[0],
+                                                           PREFIX_LEN),
+                          c[None].expand(K, c.shape[0], c.shape[1])], dim=-1)
+        out.append(score_canaries(model, params, seqs.reshape(-1, 5)
+                                  ).reshape(K, -1))
+    return torch.cat(out, dim=1)
+
+
+def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
+                   vocab: int = 10_000, rounds: int = 20, per_call: int = 5,
+                   rs_samples: int = 2_000_000, pool_n: int = 4096) -> dict:
+    """The Secret Sharer at full width of gboard-cifg-lstm: DP-FedAvg on
+    1000 users plus the paper's 27 canaries (189 synthetic devices) through
+    FederatedTrainer(backend="engine") with the canary eval hook, then
+    Random-Sampling ranks at |R| = rs_samples and beam-search extraction.
+    Checks: run against run_python bitwise; the engine against the host
+    trainer on its draws bitwise; the round bitwise across cohort_chunk;
+    the noise std; launch counts; scores, RS ranks on a pool and the
+    top-5 beams card against CPU."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.core.secret_sharer import (canary_eval_fn,
+                                                canary_extracted,
+                                                canary_matrix, beam_search,
+                                                make_canaries,
+                                                random_sampling_ranks,
+                                                score_canaries)
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.fl.engine import SimEngine
+    from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.round import FederatedTrainer
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_zeros_like
+
+    cfg = get_config("gboard-cifg-lstm")
+    if vocab != cfg.vocab:
+        cfg = cfg.with_(vocab=vocab)
+    model = build(cfg)
+    seq_len, batch, n_batches = 16, 10, 3
+    t0 = time.perf_counter()
+    ds = FederatedDataset(BigramCorpus(vocab_size=cfg.vocab, seed=0),
+                          n_users=n_users, seq_len=seq_len,
+                          sentences_per_user=30)
+    canaries = make_canaries(torch.Generator().manual_seed(42), cfg.vocab)
+    synth_users = ds.inject_canaries(canaries)
+    synth = [u.user_id for u in synth_users]
+    data_s = time.perf_counter() - t0
+    K = len(canaries)
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                  server_momentum=0.9)
+    cl = ClientConfig(local_epochs=1, batch_size=batch, lr=0.3)
+    need = n_batches * batch
+
+    def pop():
+        return PopulationSim(len(ds.users), availability=0.3,
+                             synthetic_ids=synth, seed=0)
+
+    def trainer(backend, **kw):
+        return FederatedTrainer(model, ds, dp, cl, pop=pop(), seed=0,
+                                n_local_batches=n_batches, backend=backend,
+                                rounds_per_call=per_call, device=dev, **kw)
+
+    # run against run_python: same seed, 5 rounds, bitwise; host syncs
+    tr = trainer("engine")
+    eng = tr.engine
+    params0 = tr.state.params
+    syncs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {}
+    for how in ("run", "run_python"):
+        state = eng.init_state(params0, seed=0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out[how] = getattr(eng, how)(state, per_call)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs[how] = sum("synchroniz" in str(w.message) for w in caught)
+    (sa, ha), (sb, hb) = out["run"], out["run_python"]
+    if not (_same_tree(sa.params, sb.params)
+            and _same_tree(sa.opt_state.momentum, sb.opt_state.momentum)
+            and _same_tree(sa.opt_state.nu, sb.opt_state.nu)
+            and sa.opt_state.count == sb.opt_state.count
+            and _same_hist(ha, hb)
+            and torch.equal(sa.participation, sb.participation)):
+        fail("engine run and run_python differ after 5 rounds")
+    say(f"memorize: engine run ({per_call} rounds a call) and run_python (a "
+        f"read every round), same seed, {per_call} rounds: params, optimizer "
+        f"state and history bitwise equal; synchronizing operations flagged "
+        f"by torch.cuda's sync debug mode: run {syncs['run']} "
+        f"({syncs['run'] / per_call:.1f} a round), run_python "
+        f"{syncs['run_python']} ({syncs['run_python'] / per_call:.1f} a "
+        f"round); {time.perf_counter() - t0:.1f} s")
+
+    # the engine against the host trainer, both on the card, 3 rounds: the
+    # engine takes the host trainer's cohorts, batches and noise
+    t0 = time.perf_counter()
+    host = trainer("host")
+    host.train(3)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mirror = trainer("engine", draws=HostDraws(ds, pop(), 0, cohort, need,
+                                               dev))
+    mirror.train(3)
+    torch.cuda.synchronize()
+    mirror_s = time.perf_counter() - t0
+    if not _same_tree(mirror.state.params, host.state.params):
+        d = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(mirror.state.params),
+                    tree_leaves(host.state.params)))
+        fail(f"engine on the host trainer's draws differs from the host "
+             f"trainer after 3 rounds (max abs diff {d:.3e})")
+    if [r["loss"] for r in mirror.state.history] != \
+            [r["loss"] for r in host.state.history]:
+        fail("engine and host trainer losses differ")
+    if not np.array_equal(mirror.participation, host.participation):
+        fail("engine and host trainer participation differ")
+    say(f"memorize: the engine on the host trainer's draws (cohorts, "
+        f"example indices, noise) against FederatedTrainer(backend='host'), "
+        f"3 rounds on the card: params, losses and participation bitwise "
+        f"equal; host trainer {3 / host_s:.3f} rounds/s, engine "
+        f"{3 / mirror_s:.3f} rounds/s on the same draws")
+
+    # the round sum across cohort_chunk: one round from one seed, bitwise
+    t0 = time.perf_counter()
+    blk = eng.padded // 8
+    chunks = [c for c in (1, 4, 16) if blk % c == 0]
+    ref = None
+    for c in chunks:
+        e = SimEngine(model, ds.to_device_arrays(), dp, cl,
+                      n_local_batches=n_batches, availability=0.3,
+                      cohort_chunk=c, device=dev)
+        got = e.run(e.init_state(params0, seed=5), 1)
+        if ref is None:
+            ref = got
+        elif not (_same_tree(got[0].params, ref[0].params)
+                  and _same_hist(got[1], ref[1])):
+            fail(f"engine round differs between cohort_chunk {chunks[0]} "
+                 f"and {c}")
+    say(f"memorize: an engine round bitwise equal across cohort_chunk "
+        f"{chunks} (block size {blk}) in {time.perf_counter() - t0:.1f} s")
+
+    sigma = dp.noise_multiplier * dp.clip_norm / cohort
+    noise = eng.init_state(params0, seed=9).draws.noise(
+        tree_zeros_like(params0, torch.float32), sigma)
+    flat = torch.cat([l.reshape(-1) for l in tree_leaves(noise)])
+    std = float(flat.std())
+    if abs(std / sigma - 1.0) > 0.02:
+        fail(f"engine noise std {std:.4e} vs zS/qN {sigma:.4e}")
+    say(f"memorize: engine noise std over {flat.numel()} entries {std:.5e} "
+        f"vs zS/qN {sigma:.5e} ({100 * (std / sigma - 1):+.2f}%, tol 2%)")
+    del tr, eng, out, sa, sb, host, mirror, ref, e, got, noise, flat
+
+    # ------------------------------------------------ the counted main path
+    counters = (cell_ops.LAUNCHES, clip_ops.LAUNCHES)
+    main = trainer("engine", eval_fn=canary_eval_fn(model, canaries),
+                   eval_every=per_call)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    main.train(rounds)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    params = main.state.params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ranks = random_sampling_ranks(
+        model, params, canaries,
+        torch.Generator(device=dev).manual_seed(7), n_samples=rs_samples,
+        batch_size=1024)
+    torch.cuda.synchronize()
+    rs_s = time.perf_counter() - t0
+    rs_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    extracted = [canary_extracted(model, params, c) for c in canaries]
+    beam_s = time.perf_counter() - t0
+    launches = {**cell_ops.LAUNCHES, **clip_ops.LAUNCHES}
+
+    hist = main.state.history
+    if any(r["n_clients"] != cohort for r in hist) or cohort % 8:
+        fail(f"rounds of {[r['n_clients'] for r in hist]} clients")
+    if not all(np.isfinite(r["loss"]) for r in hist):
+        fail("memorize: training losses not finite")
+    if main.accountant.rounds != rounds:
+        fail(f"accountant took {main.accountant.rounds} steps, not {rounds}")
+    if main.participation.sum() != rounds * cohort:
+        fail("participation not mirrored back from the engine")
+    chunks = rounds * main.engine.padded // main.engine.cohort_chunk
+    evals = rounds // per_call
+    rs_chunks = -(-rs_samples // 1024)
+    beam_steps = K * 3
+    client_batches = rounds * cohort * n_batches
+    want = {"cifg_cell_bwd_seq": client_batches, "cifg_cell_bwd": 0,
+            "cifg_cell_fwd": client_batches + evals + 1 + rs_chunks
+            + beam_steps,
+            "dp_sumsq": chunks, "dp_clip_accumulate": 5 * chunks}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"memorize launched {k} {launches[k]} times, expected {v}")
+    ev = main.eval_history
+    if not (ev["mask"].tolist() == [(r + 1) % per_call == 0
+                                    for r in range(rounds)]
+            and ev["values"]["canary_logppl"].shape == (rounds, K)):
+        fail("memorize: eval history malformed")
+    grid = list(dict.fromkeys((c.n_u, c.n_e) for c in canaries))
+    vals = ev["values"]["canary_logppl"][ev["mask"]]
+    say(f"memorize: gboard-cifg-lstm vocab {cfg.vocab} (padded "
+        f"{-(-cfg.vocab // 256) * 256}) d {cfg.d_model} H {cfg.d_ff} "
+        f"{cfg.compute_dtype}; {n_users} users + {K} canaries on "
+        f"{len(synth)} synthetic devices (made in {data_s:.1f} s), cohort "
+        f"{cohort}, {n_batches} batches of {batch} x {seq_len}, z 0.3, S "
+        f"0.8: {rounds} rounds through FederatedTrainer(backend='engine'), "
+        f"{per_call} a call, in {train_s:.2f} s = {rounds / train_s:.3f} "
+        f"rounds/s (the host trainer {3 / host_s:.3f} rounds/s above); "
+        f"losses {[round(r['loss'], 4) for r in hist[::5]]}...; "
+        f"eps {main.accountant.get_epsilon(1e-6):.2f} at delta 1e-6")
+    for i, r in enumerate(np.nonzero(ev["mask"])[0]):
+        per = [float(np.mean([v for v, c in zip(vals[i], canaries)
+                              if (c.n_u, c.n_e) == g])) for g in grid]
+        say(f"memorize: canary log-perplexity after round {r + 1}, mean of "
+            f"3 per (n_u, n_e): " + ", ".join(
+                f"{g}: {p:.3f}" for g, p in zip(grid, per)))
+    say(f"memorize: Random-Sampling ranks at |R| = {rs_samples} "
+        f"({rs_chunks} chunks of 1024 x {K} canaries, sequences of 5): "
+        f"{ranks.tolist()}; pass {rs_s:.2f} s = "
+        f"{rs_samples * K / rs_s:.0f} sequences/s; peak device memory "
+        f"{rs_peak:.0f} MiB")
+    say(f"memorize: beam search (width 5) extracted {sum(extracted)} of {K} "
+        f"canaries in {beam_s:.2f} s")
+    # where an RS chunk's time goes (outside the counted path)
+    conts = torch.randint(0, cfg.vocab, (1024, 3), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(8))
+    chunk_toks = torch.from_numpy(canary_matrix(canaries)).to(dev)
+    chunk_dev, chunk_wall, chunk_top = profiled_device_ms(
+        lambda: _pool_scores(model, params, chunk_toks, conts, 1024), 3)
+    say(f"memorize: one RS chunk (B {K * 1024}, S 5) under the profiler: "
+        f"{_fmt_ms(chunk_dev)} on the device of {chunk_wall:.1f} ms; by "
+        f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
+                                for n, ms, c in chunk_top))
+    say(f"memorize: launches {launches} = {client_batches} client batches, "
+        f"{evals} eval hooks, 1 + {rs_chunks} RS forwards, {beam_steps} beam "
+        f"steps, {chunks} chunks of {main.engine.cohort_chunk} clients; peak "
+        f"device memory in training {train_peak:.0f} MiB "
+        f"({train_peak - base_mb:.0f} above what was allocated before)")
+
+    round_dev, round_wall, top = profiled_device_ms(lambda: main.train(1), 1,
+                                                    warmup=False)
+    busy = None if round_dev is None else 100 * round_dev / round_wall
+    say(f"memorize: one engine round under the profiler: "
+        f"{_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, device "
+        f"busy {'not measured' if busy is None else f'{busy:.1f}%'}; by "
+        f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
+                                for n, ms, c in top))
+
+    # ------------------------------------- card (kernels) against the CPU
+    cpu = torch.device("cpu")
+    p_cpu = tree_map(lambda l: l.cpu(), params)
+    toks = torch.from_numpy(canary_matrix(canaries)).to(dev)
+    s_dev = score_canaries(model, params, toks).cpu()
+    s_cpu = score_canaries(model, p_cpu, toks.cpu())
+    scale = float(s_cpu.abs().max())
+    err = float((s_dev - s_cpu).abs().max()) / scale
+    if not err <= TOL_SCORE:
+        fail(f"canary scores, card vs CPU: {err:.3e} of the largest > "
+             f"{TOL_SCORE:g}")
+    say(f"memorize: score_canaries card (cifg_cell_fwd) vs CPU (plain) on "
+        f"the trained params, full width: max abs err {err:.2e} of the "
+        f"largest score {scale:.3f} (tol {TOL_SCORE:g})")
+    pool = torch.randint(0, cfg.vocab, (pool_n, 3),
+                         generator=torch.Generator().manual_seed(11))
+    r_dev = random_sampling_ranks(model, params, canaries,
+                                  continuations=pool.to(dev))
+    t0 = time.perf_counter()
+    ps_cpu = _pool_scores(model, p_cpu, toks.cpu(), pool, 128)
+    r_cpu = (ps_cpu < s_cpu[:, None]).sum(dim=1).numpy()
+    near = ((ps_cpu - s_cpu[:, None]).abs() <= TOL_SCORE * scale).sum(1
+                                                                      ).numpy()
+    off = np.abs(r_dev - r_cpu)
+    if np.any(off > near):
+        fail(f"RS ranks on a pool of {pool_n}, card {r_dev.tolist()} vs CPU "
+             f"{r_cpu.tolist()}, near ties {near.tolist()}")
+    say(f"memorize: RS ranks on a pool of {pool_n} continuations, card vs "
+        f"CPU: {int((off == 0).sum())} of {K} equal; pool scores within the "
+        f"tolerance of their canary's (near ties): {int(near.sum())} in all "
+        f"({near.tolist()}); the CPU took {time.perf_counter() - t0:.1f} s")
+    ties = 0
+    for c in canaries:
+        b_dev = beam_search(model, params, c.prefix, 5)
+        b_cpu = beam_search(model, p_cpu, c.prefix, 5)
+        if b_dev == b_cpu:
+            continue
+        seqs = np.asarray(sorted(set(b_dev) | set(b_cpu)), np.int32)
+        sc = dict(zip(map(tuple, seqs.tolist()),
+                      score_canaries(model, p_cpu, seqs).tolist()))
+        for a, b in zip(b_dev, b_cpu):
+            if a != b:
+                if abs(sc[a] - sc[b]) > TOL_SCORE * scale:
+                    fail(f"beams of prefix {c.prefix} differ beyond a near "
+                         f"tie: card {b_dev} vs CPU {b_cpu}")
+                ties += 1
+    say(f"memorize: top-5 beams of all {K} prefixes, card vs CPU: equal "
+        f"but for {ties} near-tied positions")
+    return {"launches": launches, "rounds_per_s": rounds / train_s}
+
+
 def main() -> None:
     try:
         import torch
@@ -1911,14 +2364,18 @@ def main() -> None:
     serve = phase_serve(dev, fwd)
     train = phase_train(dev)
     step_launches = phase_decode_grad(dev)
-    bwd["launches"] = train["launches"]["cifg_cell_bwd_seq"]
-    fwd["launches"] = serve["launches"] + train["launches"]["cifg_cell_fwd"]
+    memo = phase_memorize(dev)
+    paths = (train["launches"], memo["launches"])
+    bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths)
+    fwd["launches"] = serve["launches"] + sum(p["cifg_cell_fwd"]
+                                              for p in paths)
     say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
-        f"{train['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
-        f"sequence form {bwd['launches']} in training, the per-step form "
-        f"{step_launches} through decode steps")
+        f"{train['launches']['cifg_cell_fwd']}, memorize "
+        f"{memo['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
+        f"sequence form {bwd['launches']} in training and memorize, the "
+        f"per-step form {step_launches} through decode steps")
     for row in clip_rows:
-        row["launches"] = train["launches"][row["name"]]
+        row["launches"] = sum(p[row["name"]] for p in paths)
     hybrid = phase_hybrid(dev)
     for row in (flash, ssd):
         row["launches"] = hybrid[row["name"]]

@@ -1,10 +1,12 @@
 """User-sharded federated dataset (the reference's ``data/federated.py``).
 
 Mirrors the paper's setup (§IV-A): devices hold sentences from the corpus,
-under a per-user example cap (one of the paper's privacy measures). The
-numpy draws are the reference's, so a seed gives both packages the same
-users and the same client batches. Secret-sharing synthetic devices
-(canary injection) arrive with the port of the Secret Sharer.
+under a per-user example cap (one of the paper's privacy measures);
+*secret-sharing synthetic devices* hold ``n_e`` copies of their canary plus
+``(200 − n_e)`` public-corpus sentences. The numpy draws are the
+reference's, so a seed (and, for canaries, the same canary list) gives both
+packages the same users, the same client batches and the same
+`to_device_arrays` bytes.
 """
 from __future__ import annotations
 
@@ -13,8 +15,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.secret_sharer import Canary
 from repro_torch.data.corpus import BigramCorpus
 from repro_torch.data.tokenizer import PAD
+
+USER_SENTENCES = 200  # paper: synthetic devices hold 200 examples total
 
 
 def sentences_to_examples(sentences: Sequence[Sequence[int]], seq_len: int,
@@ -47,6 +52,7 @@ class UserShard:
     user_id: int
     examples: np.ndarray          # (n, seq_len+1) int32
     is_synthetic: bool = False    # secret-sharing device?
+    canary: Optional[Canary] = None
 
 
 @dataclass
@@ -68,6 +74,46 @@ class FederatedDataset:
                 uid, sentences_to_examples(sents, self.seq_len,
                                            self.max_examples_per_user)))
 
+    def inject_canaries(self, canaries: Sequence[Canary]) -> List[UserShard]:
+        """Create the paper's secret-sharing synthetic devices: for each
+        canary, n_u devices each holding n_e canary copies + (200−n_e) public
+        sentences. Appends them to the population; returns them.
+
+        Canaries must have pairwise-distinct 2-word prefixes — duplicates
+        included (injecting the same canary twice would silently double its
+        n_u). Beam-search extraction conditions on the prefix;
+        `make_canaries` already guarantees distinctness, hand-built lists
+        are validated here."""
+        prefixes = [c.prefix for c in canaries]
+        if len(set(prefixes)) != len(prefixes):
+            raise ValueError("injected canaries share a beam-search prefix "
+                             "(or repeat a canary — n_u controls device "
+                             "count); redraw them (see make_canaries)")
+        synthetic = []
+        next_id = len(self.users)
+        for ci, c in enumerate(canaries):
+            for u in range(c.n_u):
+                n_e = min(c.n_e, USER_SENTENCES)
+                pub = self.corpus.sample_sentences(
+                    USER_SENTENCES - n_e,
+                    seed=777_000_000 + ci * 1_000 + u)
+                sents = [list(c.tokens)] * n_e + pub
+                shard = UserShard(next_id,
+                                  sentences_to_examples(sents, self.seq_len,
+                                                        USER_SENTENCES),
+                                  is_synthetic=True, canary=c)
+                self.users.append(shard)
+                synthetic.append(shard)
+                next_id += 1
+        return synthetic
+
+    def canaries(self) -> List[Canary]:
+        """Distinct injected canaries, in injection order — index-aligned
+        with the (K,) outputs of `repro_torch.core.secret_sharer.
+        canary_eval_fn` built from this list."""
+        return list(dict.fromkeys(
+            u.canary for u in self.users if u.canary is not None))
+
     def user_batches(self, user_id: int, batch_size: int,
                      rng: np.random.Generator) -> List[Dict[str, np.ndarray]]:
         """Split a user's (shuffled) examples into size-B batches (last batch
@@ -84,6 +130,42 @@ class FederatedDataset:
                 chunk = chunk[reps]
             batches.append(examples_to_batch(chunk))
         return batches
+
+    def to_device_arrays(self, max_examples: Optional[int] = None
+                         ) -> Dict[str, np.ndarray]:
+        """Pack the whole population into fixed-shape arrays for the
+        simulation engine (`repro_torch.fl.engine`):
+
+        * ``examples`` — (n_users, E_max, seq_len+1) int32. Users with fewer
+          than E_max examples are padded by *tiling* their real examples, so
+          every slot holds a valid example regardless of the index used.
+        * ``counts`` — (n_users,) int32 true example counts (the engine draws
+          uniform indices in [0, counts[u]) so tiled padding never skews the
+          per-example distribution).
+        * ``synthetic`` — (n_users,) bool secret-sharer mask (always
+          available, exempt from Pace Steering).
+        """
+        n = len(self.users)
+        empty = [u.user_id for u in self.users if u.examples.shape[0] == 0]
+        if empty:
+            raise ValueError(
+                f"users {empty[:5]} hold zero examples — tiling an empty "
+                "shard would silently serve garbage (np.resize on an empty "
+                "range tiles nothing); give them data or drop them")
+        emax = (max_examples if max_examples is not None
+                else max(u.examples.shape[0] for u in self.users))
+        if emax < 1:
+            raise ValueError(f"max_examples must be >= 1 for the padded "
+                             f"corpus tensor, got {max_examples}")
+        ex = np.zeros((n, emax, self.seq_len + 1), np.int32)
+        counts = np.zeros((n,), np.int32)
+        synth = np.zeros((n,), bool)
+        for i, u in enumerate(self.users):
+            c = min(u.examples.shape[0], emax)
+            ex[i] = u.examples[np.resize(np.arange(c), emax)]
+            counts[i] = c
+            synth[i] = u.is_synthetic
+        return {"examples": ex, "counts": counts, "synthetic": synth}
 
     def user_tensor(self, user_id: int, batch_size: int, n_batches: int,
                     rng: np.random.Generator) -> Dict[str, np.ndarray]:

@@ -165,7 +165,7 @@ def chunk_accumulate(acc, deltas: List, losses, mask, clip_norm: float, *,
 
 def stream_block_sums(compute_chunk, chunk_inputs, chunk_masks, params_like,
                       clip_norm: float, *, clip_path: str = "fused",
-                      guard_nonfinite: bool = False):
+                      guard_nonfinite: bool = False, live=None):
     """Streaming chunked accumulation of the cohort's canonical block
     partials.
 
@@ -175,13 +175,16 @@ def stream_block_sums(compute_chunk, chunk_inputs, chunk_masks, params_like,
     losses (chunk,))`` makes one chunk's unclipped deltas; they are clipped
     and folded by :func:`chunk_accumulate`. A fully masked chunk (padding
     past the realized round) is skipped: its slots would have added exactly
-    ±0, so skipping gives the same bits. The mask is read on the host once.
+    ±0, so skipping gives the same bits. Which chunks are live is read from
+    the mask on the host once, unless the caller knows it and passes
+    ``live`` ((n_blocks, chunks_per_block) nested lists of bools).
 
     Returns ``(block partial tree with leading (n_blocks,) axis,
     (n_blocks, 4) stat partials)``."""
     dev = tree_leaves(params_like)[0].device
     masks = torch.as_tensor(chunk_masks, dtype=torch.float32)
-    live = (masks.cpu() > 0).any(dim=-1).tolist()
+    if live is None:
+        live = (masks.cpu() > 0).any(dim=-1).tolist()
     masks = masks.to(dev)
     partials, stats = [], []
     for b, block_live in enumerate(live):
@@ -238,6 +241,13 @@ def round_compute(model: Model, params, stacked_batches,
         lambda b: local_deltas(model, params, b, client),
         binp, m.reshape(CANON_BLOCKS, cpb, chunk), params, dp.clip_norm,
         clip_path=clip_path)
+    return fold_round(partials, stats)
+
+
+def fold_round(partials, stats):
+    """Block partials and stat partials (from :func:`stream_block_sums`) →
+    (sum of clipped updates, mean norm, frac clipped, mean loss), the means
+    over the unmasked slots."""
     total = tree_map(fold_blocks, partials)
     s = fold_blocks(stats)
     denom = torch.clamp(s[3], min=1.0)

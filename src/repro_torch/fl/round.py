@@ -1,17 +1,29 @@
 """Federated round orchestration: sample → local train → Algorithm 1's
-server step (the reference's ``fl/round.py``, host backend).
+server step (the reference's ``fl/round.py``). Three backends:
 
-``FederatedTrainer(backend="host")`` draws everything with numpy, in the
-reference's order: the check-in pool and the cohort (`fl.sampling.
-sample_round`), then each sampled user's client tensor (`data.federated.
-FederatedDataset.user_tensor`). With the same seed the port and the
-reference therefore train on the same cohorts and the same batches. The
-round body is `fl.client.round_compute` on the device; the Gaussian noise
-comes from a ``torch.Generator`` on the device, or from ``noise_fn`` when a
-caller injects it (the port cannot draw JAX's bits).
+* ``"engine"`` — the simulation engine (`repro_torch.fl.engine.SimEngine`):
+  population, sampling, client batching and the server step all on the
+  device, ``rounds_per_call`` rounds between host reads;
+* ``"engine_python"`` — the engine read after every round (the same draws
+  → bitwise the same trajectory; used by parity tests);
+* ``"host"`` — numpy sampling and host stacking, in the reference's order:
+  the check-in pool and the cohort (`fl.sampling.sample_round`), then each
+  sampled user's client tensor (`data.federated.FederatedDataset.
+  user_tensor`). With the same seed the port and the reference therefore
+  train on the same cohorts and the same batches.
 
-The reference's compiled engine backends (``"engine"``, ``"engine_python"``)
-are not ported yet (ROADMAP.md, queue A, item 4): asking for one raises.
+Every backend runs the round body of `fl.client` on the device. The engine
+draws everything from one ``torch.Generator`` on the device, seeded from
+``seed`` (or from ``draws``, an object with `fl.engine.EngineDraws`'
+methods); the host backend's Gaussian noise comes from a ``torch.Generator``
+on the device, or from ``noise_fn`` when a caller injects it (the port
+cannot draw JAX's bits).
+
+Engine backends take an ``eval_fn(params, round_idx)`` hook, run every
+``eval_every`` rounds, whose outputs land in ``trainer.eval_history``. The
+reference's cohort sharding, streamed population, sharded sampler and fault
+model are not ported (ROADMAP.md, queue A, items 4–5): asking for one
+raises.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ from repro_torch.core.dp_fedavg import finalize_round, server_step
 from repro_torch.core.server_optim import ServerOptState, init_state
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl.client import make_round_fn
+from repro_torch.fl.engine import SimEngine
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.sampling import sample_round
 from repro_torch.models.api import Model
@@ -34,7 +47,7 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.params import strip_compute
 from repro_torch.utils.pytree import tree_map
 
-BACKENDS = ("host",)
+BACKENDS = ("host", "engine", "engine_python")
 
 
 @dataclass
@@ -51,23 +64,38 @@ class FederatedTrainer:
     ``params`` (optional) starts training from a given parameter set (for
     example the reference's, carried across by `utils.params.
     from_jax_params`); by default the model is initialised from
-    ``seed + 1``. ``noise_fn(round_idx, like, std) -> tree`` (optional)
-    replaces the generator's draw of each round's noise (a tree shaped like
-    ``like``, already scaled by ``std``)."""
+    ``seed + 1``. ``noise_fn(round_idx, like, std) -> tree`` (optional, host
+    backend) replaces the generator's draw of each round's noise (a tree
+    shaped like ``like``, already scaled by ``std``); ``draws`` (optional,
+    engine backends) replaces the engine's generator
+    (`fl.engine.EngineDraws`)."""
 
     def __init__(self, model: Model, dataset: FederatedDataset,
                  dp: DPConfig, client: ClientConfig,
                  pop: Optional[PopulationSim] = None, seed: int = 0,
                  n_local_batches: int = 4, backend: str = "host",
-                 sampling: Optional[str] = None,
+                 rounds_per_call: int = 8, sampling: Optional[str] = None,
+                 num_shards: int = 1, num_pods: int = 1,
                  cohort_chunk: Optional[int] = None,
-                 clip_path: str = "fused", params=None, device=None,
-                 noise_fn: Optional[Callable] = None):
+                 clip_path: str = "fused",
+                 population_backend: str = "device", sampler: str = "global",
+                 fault_config=None, eval_fn: Optional[Callable] = None,
+                 eval_every: int = 1, params=None, device=None,
+                 noise_fn: Optional[Callable] = None, draws=None):
         if backend not in BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet: the port trains "
-                f"with backend='host'; the engine backends are queued in "
-                f"ROADMAP.md (queue A, item 4)")
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {backend!r}")
+        if backend == "host" and (
+                num_shards != 1 or num_pods != 1 or sampler != "global"
+                or population_backend != "device"
+                or fault_config is not None):
+            raise ValueError("num_shards/num_pods, sampler, "
+                             "population_backend and fault_config are "
+                             "engine-backend features; use backend='engine'")
+        if backend == "host" and eval_fn is not None:
+            raise ValueError("eval_fn is an engine-backend feature "
+                             "(in-engine hook); score params post hoc on "
+                             "the host backend instead")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the reference's float32 products are full float32
@@ -101,9 +129,38 @@ class FederatedTrainer:
                           strip_compute(params))
         self.state = TrainerState(params, init_state(params))
         self.participation = np.zeros(n_users, np.int64)
-        self._round_fn = make_round_fn(model, client, dp,
-                                       cohort_chunk=cohort_chunk,
-                                       clip_path=clip_path)
+        # engine hook output, accumulated across calls: {"round": (n,),
+        # "mask": (n,) bool, "values": {name: (n, ...)}}
+        self.eval_history: Optional[Dict] = None
+        self.engine = None
+        if backend == "host":
+            self._round_fn = make_round_fn(model, client, dp,
+                                           cohort_chunk=cohort_chunk,
+                                           clip_path=clip_path)
+            return
+        # scalar population dynamics come from the PopulationSim config;
+        # the synthetic-device mask comes from the dataset itself (the
+        # engine's draws are seeded with the trainer seed, not pop.seed)
+        if sorted(self.pop.synthetic_ids) != synth:
+            raise ValueError(
+                "engine backends take the synthetic-device mask from the "
+                f"dataset ({synth}), but the PopulationSim was built with "
+                f"synthetic_ids={list(self.pop.synthetic_ids)} — make them "
+                "agree (or omit synthetic_ids)")
+        self.engine = SimEngine(
+            model, dataset.to_device_arrays(), dp, client,
+            n_local_batches=n_local_batches,
+            availability=self.pop.availability,
+            pace_cooldown=self.pop.pace_cooldown,
+            pace_penalty=self.pop.pace_penalty,
+            rounds_per_call=rounds_per_call, sampling=self.sampling,
+            num_shards=num_shards, num_pods=num_pods,
+            cohort_chunk=cohort_chunk, clip_path=clip_path,
+            population_backend=population_backend, sampler=sampler,
+            fault_config=fault_config, eval_fn=eval_fn,
+            eval_every=eval_every, device=self.device)
+        self._estate = self.engine.init_state(
+            params, seed=seed, opt_state=self.state.opt_state, draws=draws)
 
     def _stack_clients(self, ids: np.ndarray) -> Dict[str, torch.Tensor]:
         tensors = [self.dataset.user_tensor(int(u), self.client.batch_size,
@@ -112,7 +169,7 @@ class FederatedTrainer:
         return {k: torch.from_numpy(np.stack([t[k] for t in tensors]))
                 .to(self.device) for k in tensors[0]}
 
-    def run_round(self) -> Dict:
+    def _run_round_host(self) -> Dict:
         s = self.state
         ids = sample_round(self.pop, self.rng, s.round_idx,
                            self.dp.clients_per_round, scheme=self.sampling)
@@ -149,9 +206,73 @@ class FederatedTrainer:
         s.history.append(rec)
         return rec
 
+    # ----------------------------------------------------------- engine path
+
+    def _append_eval(self, rounds_arr: np.ndarray, mask: np.ndarray,
+                     values: Dict) -> None:
+        chunk = {"round": rounds_arr, "mask": np.asarray(mask, bool),
+                 "values": values}
+        if self.eval_history is None:
+            self.eval_history = chunk
+        else:
+            old = self.eval_history
+            self.eval_history = {
+                "round": np.concatenate([old["round"], chunk["round"]]),
+                "mask": np.concatenate([old["mask"], chunk["mask"]]),
+                "values": {k: np.concatenate([old["values"][k], v])
+                           for k, v in values.items()}}
+
+    def _train_engine(self, rounds: int, log_every: int = 0) -> List[Dict]:
+        s = self.state
+        runner = (self.engine.run if self.backend == "engine"
+                  else self.engine.run_python)
+        recs = []
+        done = 0
+        while done < rounds:
+            # chunk by log_every so progress lines appear while training
+            k = min(log_every or rounds, rounds - done)
+            start = s.round_idx
+            self._estate, hist = runner(self._estate, k)
+            if "eval" in hist:
+                self._append_eval(np.arange(start + 1, start + k + 1),
+                                  hist["eval_mask"], hist["eval"])
+            for i in range(k):
+                s.round_idx += 1
+                rec = {"round": s.round_idx, "loss": float(hist["loss"][i]),
+                       "mean_update_norm":
+                           float(hist["mean_update_norm"][i]),
+                       "frac_clipped": float(hist["frac_clipped"][i]),
+                       "n_clients": int(hist["n_clients"][i]),
+                       "noise_std": float(hist["noise_std"][i])}
+                s.history.append(rec)
+                recs.append(rec)
+                if log_every and rec["round"] % log_every == 0:
+                    self._log(rec)
+            done += k
+        s.params = self._estate.params
+        s.opt_state = self._estate.opt_state
+        # one accountant step per round: every engine round releases
+        self.accountant.step(rounds)
+        # mirror the device population state back into the host
+        # PopulationSim so post-hoc analyses see it
+        self.participation = self._estate.participation.cpu().numpy(
+        ).astype(np.int64)
+        self.pop.absorb_last_round(self._estate.last_round.cpu().numpy())
+        return recs
+
+    # ---------------------------------------------------------------- public
+
+    def run_round(self) -> Dict:
+        if self.backend != "host":
+            return self._train_engine(1)[-1]
+        return self._run_round_host()
+
     def train(self, rounds: int, log_every: int = 0) -> List[Dict]:
+        if self.backend != "host":
+            self._train_engine(rounds, log_every)
+            return self.state.history
         for r in range(rounds):
-            rec = self.run_round()
+            rec = self._run_round_host()
             if log_every and (r + 1) % log_every == 0:
                 self._log(rec)
         return self.state.history

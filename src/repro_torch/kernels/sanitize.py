@@ -1,0 +1,129 @@
+"""Race and bounds checks of the CIFG kernels at the shapes their paths
+give them.
+
+Launches ``cifg_cell_fwd`` (``cell_seq_fwd``) at the serving decode tick
+(B 256, S 1), the training client batch (B 10, S 16), the admission prefill
+(B 1, S 16), the Random-Sampling chunk of the Secret Sharer (B 27,648,
+S 5) and its beam search (B 5, S 2–4), bf16 and f32, and
+``cifg_cell_bwd_seq`` at the training shape, all at H 256. Each output
+stack is a view into a larger buffer whose tail is filled with a NaN
+pattern; after every launch the tail must still hold it (a write past the
+output), and every launch must give bitwise the first one's result (a race
+between threads or cluster peers shows as a difference).
+
+    python -m repro_torch.kernels.sanitize --repeats 20
+    compute-sanitizer --tool racecheck python -m repro_torch.kernels.sanitize
+    compute-sanitizer --tool memcheck python -m repro_torch.kernels.sanitize
+
+Needs a CUDA GPU; prints one line per shape and exits non-zero on a
+difference.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+FWD_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16),
+              ("rs", 27648, 5), ("beam", 5, 2), ("beam", 5, 3),
+              ("beam", 5, 4))
+BWD_SHAPES = (("train", 10, 16),)
+GUARD = 4096                    # float32 words after each output
+_PATTERN = 0x7FC0DEAD           # a NaN no kernel writes
+
+
+def _randn(gen, dev, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+
+def _guarded(shape, dev):
+    """(view of ``shape`` float32, the whole buffer) with a patterned
+    tail."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.full((n + GUARD,), _PATTERN, dtype=torch.int32,
+                     device=dev).view(torch.float32)
+    return buf[:n].view(shape), buf
+
+
+def _tail_intact(buf) -> bool:
+    return bool((buf[-GUARD:].view(torch.int32) == _PATTERN).all())
+
+
+def check_fwd(S: int, B: int, H: int, dtype, repeats: int, dev) -> str:
+    from repro_torch.kernels.cifg_cell import cell_seq_fwd
+
+    gen = torch.Generator().manual_seed(S * 100_003 + B)
+    zx = _randn(gen, dev, S, B, 3 * H)
+    h0 = _randn(gen, dev, B, H, scale=0.3)
+    c0 = _randn(gen, dev, B, H, scale=0.3)
+    w = _randn(gen, dev, H, 3 * H, scale=H ** -0.5).to(dtype)
+    first = None
+    for i in range(repeats):
+        hs, hbuf = _guarded((S, B, H), dev)
+        cs, cbuf = _guarded((S, B, H), dev)
+        cell_seq_fwd(zx, h0, c0, w, hs=hs, cs=cs)
+        torch.cuda.synchronize()
+        if not (_tail_intact(hbuf) and _tail_intact(cbuf)):
+            return f"a launch wrote past its output (launch {i})"
+        if first is None:
+            first = (hs.clone(), cs.clone())
+        elif not (torch.equal(hs, first[0]) and torch.equal(cs, first[1])):
+            return f"launch {i} differs from launch 0"
+    return ""
+
+
+def check_bwd(S: int, B: int, H: int, repeats: int, dev) -> str:
+    from repro_torch.kernels.cifg_cell import ops
+
+    gen = torch.Generator().manual_seed(S * 7 + B)
+    args = (_randn(gen, dev, S, B, 3 * H), _randn(gen, dev, S, B, H, scale=0.3),
+            _randn(gen, dev, B, H, scale=0.3),
+            _randn(gen, dev, S, B, H, scale=0.1),
+            _randn(gen, dev, B, H, scale=0.1),
+            _randn(gen, dev, B, H, scale=0.1),
+            _randn(gen, dev, H, 3 * H, scale=H ** -0.5))
+    first = None
+    for i in range(repeats):
+        out = ops.cell_bwd_seq(*args)
+        torch.cuda.synchronize()
+        if first is None:
+            first = [t.clone() for t in out]
+        elif not all(torch.equal(a, b) for a, b in zip(out, first)):
+            return f"launch {i} differs from launch 0"
+    return ""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repeats", type=int, default=2,
+                    help="launches per shape (each held bitwise to the "
+                         "first)")
+    ap.add_argument("--hidden", type=int, default=256)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("sanitize: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    bad = 0
+    H = args.hidden
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, B, S in FWD_SHAPES:
+            err = check_fwd(S, B, H, dtype, args.repeats, dev)
+            bad += bool(err)
+            print(f"sanitize: cifg_cell_fwd {what} B={B} S={S} H={H} "
+                  f"{str(dtype).split('.')[-1]}, {args.repeats} launches: "
+                  f"{err or 'tails intact, bitwise repeatable'}", flush=True)
+    for what, B, S in BWD_SHAPES:
+        err = check_bwd(S, B, H, args.repeats, dev)
+        bad += bool(err)
+        print(f"sanitize: cifg_cell_bwd_seq {what} B={B} S={S} H={H}, "
+              f"{args.repeats} launches: "
+              f"{err or 'bitwise repeatable'}", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,17 @@
 """Federated training CLI of the port: DP-FedAvg (Algorithm 1) on a
-simulated device population through ``FederatedTrainer(backend="host")``,
-with the RDP accountant and a checkpoint in the reference's format. Runs on
-the GPU unless ``--device cpu``.
+simulated device population through ``FederatedTrainer`` — by default the
+simulation engine (`repro_torch.fl.engine`) — with the RDP accountant,
+optional secret-sharing canary devices, and a checkpoint in the reference's
+format. Runs on the GPU unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --rounds 20 \\
-        --clients-per-round 40 --noise-multiplier 0.3
+        --clients-per-round 40 --noise-multiplier 0.3 --inject-canaries
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --vocab 300 --rounds 2 --n-users 60 --clients-per-round 8
 
-The flags are the reference's for the host path; the engine backends, the
-canary injection and the fault model are not ported yet.
+The flags are the reference's. Its flags for cohort sharding, the streamed
+population, the sharded sampler, the fault model and resume are accepted
+and refused with the queue item that ports them.
 """
 from __future__ import annotations
 
@@ -17,13 +19,32 @@ import argparse
 import json
 from pathlib import Path
 
+import torch
+
 from repro_torch.configs import ClientConfig, DPConfig, get_config
+from repro_torch.core.secret_sharer import make_canaries
 from repro_torch.data.corpus import BigramCorpus
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.round import FederatedTrainer
 from repro_torch.models import build
 from repro_torch.train import checkpoint
+
+
+# the reference's flags that the port refuses: (flag, type, queue A item)
+_UNPORTED = (("--num-shards", int, "item 5"), ("--num-pods", int, "item 5"),
+             ("--population-backend", str, "item 5"),
+             ("--population-store", str, "item 5"),
+             ("--sampler", str, "item 5"),
+             ("--fault-dropout", float, "item 4"),
+             ("--fault-straggler", float, "item 4"),
+             ("--fault-straggler-delay", float, "item 4"),
+             ("--fault-deadline", float, "item 4"),
+             ("--fault-corrupt", float, "item 4"),
+             ("--fault-seed", int, "item 4"),
+             ("--report-goal", int, "item 4"),
+             ("--checkpoint-every", int, "item 4"),
+             ("--crash-after", int, "item 4"))
 
 
 def main(argv=None):
@@ -47,9 +68,17 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=16)
     ap.add_argument("--out", default="experiments/runs")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--backend", default="host", choices=["host"],
-                    help="host = numpy sampling and batching, round body "
-                         "on the device (the only backend ported so far)")
+    ap.add_argument("--inject-canaries", action="store_true",
+                    help="add the paper's secret-sharing synthetic devices "
+                         "(27 canaries, 189 devices)")
+    ap.add_argument("--backend", default="engine",
+                    choices=["engine", "engine_python", "host"],
+                    help="engine = the simulation engine, everything on the "
+                         "device (repro_torch.fl.engine); engine_python = "
+                         "the same read after every round; host = numpy "
+                         "sampling and batching, round body on the device")
+    ap.add_argument("--rounds-per-call", type=int, default=10,
+                    help="rounds between host reads (engine backend)")
     ap.add_argument("--cohort-chunk", type=int, default=None,
                     help="stream the round sum this many clients at a time "
                          "(default: auto — largest divisor of the canonical "
@@ -69,7 +98,22 @@ def main(argv=None):
                          "availability·n_users above clients_per_round")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    # the reference's flags for what the port does not have yet: refused
+    for flag, kind, item in _UNPORTED:
+        ap.add_argument(flag, type=kind, default=None,
+                        help=f"not ported yet (ROADMAP.md, queue A, {item})")
+    ap.add_argument("--resume", action="store_true",
+                    help="not ported yet (ROADMAP.md, queue A, item 4)")
     args = ap.parse_args(argv)
+    given = [f for f, _, _ in _UNPORTED
+             if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.resume:
+        given.append("--resume")
+    if given:
+        ap.error(f"{', '.join(given)}: not ported yet — cohort sharding, the "
+                 "streamed population and the sharded sampler are ROADMAP.md "
+                 "queue A, item 5; the fault model, run-state checkpoints and "
+                 "resume are item 4")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -83,6 +127,13 @@ def main(argv=None):
     corpus = BigramCorpus(vocab_size=cfg.vocab, seed=args.seed)
     ds = FederatedDataset(corpus, n_users=args.n_users, seq_len=args.seq_len,
                           sentences_per_user=30)
+    if args.inject_canaries:
+        canaries = make_canaries(torch.Generator().manual_seed(42),
+                                 vocab=cfg.vocab)
+        ds.inject_canaries(canaries)
+        print(f"injected {len(canaries)} canaries "
+              f"({sum(c.n_u for c in canaries)} synthetic devices)")
+    synth_ids = [u.user_id for u in ds.users if u.is_synthetic]
     dp = DPConfig(clients_per_round=args.clients_per_round,
                   noise_multiplier=args.noise_multiplier,
                   clip_norm=args.clip_norm, server_opt=args.server_opt,
@@ -91,9 +142,10 @@ def main(argv=None):
     cl = ClientConfig(local_epochs=args.local_epochs,
                       batch_size=args.client_batch, lr=args.client_lr)
     pop = PopulationSim(len(ds.users), availability=args.availability,
-                        seed=args.seed)
+                        synthetic_ids=synth_ids, seed=args.seed)
     trainer = FederatedTrainer(model, ds, dp, cl, pop=pop, seed=args.seed,
                                n_local_batches=3, backend=args.backend,
+                               rounds_per_call=args.rounds_per_call,
                                cohort_chunk=args.cohort_chunk,
                                clip_path=args.clip_path, device=args.device)
 

@@ -677,3 +677,190 @@ def test_ssd_kernel_heads_do_not_depend_on_the_call(cuda_device, B, S, H, p,
     yb, sb = ssd_scan(xb, dt, Bb, Cb, A)
     yf, sf = ssd_scan(xb.float(), dt, Bb.float(), Cb.float(), A)
     assert torch.equal(yb, yf) and torch.equal(sb, sf)
+
+
+# ------------------------------------- the engine and the Secret Sharer
+#
+# The engine on the card against the engine on the CPU, both fed one
+# CPU-drawn stream of draws (float32 products: atol 1e-5 / rtol 1e-4 on the
+# params after 2 rounds, rtol 1e-4 on the losses and norms). Canary scores
+# at the Random-Sampling chunk's shape (B 27,648, S 5) and beam search (B
+# ≤ 5), card against CPU: relative to the largest score, float32 1e-5,
+# bfloat16 1e-3 (a one-ulp flip of a bf16 rounding of h); ranks and beams
+# equal but for near ties within that tolerance.
+
+SCORE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+class _CpuDraws:
+    """Every draw made on the CPU from one seed; the engine moves them to
+    its device."""
+
+    def __init__(self, seed):
+        self.g = torch.Generator().manual_seed(seed)
+
+    def begin_round(self, round_idx):
+        pass
+
+    def available(self, n):
+        return torch.rand((n,), generator=self.g)
+
+    def cohort(self, weights, available, cohort):
+        from repro_torch.fl.engine import sample_cohort
+
+        return sample_cohort(self.g, weights.cpu(), available.cpu(), cohort)
+
+    def poisson(self, q, available, buffer):
+        from repro_torch.fl.engine import poisson_select
+
+        return poisson_select(self.g, q, available.cpu(), buffer)
+
+    def example_indices(self, counts, need):
+        from repro_torch.fl.engine import example_indices
+
+        return example_indices(self.g, counts.cpu(), need)
+
+    def noise(self, like, std):
+        from repro_torch.utils.pytree import tree_map
+
+        return tree_map(lambda l: (torch.randn(l.shape, generator=self.g)
+                                   * std).to(l.device), like)
+
+
+def _canary_data(vocab=300):
+    from repro_torch.core.secret_sharer import make_canaries
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+
+    ds = FederatedDataset(BigramCorpus(vocab_size=vocab, seed=0), n_users=40,
+                          seq_len=6, sentences_per_user=8)
+    canaries = make_canaries(torch.Generator().manual_seed(5), vocab,
+                             grid=((1, 4), (2, 6)), per_config=1)
+    ds.inject_canaries(canaries)
+    return ds, canaries
+
+
+@pytest.mark.parametrize("sampling", ["fixed", "poisson"])
+def test_engine_round_on_card_matches_cpu(cuda_device, sampling):
+    from repro_torch.configs import ClientConfig, DPConfig
+    from repro_torch.core.secret_sharer import canary_eval_fn
+    from repro_torch.fl.engine import SimEngine
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.utils.pytree import tree_leaves
+
+    model = build(get_config("gboard-cifg-lstm").with_(
+        **SMALL, compute_dtype="float32"))
+    ds, canaries = _canary_data()
+    dp = DPConfig(clients_per_round=8, noise_multiplier=0.3, clip_norm=0.05,
+                  server_opt="momentum", server_lr=0.5, server_momentum=0.9,
+                  sampling=sampling)
+    cl = ClientConfig(batch_size=4, lr=0.3)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        e = SimEngine(model, ds.to_device_arrays(), dp, cl,
+                      n_local_batches=2, availability=1.0, rounds_per_call=2,
+                      eval_fn=canary_eval_fn(model, canaries), eval_every=2,
+                      device=dev)
+        for c in (LAUNCHES, clip_ops.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        out[dev.type] = e.run(e.init_state(params, draws=_CpuDraws(0)), 2)
+        if dev.type == "cuda":
+            # every slot of a chunk with a live slot computes (the round's
+            # slots are the first n_clients, so ceil(n / chunk) chunks)
+            c = e.cohort_chunk
+            chunks = sum(-(-int(n) // c) for n in out["cuda"][1]["n_clients"])
+            assert LAUNCHES["cifg_cell_bwd_seq"] == 2 * c * chunks
+            assert LAUNCHES["cifg_cell_fwd"] == 2 * c * chunks + 1  # + eval
+            assert clip_ops.LAUNCHES["dp_sumsq"] == chunks
+    (sd, hd), (sc, hc) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(hd["n_clients"], hc["n_clients"])
+    np.testing.assert_array_equal(sd.participation.cpu().numpy(),
+                                  sc.participation.numpy())
+    for k in ("loss", "mean_update_norm", "frac_clipped"):
+        np.testing.assert_allclose(hd[k], hc[k], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(hd["eval"]["canary_logppl"],
+                               hc["eval"]["canary_logppl"], rtol=1e-5)
+    for a, b in zip(tree_leaves(sd.params), tree_leaves(sc.params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def _peaked(model, seed=3):
+    """Parameters whose next-word distributions are peaked (a uniform one
+    makes every score alike)."""
+    p = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    p = {k: v for k, v in p.items() if k != "compute"}
+    p["embed"] = {"tok": p["embed"]["tok"] * 50.0}
+    p["w_proj"] = p["w_proj"] * 4.0
+    return p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_score_canaries_at_the_rs_chunk_shape_on_card(cuda_device, dtype):
+    """27 canaries x 1024 continuations: one forward of B 27,648, S 5."""
+    from repro_torch.core.secret_sharer import (canary_matrix,
+                                                make_canaries,
+                                                random_sampling_ranks,
+                                                score_canaries)
+    from repro_torch.utils.pytree import tree_map
+
+    model = build(get_config("gboard-cifg-lstm").with_(
+        vocab=300, compute_dtype=dtype))
+    p_cpu = _peaked(model)
+    p_dev = tree_map(lambda l: l.to(cuda_device), p_cpu)
+    canaries = make_canaries(torch.Generator().manual_seed(0), 300)
+    toks = torch.from_numpy(canary_matrix(canaries))
+    pool = torch.randint(0, 300, (1024, 3),
+                         generator=torch.Generator().manual_seed(1))
+    seqs = torch.cat([toks[:, None, :2].expand(27, 1024, 2),
+                      pool[None].expand(27, 1024, 3).to(toks.dtype)],
+                     dim=-1).reshape(-1, 5)
+    before = LAUNCHES["cifg_cell_fwd"]
+    got = score_canaries(model, p_dev, seqs.to(cuda_device)).cpu()
+    assert LAUNCHES["cifg_cell_fwd"] == before + 1
+    want = score_canaries(model, p_cpu, seqs)
+    scale = float(want.abs().max())
+    tol = SCORE_TOL[dtype] * scale
+    assert float((got - want).abs().max()) <= tol
+    can = score_canaries(model, p_cpu, toks)
+    ranks = random_sampling_ranks(model, p_dev, canaries,
+                                  continuations=pool.to(cuda_device))
+    assert LAUNCHES["cifg_cell_fwd"] == before + 3
+    pool_scores = want.reshape(27, 1024)
+    want_ranks = (pool_scores < can[:, None]).sum(1).numpy()
+    near = ((pool_scores - can[:, None]).abs() <= tol).sum(1).numpy()
+    assert np.all(np.abs(ranks - want_ranks) <= near)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_beam_search_on_card_matches_cpu(cuda_device, dtype):
+    from repro_torch.core.secret_sharer import (beam_search, canary_extracted,
+                                                make_canaries)
+    from repro_torch.utils.pytree import tree_map
+
+    model = build(get_config("gboard-cifg-lstm").with_(
+        vocab=300, compute_dtype=dtype))
+    p_cpu = _peaked(model)
+    p_dev = tree_map(lambda l: l.to(cuda_device), p_cpu)
+    for c in make_canaries(torch.Generator().manual_seed(2), 300)[:6]:
+        before = LAUNCHES["cifg_cell_fwd"]
+        got = beam_search(model, p_dev, c.prefix, 5)
+        assert LAUNCHES["cifg_cell_fwd"] == before + 3   # B 1, 5, 5
+        assert got == beam_search(model, p_cpu, c.prefix, 5)
+        assert canary_extracted(model, p_dev, c) == \
+            canary_extracted(model, p_cpu, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cell_kernels_repeat_bitwise_and_stay_in_bounds_at_memorize_shapes(
+        cuda_device, dtype):
+    """A race between threads or cluster peers would change a result from
+    launch to launch; a stray write would touch the guard past the
+    output."""
+    from repro_torch.kernels import sanitize
+
+    for _, B, S in sanitize.FWD_SHAPES:
+        assert sanitize.check_fwd(S, B, 256, dtype, 5, cuda_device) == ""
+    assert sanitize.check_bwd(16, 10, 256, 5, cuda_device) == ""

@@ -368,9 +368,10 @@ def test_trainer_noise_has_the_calibrated_std_and_engines_raise():
     flat = torch.cat([l.reshape(-1) for l in tree_leaves(noised)])
     assert stats.noise_std == pytest.approx(0.3 * 0.05 / 8)
     assert float(flat.std()) == pytest.approx(stats.noise_std, rel=0.02)
+    # the engine backends are ported; their unported options raise
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FederatedTrainer(pt.model, pt.dataset, pt.dp, pt.client,
-                         backend="engine", device="cpu")
+                         backend="engine", num_shards=2, device="cpu")
 
 
 def test_data_and_sampling_are_the_references_bits():
