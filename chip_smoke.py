@@ -44,7 +44,21 @@ line each (any failure exits non-zero and prints no result):
    beam-search extraction of every canary; the engine's ``run`` against
    ``run_python`` and against the host trainer on its draws (bitwise), the
    round across cohort chunks (bitwise), the noise's std, launch counts,
-   and scores, RS ranks on a pool and the top-5 beams card against CPU.
+   and scores, RS ranks on a pool and the top-5 beams card against CPU;
+9. faults — the production round protocol on the same CIFG-LSTM at full
+   width: 1000 users, target cohort 128, ``FaultConfig(seed=7,
+   dropout_prob=0.1, straggler_prob=0.2, straggler_mean_delay=1.0,
+   round_deadline=3.0, corrupt_prob=0.05)``, 10 rounds through
+   ``FederatedTrainer(backend="engine", fault_config=...)``: 152 selected a
+   round, the reported count and the guard's rejections equal to the fates
+   drawn again on the host, launches of the four training kernels equal to
+   what the report masks predict, σ = zS/103; a run with report goal 150
+   whose aborted rounds change no bit and no accountant step; a fault-on
+   round on the card against the CPU on one stream of draws; a run-state
+   save and restore bitwise against the uninterrupted run; the training
+   CLI's ``--crash-after`` then ``--resume`` at full width in subprocesses
+   with no ``msgpack`` importable, sha256-equal final checkpoints; rounds/s
+   and the device busy share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1546,15 +1560,28 @@ FLASH_CASES = (
     (2, 512, 32, 32, 80, False, 0, "bfloat16"),
     (2, 512, 32, 32, 80, True, 0, "float32"),
     (2, 100, 8, 2, 96, False, 64, "float32"),
+    # hd > 128 (bf16 on the wide route, f32 over more than one output
+    # slice): stablelm-12b's 160, then 192 and 256
+    (4, 512, 32, 32, 160, True, 0, "bfloat16"),
+    (2, 512, 32, 8, 160, True, 128, "bfloat16"),
+    (2, 300, 16, 16, 160, False, 0, "bfloat16"),
+    (2, 512, 16, 16, 192, True, 0, "bfloat16"),
+    (2, 256, 16, 4, 256, False, 64, "bfloat16"),
+    (1, 200, 8, 8, 160, True, 0, "float32"),
+    (1, 130, 4, 2, 256, False, 0, "float32"),
 )
+# the wide route's timed shape: stablelm-12b's head dim at the prefill's
+# (B 4, S 512, 32 heads, causal, bf16)
+FLASH_WIDE_TIMED = (4, 512, 32, 32, 160)
 
 
 def phase_kernel_flash(dev) -> dict:
     """flash_attention_fwd vs its plain version at the hybrid prefill's
     shape (B 4, S 512, 32 heads, hd 80, causal, bf16) and around it (hd 64
-    and 128, GQA, ragged S, window, bidirectional, f32); every bf16 case on
-    the tensor cores; timed at the path's shape against its bound, the
-    plain version and SDPA."""
+    and 128, GQA, ragged S, window, bidirectional, f32), and on the wide
+    route (hd 160, 192, 256); every bf16 case on the tensor cores; timed at
+    the path's shape and at hd 160 against the bound, the plain version and
+    SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -1617,6 +1644,27 @@ def phase_kernel_flash(dev) -> dict:
         f"{eager_ms * 1e3:.2f} us")
     say(f"kernel: flash_attention_fwd bf16 (tensor cores), from the "
         f"profiler's trace: {res}")
+
+    B, S, H, KV, hd = FLASH_WIDE_TIMED
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+               for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    wide_ms = graph_time_ms(lambda: flash_attention(q, k, v), per_graph=20)
+    wide_plain = graph_time_ms(lambda: flash_attention_ref(q, k, v),
+                               per_graph=5)
+    wide_sdpa = graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), per_graph=20)
+    wide_res = kernel_resources(lambda: flash_attention(q, k, v),
+                                "flash_fwd_tc_wide_kernel")
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops = 4 * B * H * hd * _attention_pairs(S, S, True, 0)
+    wb_ms, wb_by = _bound(nbytes, ops, "bfloat16")
+    say(f"kernel: flash_attention_fwd wide route bf16 B={B} S={S} H={H} "
+        f"hd={hd} causal, device time: {wide_ms * 1e3:.2f} us/launch; plain "
+        f"{wide_plain * 1e3:.2f} us; F.scaled_dot_product_attention "
+        f"{wide_sdpa * 1e3:.2f} us; bound {wb_ms * 1e3:.3f} us "
+        f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, {wb_by}); from the "
+        f"profiler's trace: {wide_res}")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_fwd.cu",
@@ -1627,9 +1675,14 @@ def phase_kernel_flash(dev) -> dict:
             "library_ms": library_ms}
 
 
-# (B, S, H, p, N): the path's shape first; mamba2-370m's N 128; a ragged S
+# (B, S, H, p, N): the path's shape first; mamba2-370m's N 128; a ragged S;
+# then the wide route (p or N above 128)
 SSD_CASES = ((4, 512, 80, 64, 64), (1, 512, 32, 64, 128),
-             (2, 200, 80, 64, 64), (2, 128, 80, 64, 64))
+             (2, 200, 80, 64, 64), (2, 128, 80, 64, 64),
+             (1, 512, 8, 64, 192), (1, 512, 8, 192, 64),
+             (1, 256, 4, 256, 256), (2, 200, 3, 160, 160))
+# the wide route's timed shape
+SSD_WIDE_TIMED = (2, 512, 16, 256, 256)
 
 
 def _ssd_inputs(B, S, H, p, N, gen, dev):
@@ -1664,14 +1717,15 @@ def _ssd_ops(B: int, S: int, H: int, p: int, N: int) -> dict:
 
 def phase_kernel_ssd(dev) -> dict:
     """ssd_scan vs the plain chunked scan at the hybrid prefill's shape
-    (B 4, S 512, H 80, p 64, N 64) and around it (N 128, S 200, S 128), y
-    and the final state; bitwise: a subset of the heads (A sliced to match)
+    (B 4, S 512, H 80, p 64, N 64) and around it (N 128, S 200, S 128), and
+    on the wide route (p or N 192, 256, 160), y and the final state;
+    bitwise: a subset of the heads (A sliced to match)
     equals those heads of the full call, and bf16 inputs give the result of
     their f32 casts; timed at the path's shape (bf16 inputs, as the model
     gives them; those inputs cast to f32 first, as a wrapper without the
-    bf16 kernels would; and f32) and at mamba2-370m's (H 32, p 64, N 128)
-    against the bound and the plain version (no single PyTorch call computes
-    the scan)."""
+    bf16 kernels would; and f32), at mamba2-370m's (H 32, p 64, N 128) and
+    on the wide route (p = N = 256) against the bound and the plain version
+    (no single PyTorch call computes the scan)."""
     import torch
     import torch.nn.functional as F
 
@@ -1718,7 +1772,7 @@ def phase_kernel_ssd(dev) -> dict:
             f"3 heads alone and bf16 inputs bitwise as required")
 
     row = None
-    for B, S, H, p, N in (SSD_CASES[0], SSD_CASES[1]):
+    for B, S, H, p, N in (SSD_CASES[0], SSD_CASES[1], SSD_WIDE_TIMED):
         x, dt, Bm, Cm, A = _ssd_inputs(B, S, H, p, N, gen, dev)
         xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
         h0 = torch.zeros((B, H, p, N), device=dev)
@@ -1742,15 +1796,16 @@ def phase_kernel_ssd(dev) -> dict:
             f" {ops['float32_3xtf32'] / 1e9:.3f} GFLOP of products in 3xTF32 "
             f"and {ops['float32'] / 1e9:.3f} of scalings on the CUDA cores, "
             f"{bound_by}); one eager call {eager_ms * 1e3:.2f} us")
-        if row is None:
-            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
+        if row is None or p > 128:
             for kname in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                           "ssd_chunk_scan_kernel"):
                 res = kernel_resources(lambda: ssd_scan(xb, dt, Bb, Cb, A),
                                        kname)
-                say(f"kernel: ssd_scan's {kname}, from the profiler's trace:"
-                    f" {res}")
+                say(f"kernel: ssd_scan's {kname} (p {p}, N {N}), from the "
+                    f"profiler's trace: {res}")
+        if row is None:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -2335,6 +2390,313 @@ def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
     return {"launches": launches, "rounds_per_s": rounds / train_s}
 
 
+# a fault-on round, card against CPU on one stream of draws: the round's
+# parameter change (z = 0, so the change is the server step of the mean
+# clipped update) as relative L2, the counts exactly, the rest as TOL_ROUND
+FAULT_CFG = dict(seed=7, dropout_prob=0.1, straggler_prob=0.2,
+                 straggler_mean_delay=1.0, round_deadline=3.0,
+                 corrupt_prob=0.05)
+
+
+def _kwargs(kw: dict) -> str:
+    return ", ".join(f"{k}={v}" for k, v in kw.items())
+
+
+def _sha256(path) -> str:
+    import hashlib
+
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+
+def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
+                 vocab: int = 10_000, rounds: int = 10,
+                 per_call: int = 5) -> dict:
+    """The deployed round protocol at full width of gboard-cifg-lstm:
+    over-selection, the report goal, corrupt reports through the guard,
+    aborts that change nothing, σ on the goal, and crash-resume (in process
+    and through the CLI)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.fl.engine import EngineDraws, SimEngine
+    from repro_torch.fl.faults import (FaultConfig, fault_fates,
+                                       fault_generator)
+    from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.round import FederatedTrainer
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gboard-cifg-lstm")
+    if vocab != cfg.vocab:
+        cfg = cfg.with_(vocab=vocab)
+    model = build(cfg)
+    seq_len, batch, n_batches = 16, 10, 3
+    ds = FederatedDataset(BigramCorpus(vocab_size=cfg.vocab, seed=0),
+                          n_users=n_users, seq_len=seq_len,
+                          sentences_per_user=30)
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                  server_momentum=0.9)
+    cl = ClientConfig(local_epochs=1, batch_size=batch, lr=0.3)
+    fc = FaultConfig(**FAULT_CFG)
+
+    def trainer(faults=fc, **kw):
+        return FederatedTrainer(
+            model, ds, dp, cl, pop=PopulationSim(n_users, availability=0.3,
+                                                 seed=0),
+            seed=0, n_local_batches=n_batches, backend="engine",
+            rounds_per_call=per_call, device=dev, fault_config=faults, **kw)
+
+    # ------------------------------------------------ the counted main path
+    main = trainer()
+    eng = main.engine
+    goal = eng.report_goal
+    sizes = (fc.over_selection(cohort), fc.resolve_report_goal(cohort))
+    if (eng.sel_cohort, goal) != sizes or (
+            cohort == 128 and sizes != (152, 103)) or eng.padded % 8:
+        fail(f"faults: {eng.sel_cohort} selected (padded {eng.padded}), "
+             f"report goal {goal}; expected 152 and 103 at cohort 128")
+    params0 = tree_map(torch.clone, main.state.params)
+    setup_s = time.perf_counter() - t_phase
+    counters = (cell_ops.LAUNCHES, clip_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    # a run-state snapshot 3 rounds before the end, resumed below
+    cut = rounds - 3
+    t0 = time.perf_counter()
+    main.train(cut)
+    torch.cuda.synchronize()
+    mid_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = Path(tmp) / "state.msgpack"
+        main.save_run_state(state_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main.train(rounds - cut)
+        torch.cuda.synchronize()
+        train_s = mid_s + time.perf_counter() - t0
+        launches = {**cell_ops.LAUNCHES, **clip_ops.LAUNCHES}
+        t0 = time.perf_counter()
+        resumed = trainer()
+        if resumed.restore_run_state(state_path) != cut:
+            fail("faults: restore_run_state returned another round")
+        resumed.train(rounds - cut)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    if not (_same_tree(resumed.state.params, main.state.params)
+            and _same_tree(resumed.state.opt_state.momentum,
+                           main.state.opt_state.momentum)
+            and resumed.state.history == main.state.history
+            and resumed.accountant.rounds == main.accountant.rounds
+            and np.array_equal(resumed.participation, main.participation)):
+        fail(f"faults: a run saved after round {cut} and restored differs "
+             f"from the uninterrupted run after round {rounds}")
+    say(f"faults: run state saved after round {cut}, restored into a "
+        f"new trainer and run to round {rounds}: params, optimizer state, "
+        f"history, participation and accountant bitwise those of the "
+        f"uninterrupted run; set-up (data, model, trainer) {setup_s:.1f} s, "
+        f"the resumed trainer {resume_s:.1f} s")
+
+    hist = main.state.history
+    chunk = eng.cohort_chunk
+    want = {"cifg_cell_fwd": 0, "cifg_cell_bwd_seq": 0, "dp_sumsq": 0,
+            "dp_clip_accumulate": 0}
+    for r, rec in enumerate(hist):
+        f = fault_fates(fault_generator(fc.seed, r), eng.padded, fc)
+        selected = torch.arange(eng.padded) < eng.sel_cohort
+        reported = selected & f.reported
+        rejected = int((reported & f.corrupt).sum())
+        if rec["n_selected"] != eng.sel_cohort or rec["n_reported"] != int(
+                reported.sum()) or rec["n_clients"] != rec["n_reported"] - \
+                rejected or rec["committed"] != (rec["n_clients"] >= goal):
+            fail(f"faults: round {r + 1} record {rec} disagrees with the "
+                 f"host's fates ({int(reported.sum())} reported, "
+                 f"{rejected} corrupt)")
+        live = int(reported.reshape(-1, chunk).any(-1).sum())
+        want["cifg_cell_fwd"] += live * chunk * n_batches
+        want["cifg_cell_bwd_seq"] += live * chunk * n_batches
+        want["dp_sumsq"] += live
+        want["dp_clip_accumulate"] += live * len(tree_leaves(params0))
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"faults launched {k} {launches[k]} times, expected {v}")
+    committed = sum(r["committed"] for r in hist)
+    if main.accountant.rounds != committed:
+        fail(f"faults: accountant {main.accountant.rounds} steps, "
+             f"{committed} committed rounds")
+    if not all(np.isfinite(r["loss"]) for r in hist):
+        fail("faults: training losses not finite")
+    sigma = dp.noise_multiplier * dp.clip_norm / goal
+    if any(r["noise_std"] != np.float32(sigma) for r in hist):
+        fail(f"faults: noise std {[r['noise_std'] for r in hist]} is not "
+             f"zS/report_goal {sigma:.6e}")
+    noise = eng.init_state(params0, seed=9).draws.noise(
+        tree_map(lambda l: torch.zeros_like(l, dtype=torch.float32), params0),
+        sigma)
+    flat = torch.cat([l.reshape(-1) for l in tree_leaves(noise)])
+    std = float(flat.std())
+    if abs(std / sigma - 1.0) > 0.02:
+        fail(f"faults: engine noise std {std:.4e} vs zS/103 {sigma:.4e}")
+    rejected = sum(r["n_reported"] - r["n_clients"] for r in hist)
+    say(f"faults: gboard-cifg-lstm vocab {cfg.vocab} d {cfg.d_model} H "
+        f"{cfg.d_ff} {cfg.compute_dtype}, {n_users} users, target cohort "
+        f"{cohort}, FaultConfig({_kwargs(FAULT_CFG)}): "
+        f"late_prob {fc.late_prob:.5f}, expected survival "
+        f"{fc.expected_survival:.4f}, {eng.sel_cohort} selected a round "
+        f"(padded {eng.padded}, chunks of {chunk}), report goal {goal}; "
+        f"{rounds} rounds in {train_s:.2f} s = {rounds / train_s:.3f} "
+        f"rounds/s; reported {[r['n_reported'] for r in hist]}, accepted "
+        f"{[r['n_clients'] for r in hist]} ({rejected} corrupt reports "
+        f"rejected by the guard), {committed} of {rounds} committed; "
+        f"accountant {main.accountant.rounds} rounds, eps "
+        f"{main.accountant.get_epsilon(1e-6):.3f} at delta 1e-6")
+    say(f"faults: the counts, the guard's rejections and the verdicts equal "
+        f"the fates drawn again on the host; launches {launches} as the "
+        f"report masks predict; noise std {std:.5e} over {flat.numel()} "
+        f"entries vs zS/103 {sigma:.5e} ({100 * (std / sigma - 1):+.2f}%, "
+        f"tol 2%), the history's {hist[0]['noise_std']:.5e}")
+    del noise, flat, resumed
+
+    t0 = time.perf_counter()
+    round_dev, round_wall, top = profiled_device_ms(lambda: main.train(1), 1,
+                                                    warmup=False)
+    busy = None if round_dev is None else 100 * round_dev / round_wall
+    say(f"faults: one fault-on engine round under the profiler: "
+        f"{_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, device "
+        f"busy {'not measured' if busy is None else f'{busy:.1f}%'}; by "
+        f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
+                                for n, ms, c in top)
+        + f"; {time.perf_counter() - t0:.1f} s with the trace's processing")
+
+    # ------------------------------------ aborts: report goal 150 of 152
+    t0 = time.perf_counter()
+    strict = trainer(faults=FaultConfig(**FAULT_CFG, report_goal=150))
+    aborted, n_strict = 0, 3
+    for _ in range(n_strict):
+        before = tree_map(torch.clone, strict.state.params)
+        m_before = tree_map(torch.clone, strict.state.opt_state.momentum)
+        rec = strict.run_round()
+        if not rec["committed"]:
+            aborted += 1
+            if not (_same_tree(strict.state.params, before) and _same_tree(
+                    strict.state.opt_state.momentum, m_before)):
+                fail("faults: an aborted round changed params or momentum")
+    n_comm = sum(r["committed"] for r in strict.state.history)
+    if aborted == 0 or strict.accountant.rounds != n_comm:
+        fail(f"faults: report goal 150 aborted {aborted} of {n_strict} "
+             f"rounds, the accountant took {strict.accountant.rounds} steps "
+             f"for {n_comm} committed")
+    accepted = [r["n_clients"] for r in strict.state.history]
+    say(f"faults: report goal 150 of 152: {aborted} of {n_strict} rounds "
+        f"aborted (accepted {accepted}), each leaving params and momentum "
+        f"bitwise unchanged; the accountant took {strict.accountant.rounds} "
+        f"steps; {time.perf_counter() - t0:.1f} s")
+    del strict
+
+    # ------------------------- a fault-on round, card against the CPU
+    t0 = time.perf_counter()
+    dp0 = DPConfig(clients_per_round=cohort, noise_multiplier=0.0,
+                   clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                   server_momentum=0.9)
+    out, side_s = [], []
+    for d in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        e = SimEngine(model, ds.to_device_arrays(), dp0, cl,
+                      n_local_batches=n_batches, availability=0.3,
+                      fault_config=fc, device=d)
+        # draws from one CPU generator: both engines take the same cohorts,
+        # example rows, fates and noise
+        draws = EngineDraws(torch.Generator().manual_seed(3))
+        st, h = e.run(e.init_state(params0, draws=draws), 1)
+        out.append((tree_map(lambda l: l.cpu(), st.params), h))
+        side_s.append(time.perf_counter() - t1)
+    (pc, hc), (pp, hp) = out
+    for k in ("n_selected", "n_reported", "n_clients", "committed"):
+        if not np.array_equal(hc[k], hp[k]):
+            fail(f"faults: card vs CPU {k} {hc[k]} vs {hp[k]}")
+    if not hc["committed"][0]:
+        fail("faults: the compared round aborted")
+    p0 = tree_map(lambda l: l.cpu(), params0)
+    dc = torch.cat([(a - b).reshape(-1).float() for a, b in
+                    zip(tree_leaves(pc), tree_leaves(p0))])
+    dpu = torch.cat([(a - b).reshape(-1).float() for a, b in
+                     zip(tree_leaves(pp), tree_leaves(p0))])
+    rel = float((dc - dpu).norm() / dpu.norm())
+    errs = {"sum": rel,
+            "norm": abs(hc["mean_update_norm"][0] / hp["mean_update_norm"][0]
+                        - 1),
+            "loss": abs(hc["loss"][0] - hp["loss"][0]),
+            "frac": abs(hc["frac_clipped"][0] - hp["frac_clipped"][0])}
+    for k, v in errs.items():
+        if not v <= TOL_ROUND[k]:
+            fail(f"faults: card vs CPU round {k} error {v:.3e} > "
+                 f"{TOL_ROUND[k]:g}")
+    say(f"faults: one fault-on round (z 0), card (kernels) against the CPU "
+        f"(plain) on one stream of draws: counts and verdict equal "
+        f"({int(hc['n_reported'][0])} reported, {int(hc['n_clients'][0])} "
+        f"accepted); parameter change rel L2 {rel:.2e}, norm "
+        f"{errs['norm']:.2e}, loss {errs['loss']:.2e}, clipped fraction {errs['frac']:.3f} "
+        f"(TOL_ROUND {TOL_ROUND}); {time.perf_counter() - t0:.1f} s, the "
+        f"card's round {side_s[0]:.1f} s, the CPU's {side_s[1]:.1f} s")
+    del out, pc, pp
+
+    # ------------------------------- the CLI: crash, resume, sha256
+    t0 = time.perf_counter()
+    cli = ["--vocab", str(vocab), "--rounds", "4", "--n-users", "300",
+           "--clients-per-round", "40", "--rounds-per-call", "2",
+           "--device", str(dev),
+           "--fault-dropout", "0.1", "--fault-straggler", "0.2",
+           "--fault-corrupt", "0.05", "--fault-seed", "7"]
+    code = ("import sys; sys.modules['msgpack'] = None; "
+            "from repro_torch.launch.train import main; main(sys.argv[1:])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(args, out_dir):
+        return subprocess.Popen([sys.executable, "-c", code, *cli, *args,
+                                 "--out", str(out_dir)], env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, cut_dir = Path(tmp) / "full", Path(tmp) / "cut"
+        procs = [run([], full_dir),
+                 run(["--checkpoint-every", "2", "--crash-after", "2"],
+                     cut_dir)]
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+        if any(p.returncode for p in procs) or \
+                "simulated crash after round 2" not in logs[1]:
+            fail("faults: the training CLI failed:\n" + "\n".join(
+                l[-2000:] for l in logs))
+        resume = run(["--checkpoint-every", "2", "--resume"], cut_dir)
+        log = resume.communicate(timeout=300)[0]
+        if resume.returncode or "resumed from" not in log:
+            fail(f"faults: the resumed CLI run failed:\n{log[-2000:]}")
+        name = "gboard-cifg-lstm_r4.msgpack"
+        digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
+    if digests[0] != digests[1]:
+        fail(f"faults: CLI checkpoints differ: uninterrupted {digests[0]}, "
+             f"crashed then resumed {digests[1]}")
+    say(f"faults: the training CLI at vocab {vocab} (300 users, 40 a round, "
+        f"faults on), 4 rounds uninterrupted and crashed after round 2 then "
+        f"resumed, in subprocesses with msgpack made unimportable: final "
+        f"checkpoints sha256 {digests[0][:16]}... equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"faults: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rounds_per_s": rounds / train_s,
+            "committed": committed, "busy": busy}
+
+
 def main() -> None:
     try:
         import torch
@@ -2365,15 +2727,17 @@ def main() -> None:
     train = phase_train(dev)
     step_launches = phase_decode_grad(dev)
     memo = phase_memorize(dev)
-    paths = (train["launches"], memo["launches"])
+    faults = phase_faults(dev)
+    paths = (train["launches"], memo["launches"], faults["launches"])
     bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths)
     fwd["launches"] = serve["launches"] + sum(p["cifg_cell_fwd"]
                                               for p in paths)
     say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
         f"{train['launches']['cifg_cell_fwd']}, memorize "
-        f"{memo['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
-        f"sequence form {bwd['launches']} in training and memorize, the "
-        f"per-step form {step_launches} through decode steps")
+        f"{memo['launches']['cifg_cell_fwd']}, faults "
+        f"{faults['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
+        f"sequence form {bwd['launches']} in training, memorize and faults, "
+        f"the per-step form {step_launches} through decode steps")
     for row in clip_rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     hybrid = phase_hybrid(dev)

@@ -18,7 +18,8 @@ from repro_torch.utils.pytree import tree_map
 class ServerOptState(NamedTuple):
     momentum: object   # tree of f32 zeros at init
     nu: object         # adam second moment
-    count: int         # server steps taken
+    count: object      # server steps taken: an int, or a device scalar
+                       # once the engine's fault model selects it
 
 
 def init_state(params) -> ServerOptState:
@@ -55,10 +56,18 @@ def apply_update(params, delta, state: ServerOptState, dp: DPConfig):
                          state.momentum, delta)
         new_v = tree_map(lambda v, d: b2 * v + (1 - b2) * torch.square(
             d.float()), state.nu, delta)
-        # bias corrections in float32, as the reference computes them
-        c = torch.tensor(float(cnt), dtype=torch.float32)
-        bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
-        bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
+        # bias corrections in float32, as the reference computes them; a
+        # device count (the engine's fault model) stays on the device
+        if isinstance(cnt, torch.Tensor):
+            c = cnt.to(torch.float32)
+            bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32,
+                                     device=c.device) ** c
+            bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32,
+                                     device=c.device) ** c
+        else:
+            c = torch.tensor(float(cnt), dtype=torch.float32)
+            bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** c)
+            bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** c)
         new_params = tree_map(
             lambda p, m, v: (p.float() + lr * (m / bc1)
                              / (torch.sqrt(v / bc2) + eps)).to(p.dtype),

@@ -241,17 +241,17 @@ def round_compute(model: Model, params, stacked_batches,
         lambda b: local_deltas(model, params, b, client),
         binp, m.reshape(CANON_BLOCKS, cpb, chunk), params, dp.clip_norm,
         clip_path=clip_path)
-    return fold_round(partials, stats)
+    return fold_round(partials, stats)[:4]
 
 
 def fold_round(partials, stats):
     """Block partials and stat partials (from :func:`stream_block_sums`) →
-    (sum of clipped updates, mean norm, frac clipped, mean loss), the means
-    over the unmasked slots."""
+    (sum of clipped updates, mean norm, frac clipped, mean loss, count), the
+    means over the unmasked slots that the sum accepted, and their count."""
     total = tree_map(fold_blocks, partials)
     s = fold_blocks(stats)
     denom = torch.clamp(s[3], min=1.0)
-    return total, s[0] / denom, s[1] / denom, s[2] / denom
+    return total, s[0] / denom, s[1] / denom, s[2] / denom, s[3]
 
 
 def _round_compute_materialized(model: Model, params, stacked_batches,

@@ -28,11 +28,22 @@ every round. This engine keeps the whole simulation on the device:
 * **eval hook** — ``eval_fn(params, round_idx) -> dict of tensors`` runs on
   the post-update params after rounds ``eval_every, 2·eval_every, …``;
   other rounds carry zeros (history keys ``eval`` / ``eval_mask``). It
-  draws nothing, so whether it runs does not change the trajectory.
+  draws nothing, so whether it runs does not change the trajectory;
+* **fault model** — with ``fault_config`` (`repro_torch.fl.faults`) a
+  round over-selects ``ceil(qN / expected_survival)`` clients, folds only
+  the slots that reported on time (corrupt reports are poisoned with NaN
+  and rejected by the sum's non-finite guard), and commits only when the
+  accepted count reaches the report goal: the server step is computed and
+  every leaf of params and optimizer state is selected by a device-side
+  ``committed``, so an aborted round leaves both bitwise unchanged without
+  a host read. Δ̄ and σ = zS/report_goal divide by the goal, never by the
+  realized count. The fates come from a per-round CPU stream
+  (:meth:`EngineDraws.fates`), disjoint from the training generator.
 
 Every draw of a round — availability, cohort or Poisson selection, per-slot
 example indices, noise — comes from one ``torch.Generator`` on the engine's
-device, through :class:`EngineDraws`, seeded from the trainer seed. The
+device, through :class:`EngineDraws`, seeded from the trainer seed; the
+fault fates alone come from their own stream. The
 generator cannot reproduce the reference's JAX streams; a test hands the
 engine an object with the same methods that returns the reference's draws.
 
@@ -40,15 +51,14 @@ engine an object with the same methods that returns the reference's draws.
 keeping each round's history on the device and reading it once per call.
 :meth:`SimEngine.run_python` reads after every round. Both run the same
 round body from the same draws, so params and history are bitwise equal.
-Under fixed-size rounds the slot mask is known on the host and a round
-reads nothing back; a Poisson round's mask is made on the device and is
-read once per round by the streaming sum (which skips chunks that are
-entirely masked).
+Under fixed-size rounds the slot mask (and, with faults, the report mask)
+is known on the host and a round reads nothing back; a Poisson round's
+mask is made on the device and is read once per round by the streaming sum
+(which skips chunks that are entirely masked).
 
 Not ported (they raise): cohort sharding over devices (``num_shards`` /
 ``num_pods`` > 1), the streamed population backend and the sharded sampler
-(ROADMAP.md, queue A, item 5), and the production fault model
-(``fault_config``; queue A, item 4).
+(ROADMAP.md, queue A, item 5).
 """
 from __future__ import annotations
 
@@ -65,6 +75,7 @@ from repro_torch.core.server_optim import ServerOptState, init_state
 from repro_torch.data.tokenizer import PAD
 from repro_torch.fl.client import (fold_round, local_deltas,
                                    round_compute, stream_block_sums)
+from repro_torch.fl.faults import FaultConfig, fault_fates, fault_generator
 from repro_torch.fl.reduction import CANON_BLOCKS, canon_pad, resolve_chunk
 from repro_torch.models.api import Model
 from repro_torch.utils.device import resolve_device
@@ -96,13 +107,16 @@ def pace_steering_weights(last_round, synthetic, round_idx: int,
 
 def sample_cohort(generator: torch.Generator, weights, available,
                   cohort: int) -> torch.Tensor:
-    """Fixed-size weighted sampling without replacement on the device.
+    """Fixed-size weighted sampling without replacement on the generator's
+    device (the weights and the availability are moved there).
 
     Rounds are fixed-size by construction (Algorithm 1): if a round's
     check-in draw leaves fewer than ``cohort`` devices, the remainder is
     topped up from un-checked-in devices rather than shrinking the round
     (`SimEngine` warns when a configuration makes that regime likely)."""
-    w = torch.where(available, weights, _UNAVAILABLE_W).to(torch.float32)
+    dev = generator.device
+    w = torch.where(available.to(dev), weights.to(dev),
+                    _UNAVAILABLE_W).to(torch.float32)
     p = w / torch.sum(w)
     return torch.multinomial(p, cohort, replacement=False,
                              generator=generator)
@@ -163,10 +177,16 @@ class EngineDraws:
     """Every random draw of a round, from one ``torch.Generator`` on the
     engine's device, one method per draw. The engine calls
     :meth:`begin_round` first, then :meth:`available`, then :meth:`cohort`
-    (fixed rounds) or :meth:`poisson`, then :meth:`example_indices`, then
-    :meth:`noise`. An object with these methods can stand in for this one
+    (fixed rounds) or :meth:`poisson`, then, with a fault model,
+    :meth:`fates`, then :meth:`example_indices`, then :meth:`noise`. An
+    object with these methods can stand in for this one
     (`SimEngine.init_state(draws=...)`) to feed the engine another stream's
-    draws — the reference's, or the host trainer's."""
+    draws — the reference's, or the host trainer's.
+
+    Each draw is made on the generator's device and the engine moves it to
+    its own, so a CPU generator feeds an engine on any device: an engine on
+    the card and one on the CPU, each given ``EngineDraws`` over a CPU
+    generator of one seed, take the same draws."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -185,6 +205,12 @@ class EngineDraws:
 
     def poisson(self, q: float, available, buffer: int):
         return poisson_select(self.generator, q, available, buffer)
+
+    def fates(self, round_idx: int, n_slots: int, cfg: FaultConfig):
+        """The round's fault fates, on the CPU, from the fault stream of
+        ``(cfg.seed, round_idx)`` — never from the training generator."""
+        return fault_fates(fault_generator(cfg.seed, round_idx), n_slots,
+                           cfg)
 
     def example_indices(self, counts, need: int) -> torch.Tensor:
         return example_indices(self.generator, counts, need)
@@ -265,10 +291,6 @@ class SimEngine:
             raise NotImplementedError(
                 "sampler='sharded' is not ported yet (ROADMAP.md, queue A, "
                 "item 5); the port samples with the global sampler")
-        if fault_config is not None:
-            raise NotImplementedError(
-                "fault_config: the production fault model is not ported yet "
-                "(ROADMAP.md, queue A, item 4)")
         if clip_path not in CLIP_PATHS:
             raise ValueError(f"clip_path must be one of {CLIP_PATHS}, "
                              f"got {clip_path!r}")
@@ -297,11 +319,27 @@ class SimEngine:
         self.cohort = min(dp.clients_per_round, self.n_users)
         self.q = self.cohort / self.n_users
         # Δ̄ and σ divide by qN: the exact fixed round size, the expected
-        # Poisson one [MRTZ17]
-        self._round_denom = self.cohort
+        # Poisson one [MRTZ17]; under the fault model by the report goal,
+        # and the round over-selects so that the expected survivor count
+        # is qN. Without faults every quantity is its fault-free value.
+        self.faults = fault_config
+        if fault_config is not None:
+            self.report_goal = fault_config.resolve_report_goal(self.cohort)
+            self.sel_cohort = min(self.n_users,
+                                  fault_config.over_selection(self.cohort))
+            self.sel_q = (min(1.0, self.q / fault_config.expected_survival)
+                          if fault_config.over_select else self.q)
+            self._round_denom = self.report_goal
+        else:
+            self.report_goal = None
+            self.sel_cohort = self.cohort
+            self.sel_q = self.q
+            self._round_denom = self.cohort
         if self.sampling == "poisson":
+            exp_sel = (self.cohort if fault_config is None
+                       else self.sel_q * self.n_users)
             buf = poisson_buffer or int(np.ceil(
-                self.cohort + 4.0 * np.sqrt(self.cohort) + 4))
+                exp_sel + 4.0 * np.sqrt(exp_sel) + 4))
             # pad, never truncate: the buffer grows to whole blocks
             self.buffer = canon_pad(min(self.n_users, buf))
             if self.buffer < self.cohort + 2 * np.sqrt(self.cohort) \
@@ -314,17 +352,32 @@ class SimEngine:
                     stacklevel=2)
             self.padded = self.buffer
         else:
-            self.buffer = self.cohort
-            self.padded = canon_pad(self.cohort)
+            self.buffer = self.sel_cohort
+            self.padded = canon_pad(self.sel_cohort)
         self.cohort_chunk = resolve_chunk(cohort_chunk,
                                           self.padded // CANON_BLOCKS)
+        if fault_config is not None:
+            if self.cohort_chunk == 0:
+                raise ValueError(
+                    "fault_config needs the streaming accumulation path "
+                    "(cohort_chunk > 0): corrupt-report rejection lives in "
+                    "the per-slot fold's guard_nonfinite — the materializing "
+                    "cohort_chunk=0 path is the fault-free reference only")
+            max_survivors = (self.sel_cohort if self.sampling == "fixed"
+                             else self.padded)
+            if self.report_goal > max_survivors:
+                warnings.warn(
+                    f"SimEngine: report_goal={self.report_goal} exceeds the "
+                    f"per-round selection ({max_survivors} slots) — every "
+                    "round will abort and the run can never make progress. "
+                    "Lower report_goal or enable over_select.", stacklevel=2)
         n_synth = int(synth_np.sum())
         expected_avail = availability * (self.n_users - n_synth) + n_synth
-        if self.sampling == "fixed" and expected_avail < self.cohort:
+        if self.sampling == "fixed" and expected_avail < self.sel_cohort:
             warnings.warn(
                 f"SimEngine: expected check-ins ({expected_avail:.0f} = "
                 f"{availability}·{self.n_users - n_synth} real + {n_synth} "
-                f"synthetic) < cohort ({self.cohort}); fixed-size rounds "
+                f"synthetic) < cohort ({self.sel_cohort}); fixed-size rounds "
                 "will regularly be topped up from un-checked-in devices and "
                 "σ = zS/qN assumes the full cohort. Raise availability / "
                 "population or lower clients_per_round.", stacklevel=2)
@@ -343,10 +396,16 @@ class SimEngine:
                 last, synth, r, pace_cooldown, pace_penalty))
         # fixed rounds: the slot mask, and which chunks are live, are known
         # on the host, so a round reads nothing back
-        fixed = torch.arange(self.padded) < self.cohort
-        self._fixed_mask = fixed.to(self.device)
-        self._fixed_live = (None if self.cohort_chunk == 0 else
-                            fixed.reshape(self._shape3()).any(-1).tolist())
+        self._fixed_host = torch.arange(self.padded) < self.sel_cohort
+        self._fixed_mask = self._fixed_host.to(self.device)
+        self._fixed_live = self._live(self._fixed_host)
+
+    def _live(self, host_mask: torch.Tensor):
+        """Which chunks of the streaming sum hold an unmasked slot, from a
+        mask on the host (None on the materializing path)."""
+        if self.cohort_chunk == 0:
+            return None
+        return host_mask.reshape(self._shape3()).any(-1).tolist()
 
     def _shape3(self) -> Tuple[int, int, int]:
         chunk = self.cohort_chunk
@@ -381,76 +440,126 @@ class SimEngine:
     # ------------------------------------------------------------- round body
 
     def _sample_phase(self, state: EngineState):
-        """Availability, cohort selection and the population vectors'
-        update, then the per-slot example indices. Returns ``(last_round,
-        participation, ids, slot_mask, idx, live)``; ``live`` is the host
-        list of live chunks (fixed rounds) or None (read from the mask)."""
+        """Availability, cohort selection, the fault fates and the
+        population vectors' update, then the per-slot example indices.
+        Returns ``(last_round, participation, ids, slot_mask, report_mask,
+        corrupt, idx, live)``: without faults ``report_mask`` is
+        ``slot_mask`` and ``corrupt`` None; ``live`` is the host list of
+        live chunks (fixed rounds) or None (read from the mask)."""
         d, r = state.draws, state.round_idx
         d.begin_round(r)
         avail = (d.available(self.n_users).to(self.device)
                  < self.availability) | self.synthetic
         if self.sampling == "poisson":
-            ids, slot_mask, took = d.poisson(self.q, avail, self.padded)
+            ids, slot_mask, took = d.poisson(self.sel_q, avail, self.padded)
             ids, slot_mask = ids.to(self.device), slot_mask.to(self.device)
             took = took.to(self.device)
-            last_round = torch.where(took, r, state.last_round).to(torch.int32)
-            participation = state.participation + took.to(torch.int32)
             live = None
         else:
             w = self.weight_fn(state.last_round, self.synthetic, r)
-            ids = d.cohort(w, avail, self.cohort).to(self.device)
-            ids = torch.nn.functional.pad(ids, (0, self.padded - self.cohort))
+            ids = d.cohort(w, avail, self.sel_cohort).to(self.device)
+            ids = torch.nn.functional.pad(ids,
+                                          (0, self.padded - self.sel_cohort))
             slot_mask = self._fixed_mask
+            live = self._fixed_live
+        if self.faults is None:
+            report_mask, corrupt = slot_mask, None
+        else:
+            # slot-level fates from the fault stream, on the host: a fixed
+            # round's live chunks follow from them without a device read
+            fates = d.fates(r, self.padded, self.faults)
+            reported = fates.reported.cpu()
+            report_mask = slot_mask & reported.to(self.device)
+            corrupt = report_mask & fates.corrupt.to(self.device)
+            if live is not None:
+                live = self._live(self._fixed_host & reported)
+        if self.sampling == "poisson":
+            last_round = torch.where(took, r, state.last_round).to(torch.int32)
+            if self.faults is None:
+                participation = state.participation + took.to(torch.int32)
+            else:
+                participation = state.participation.index_add(
+                    0, ids, report_mask.to(torch.int32))
+        else:
             # padded slots alias device 0: scatter through the mask so they
             # never touch the population vectors
             last_round = state.last_round.scatter_reduce(
                 0, ids, torch.where(slot_mask, r, _NEVER).to(torch.int32),
                 reduce="amax")
             participation = state.participation.index_add(
-                0, ids, slot_mask.to(torch.int32))
-            live = self._fixed_live
+                0, ids, report_mask.to(torch.int32))
         need = self.n_local_batches * self.client.batch_size
         idx = d.example_indices(self.counts[ids], need).to(self.device)
-        return last_round, participation, ids, slot_mask, idx, live
+        return (last_round, participation, ids, slot_mask, report_mask,
+                corrupt, idx, live)
 
-    def _cohort_sums(self, params, ids, idx, slot_mask, live):
+    def _cohort_sums(self, params, ids, idx, mask, live, corrupt=None):
         """The masked clipped sum over the padded cohort and its stats
-        (mean norm, clipped fraction, mean loss over the unmasked slots)."""
+        (mean norm, clipped fraction, mean loss over the unmasked slots).
+        ``corrupt`` (fault model) marks the slots whose reports are
+        non-finite garbage: their deltas and losses are multiplied by NaN
+        (clean slots by 1, which changes no bit) and the fold rejects them
+        (``guard_nonfinite``). Returns the folded sum, the three stats and
+        the count of accepted slots (a device scalar)."""
         nb, B = self.n_local_batches, self.client.batch_size
         if self.cohort_chunk == 0:
             batches = gather_client_batches(self.examples, ids, idx, nb, B)
             return round_compute(self.model, params, batches, self.client,
-                                 self.dp, slot_mask, cohort_chunk=0)
+                                 self.dp, mask, cohort_chunk=0) + (
+                                     mask.to(torch.float32).sum(),)
         shape3 = self._shape3()
         inputs = {"ids": ids.reshape(shape3),
                   "idx": idx.reshape(shape3 + (idx.shape[-1],))}
+        if corrupt is not None:
+            inputs["bad"] = corrupt.to(torch.float32).reshape(shape3)
 
         def compute_chunk(inp):
             batches = gather_client_batches(self.examples, inp["ids"],
                                             inp["idx"], nb, B)
-            return local_deltas(self.model, params, batches, self.client)
+            deltas, losses = local_deltas(self.model, params, batches,
+                                          self.client)
+            if corrupt is None:
+                return deltas, losses
+            poison = torch.where(inp["bad"] > 0, float("nan"), 1.0)
+            deltas = [tree_map(lambda l, p=p: l * p, d)
+                      for d, p in zip(deltas, poison)]
+            return deltas, losses * poison
 
         partials, stats = stream_block_sums(
-            compute_chunk, inputs, slot_mask.to(torch.float32).reshape(shape3),
-            params, self.dp.clip_norm, clip_path=self.clip_path, live=live)
+            compute_chunk, inputs, mask.to(torch.float32).reshape(shape3),
+            params, self.dp.clip_norm, clip_path=self.clip_path,
+            guard_nonfinite=corrupt is not None, live=live)
         return fold_round(partials, stats)
 
     def _round(self, state: EngineState) -> Tuple[EngineState, Dict]:
         r = state.round_idx
-        last_round, participation, ids, slot_mask, idx, live = \
-            self._sample_phase(state)
-        total, mean_norm, frac, loss = self._cohort_sums(
-            state.params, ids, idx, slot_mask, live)
+        (last_round, participation, ids, slot_mask, report_mask, corrupt,
+         idx, live) = self._sample_phase(state)
+        total, mean_norm, frac, loss, accepted = self._cohort_sums(
+            state.params, ids, idx, report_mask, live, corrupt)
         std = self.dp.noise_multiplier * self.dp.clip_norm \
             / float(self._round_denom)
+        # the noise is drawn whether or not the round commits, so that no
+        # later draw depends on the verdict
         delta, _ = finalize_round(total, self._round_denom, None, self.dp,
                                   stats=(mean_norm, frac),
                                   noise=state.draws.noise(total, std))
         params, opt_state = server_step(state.params, state.opt_state, delta,
                                         self.dp)
+        n_selected = slot_mask.sum().to(torch.int32)
         rec = {"loss": loss, "mean_update_norm": mean_norm,
                "frac_clipped": frac, "noise_std": std,
-               "n_clients": slot_mask.sum().to(torch.int32)}
+               "n_clients": n_selected}
+        if self.faults is not None:
+            # commit iff the accepted reports reach the goal, decided on
+            # the device: an aborted round keeps every old leaf's bits
+            committed = accepted >= float(self.report_goal)
+            params, opt_state = _select(committed, (params, opt_state),
+                                        (state.params, state.opt_state))
+            rec.update(n_clients=accepted.to(torch.int32),
+                       n_selected=n_selected,
+                       n_reported=report_mask.sum().to(torch.int32),
+                       committed=committed)
         if self.eval_fn is not None:
             rec["eval_mask"] = (r + 1) % self.eval_every == 0
             if rec["eval_mask"]:
@@ -480,6 +589,8 @@ class SimEngine:
             for rec in recs:
                 rec.setdefault("eval", zeros)
         keys = ("loss", "mean_update_norm", "frac_clipped", "n_clients")
+        if self.faults is not None:
+            keys += ("n_selected", "n_reported", "committed")
         cols = [torch.stack([rec[k] for rec in recs]) for k in keys]
         if self.eval_fn is not None:
             cols += [torch.stack(ls) for ls in zip(*(
@@ -531,6 +642,19 @@ class SimEngine:
             hists.append(self._read(recs, state.params))
             left -= len(recs)
         return state, _concat(hists)
+
+
+def _select(committed: torch.Tensor, new, old):
+    """``(params, opt_state)``: each leaf ``new`` where ``committed``, else
+    ``old`` — bitwise either one. The optimizer's step count becomes a
+    device scalar."""
+    pick = lambda n, o: torch.where(committed, n, o)  # noqa: E731
+    (p_new, s_new), (p_old, s_old) = new, old
+    count = pick(*(torch.as_tensor(c, device=committed.device)
+                   for c in (s_new.count, s_old.count)))
+    return tree_map(pick, p_new, p_old), ServerOptState(
+        tree_map(pick, s_new.momentum, s_old.momentum),
+        tree_map(pick, s_new.nu, s_old.nu), count)
 
 
 def _concat(hists: List[Dict]) -> Dict:

@@ -20,14 +20,25 @@ on the device, or from ``noise_fn`` when a caller injects it (the port
 cannot draw JAX's bits).
 
 Engine backends take an ``eval_fn(params, round_idx)`` hook, run every
-``eval_every`` rounds, whose outputs land in ``trainer.eval_history``. The
-reference's cohort sharding, streamed population, sharded sampler and fault
-model are not ported (ROADMAP.md, queue A, items 4–5): asking for one
-raises.
+``eval_every`` rounds, whose outputs land in ``trainer.eval_history``.
+
+Engine backends also take ``fault_config`` (`fl.faults.FaultConfig`): the
+production round protocol — over-selection, report goals, aborts that
+change nothing. The accountant then composes only *committed* rounds (an
+aborted round released nothing), and round records carry ``n_selected``,
+``n_reported``, ``n_clients`` (the accepted reports) and ``committed``.
+:meth:`FederatedTrainer.save_run_state` and :meth:`restore_run_state` make
+a long run survive a crash: the resumed run is bitwise the uninterrupted
+one, faults on or off.
+
+The reference's cohort sharding, streamed population and sharded sampler
+are not ported (ROADMAP.md, queue A, item 5): asking for one raises.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -39,10 +50,11 @@ from repro_torch.core.dp_fedavg import finalize_round, server_step
 from repro_torch.core.server_optim import ServerOptState, init_state
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl.client import make_round_fn
-from repro_torch.fl.engine import SimEngine
+from repro_torch.fl.engine import EngineDraws, EngineState, SimEngine
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.sampling import sample_round
 from repro_torch.models.api import Model
+from repro_torch.train import checkpoint
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.params import strip_compute
 from repro_torch.utils.pytree import tree_map
@@ -228,6 +240,7 @@ class FederatedTrainer:
                   else self.engine.run_python)
         recs = []
         done = 0
+        stepped = 0
         while done < rounds:
             # chunk by log_every so progress lines appear while training
             k = min(log_every or rounds, rounds - done)
@@ -236,6 +249,9 @@ class FederatedTrainer:
             if "eval" in hist:
                 self._append_eval(np.arange(start + 1, start + k + 1),
                                   hist["eval_mask"], hist["eval"])
+            faulted = "committed" in hist
+            # only committed rounds released anything, so only they compose
+            stepped += int(np.sum(hist["committed"])) if faulted else k
             for i in range(k):
                 s.round_idx += 1
                 rec = {"round": s.round_idx, "loss": float(hist["loss"][i]),
@@ -244,6 +260,10 @@ class FederatedTrainer:
                        "frac_clipped": float(hist["frac_clipped"][i]),
                        "n_clients": int(hist["n_clients"][i]),
                        "noise_std": float(hist["noise_std"][i])}
+                if faulted:
+                    rec["n_selected"] = int(hist["n_selected"][i])
+                    rec["n_reported"] = int(hist["n_reported"][i])
+                    rec["committed"] = bool(hist["committed"][i])
                 s.history.append(rec)
                 recs.append(rec)
                 if log_every and rec["round"] % log_every == 0:
@@ -251,14 +271,90 @@ class FederatedTrainer:
             done += k
         s.params = self._estate.params
         s.opt_state = self._estate.opt_state
-        # one accountant step per round: every engine round releases
-        self.accountant.step(rounds)
-        # mirror the device population state back into the host
-        # PopulationSim so post-hoc analyses see it
+        self.accountant.step(stepped)
+        self._mirror_population()
+        return recs
+
+    def _mirror_population(self) -> None:
+        """Mirror the device population state back into the host
+        PopulationSim so post-hoc analyses see it."""
         self.participation = self._estate.participation.cpu().numpy(
         ).astype(np.int64)
         self.pop.absorb_last_round(self._estate.last_round.cpu().numpy())
-        return recs
+
+    # ------------------------------------------------------- crash resilience
+
+    def _check_run_state(self) -> None:
+        if self.engine is None:
+            raise ValueError("save_run_state/restore_run_state are "
+                             "engine-backend features; use backend='engine'")
+        if type(self._estate.draws) is not EngineDraws:
+            raise ValueError(
+                "save_run_state/restore_run_state need the engine's own "
+                "EngineDraws: an injected draws object has no generator "
+                "state to save")
+
+    def save_run_state(self, path) -> None:
+        """Persist the whole mid-run state (engine backends): params,
+        server-optimizer state, the engine generator's state, the population
+        vectors, the round index, the accountant's position and the round
+        history. The fault stream needs no state of its own: its position
+        is the round index (`fl.faults`). Written atomically through
+        `train.checkpoint.save` (temp file, then rename), so a crash during
+        a save never destroys the previous state."""
+        self._check_run_state()
+        est = self._estate
+        tree = {"estate": {
+            "params": est.params,
+            "opt_state": (est.opt_state.momentum, est.opt_state.nu,
+                          np.asarray(torch.as_tensor(est.opt_state.count)
+                                     .cpu())),
+            "generator": est.draws.generator.get_state(),
+            "last_round": est.last_round,
+            "participation": est.participation,
+            "round_idx": np.asarray(est.round_idx, np.int32)}}
+        checkpoint.save(Path(path), tree, meta={
+            "kind": "trainer-run-state", "version": "1",
+            "round_idx": str(self.state.round_idx),
+            "accountant_rounds": str(self.accountant.rounds),
+            "history": json.dumps(self.state.history)})
+
+    def restore_run_state(self, path) -> int:
+        """Restore a :meth:`save_run_state` snapshot and return the round
+        index to resume from. Running the remaining rounds then gives the
+        uninterrupted trajectory bitwise (the generator's state, the
+        population vectors and the fault stream's position — the round
+        index — are all in the snapshot)."""
+        self._check_run_state()
+        tree, meta = checkpoint.load(Path(path))
+        if meta.get("kind") != "trainer-run-state":
+            raise checkpoint.CheckpointError(
+                f"{path} is not a trainer run-state snapshot "
+                f"(kind={meta.get('kind')!r})")
+        est, dev = tree["estate"], self.device
+        on_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        momentum, nu, count = est["opt_state"]
+        # a count the fault model selected lives on the device; otherwise
+        # it is the plain int it was saved from
+        count = (on_dev(count) if self.engine.faults is not None
+                 else int(count))
+        draws = self._estate.draws
+        draws.generator.set_state(torch.from_numpy(est["generator"]))
+        self._estate = EngineState(
+            params=tree_map(on_dev, est["params"]),
+            opt_state=ServerOptState(tree_map(on_dev, momentum),
+                                     tree_map(on_dev, nu), count),
+            draws=draws,
+            last_round=on_dev(est["last_round"]),
+            participation=on_dev(est["participation"]),
+            round_idx=int(est["round_idx"]))
+        self.state.params = self._estate.params
+        self.state.opt_state = self._estate.opt_state
+        self.state.round_idx = int(meta["round_idx"])
+        self.state.history = json.loads(meta["history"])
+        self.accountant.restore_rounds(int(meta["accountant_rounds"]))
+        self._mirror_population()
+        return self.state.round_idx
 
     # ---------------------------------------------------------------- public
 

@@ -20,8 +20,8 @@
 // batch, sequence and head strides (the last dim contiguous), bf16 or f32;
 // head h reads KV head h / (H / KV), so nothing is transposed, repeated or
 // padded. The output is (B, Sq, H, hd) in q's dtype, written through its
-// strides. hd may be any size up to 128 (zamba2's is 80); B and H up to
-// 65535.
+// strides. hd may be any size (zamba2's is 80, stablelm-12b's 160); B and H
+// up to 65535.
 //
 // What bounds it on an H100: at zamba2-2.7b's prefill (B 4, S 512, 32 heads,
 // hd 80, causal, bf16) one call reads q, k and v (31 MB) and writes o
@@ -62,14 +62,28 @@
 // compute dtype before PV. The result stays within 2e-2 of the plain
 // version, the tolerance of the bf16 output's own rounding.
 //
-// f32: flash_fwd_kernel, float32 FMAs on the CUDA cores, fed from shared
-// memory (no bf16 tensor-core form computes f32 inputs to 1e-5). A block of
-// 8 warps owns 64 query rows (8 per warp); it stages the Q tile and one
-// 64-key K and V tile at a time in shared memory as float32. Lanes walk keys
-// for QK^T (K rows padded to hd + 1 floats, so the lanes hit distinct banks)
-// and the head dim for PV; each warp's 8 rows of probabilities go through
-// shared memory that only that warp touches. Only the checks of the port
-// against its CPU path run it; the served path is bf16.
+// f32: flash_fwd_f32_kernel, float32 FMAs on the CUDA cores, fed from
+// shared memory (no bf16 tensor-core form computes f32 inputs to 1e-5), for
+// every hd. A block of 8 warps owns 64 query rows (8 per warp) and at most
+// 128 output columns: the head dim is cut into n_os = ceil(hd / 128) output
+// slices, one block per (query tile, slice), so n_os = 1 up to hd 128. For
+// each 64-key tile it forms QK^T over slices of 64 head-dim columns of Q
+// and K, staged in shared memory one slice at a time as float32 (zero past
+// hd, so a partial slice adds exactly 0; K rows padded to 65 floats, so the
+// lanes hit distinct banks), one fmaf chain over d per score; lanes walk
+// keys for QK^T and the head dim for PV, and each warp's 8 rows of
+// probabilities go through shared memory that only that warp touches. Every
+// block of a query tile forms the same scores in the same order, so the
+// online-softmax statistics agree across its slices; each writes its own
+// columns of O. Only the checks of the port against its CPU path run it;
+// the served path is bf16.
+//
+// bf16 with hd > 128 (the wide route; hd <= 128 never takes it):
+// flash_fwd_tc_wide_kernel, the output slices and QK^T head-dim slices of
+// the f32 kernel with the tensor-core kernel's mma.sync fragments, masks and
+// softmax, the tiles copied with cp.async and waited for at once (one
+// stage). QK^T is formed n_os times: at hd 160 the products are 1.5 times
+// what one pass needs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,46 +101,35 @@ constexpr int kKeysPerLane = kBK / 32;         // 2
 constexpr int kMaxHd = 128;
 constexpr int kMaxDJ = kMaxHd / 32;            // head-dim columns per lane
 
-inline int smem_floats(int hd) {
-  return kBQ * hd + kBK * (hd + 1) + kBK * hd + kBQ * kBK;
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 struct Strides {
   long long b, s, h;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int Sq, int Sk, int H,
-                 int KV, int hd, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int ldk = hd + 1;
-  float* Qs = smem;                  // [kBQ][hd]
-  float* Ks = Qs + kBQ * hd;         // [kBK][ldk]
-  float* Vs = Ks + kBK * ldk;        // [kBK][hd]
-  float* Ps = Vs + kBK * hd;         // [kBQ][kBK], rows private to a warp
+// float32 (see the top of the file): the output columns [o0, o0 + ow) of
+// one query tile, QK^T over head-dim slices of kDS columns. blockIdx.x =
+// query tile * n_os + output slice.
+constexpr int kDS = 64;                        // QK^T head-dim slice
 
-  const int q0 = blockIdx.x * kBQ;
+inline int f32_smem_floats() {
+  return kBQ * kDS + kBK * (kDS + 1) + kBK * kMaxHd + kBQ * kBK;
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Strides qs, Strides ks, Strides vs, Strides os, int Sq,
+                     int Sk, int H, int KV, int hd, int ow, int n_os,
+                     int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  constexpr int ldk = kDS + 1;
+  float* Qs = smem;                  // [kBQ][kDS]
+  float* Ks = Qs + kBQ * kDS;        // [kBK][ldk]
+  float* Vs = Ks + kBK * ldk;        // [kBK][ow]
+  float* Ps = Vs + kBK * kMaxHd;     // [kBQ][kBK], rows private to a warp
+
+  const int q0 = (blockIdx.x / n_os) * kBQ;
+  const int o0 = (blockIdx.x % n_os) * ow;
+  const int ow_valid = min(ow, hd - o0);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -135,16 +138,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int r0 = warp * kRowsPerWarp;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
 
-  for (int i = tid; i < kBQ * hd; i += kThreads) {
-    const int r = i / hd, d = i - r * hd;
-    Qs[i] = q0 + r < Sq ? to_f32<T>(qb[(q0 + r) * qs.s + d]) : 0.0f;
-  }
-
-  // keys this tile of queries can see: [k_lo, k_hi)
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -159,36 +156,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int kt0 = (k_lo / kBK) * kBK; kt0 < k_hi; kt0 += kBK) {
-    __syncthreads();   // Q staged; the previous K and V tiles consumed
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int j = i / hd, d = i - j * hd;
-      const int kj = kt0 + j;
-      const bool in = kj < Sk;
-      Ks[j * ldk + d] = in ? to_f32<T>(kb[kj * ks.s + d]) : 0.0f;
-      Vs[j * hd + d] = in ? to_f32<T>(vb[kj * vs.s + d]) : 0.0f;
-    }
-    __syncthreads();
-
-    // scores: lanes walk keys lane and lane + 32, the warp's 8 rows share
-    // each K load
     float s[kRowsPerWarp][kKeysPerLane];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i)
 #pragma unroll
       for (int c = 0; c < kKeysPerLane; ++c) s[i][c] = 0.0f;
-    for (int d = 0; d < hd; ++d) {
-      float kv[kKeysPerLane];
+    for (int d0 = 0; d0 < hd; d0 += kDS) {
+      const int dn = min(kDS, hd - d0);
+      __syncthreads();   // the previous slice's Q and K consumed
+      for (int i = tid; i < kBQ * kDS; i += kThreads) {
+        const int r = i / kDS, d = i - r * kDS;
+        Qs[i] = q0 + r < Sq && d < dn ? qb[(q0 + r) * qs.s + d0 + d] : 0.0f;
+        Ks[r * ldk + d] =
+            kt0 + r < Sk && d < dn ? kb[(kt0 + r) * ks.s + d0 + d] : 0.0f;
+      }
+      __syncthreads();
+      for (int d = 0; d < dn; ++d) {
+        float kv[kKeysPerLane];
 #pragma unroll
-      for (int c = 0; c < kKeysPerLane; ++c) kv[c] = Ks[(lane + 32 * c) * ldk + d];
+        for (int c = 0; c < kKeysPerLane; ++c)
+          kv[c] = Ks[(lane + 32 * c) * ldk + d];
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float qv = Qs[(r0 + i) * hd + d];
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float qv = Qs[(r0 + i) * kDS + d];
 #pragma unroll
-        for (int c = 0; c < kKeysPerLane; ++c) s[i][c] = fmaf(qv, kv[c], s[i][c]);
+          for (int c = 0; c < kKeysPerLane; ++c)
+            s[i][c] = fmaf(qv, kv[c], s[i][c]);
+        }
       }
     }
 
-    // online softmax, one row at a time across the warp
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int qi = q0 + r0 + i;
@@ -206,7 +203,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int off = 16; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      // no valid key yet in this row: nothing to rescale, every p is 0
       const float alpha = m_new == -INFINITY ? 1.0f : expf(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
@@ -223,9 +219,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int dj = 0; dj < kMaxDJ; ++dj) acc[i][dj] *= alpha;
     }
-    __syncwarp();
 
-    // acc += P V: lanes walk the head dim, the warp reads its own P rows
+    __syncthreads();     // the previous tile's V consumed
+    for (int i = tid; i < kBK * ow; i += kThreads) {
+      const int j = i / ow, d = i - j * ow;
+      Vs[i] = kt0 + j < Sk && d < ow_valid ? vb[(kt0 + j) * vs.s + o0 + d]
+                                           : 0.0f;
+    }
+    __syncthreads();
+
     for (int j = 0; j < kBK; ++j) {
       float pv[kRowsPerWarp];
 #pragma unroll
@@ -233,15 +235,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int dj = 0; dj < kMaxDJ; ++dj) {
         const int d = lane + 32 * dj;
-        if (d < hd) {
-          const float vv = Vs[j * hd + d];
+        if (d < ow_valid) {
+          const float vv = Vs[j * ow + d];
 #pragma unroll
           for (int i = 0; i < kRowsPerWarp; ++i)
             acc[i][dj] = fmaf(pv[i], vv, acc[i][dj]);
         }
       }
     }
-    __syncwarp();      // Ps is rewritten by the next tile
+    __syncwarp();        // Ps is rewritten by the next tile
   }
 
 #pragma unroll
@@ -249,38 +251,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r0 + i;
     if (qi >= Sq) continue;
     const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
-    T* orow = o + b * os.b + qi * os.s + h * os.h;
+    float* orow = o + b * os.b + qi * os.s + h * os.h + o0;
 #pragma unroll
     for (int dj = 0; dj < kMaxDJ; ++dj) {
       const int d = lane + 32 * dj;
-      if (d < hd) orow[d] = from_f32<T>(acc[i][dj] * inv);
+      if (d < ow_valid) orow[d] = acc[i][dj] * inv;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const long long* st, int B, int Sq, int Sk, int H, int KV, int hd,
-           int causal, int window, cudaStream_t stream) {
-  const int bytes = smem_floats(hd) * static_cast<int>(sizeof(float));
-  // raise the block's shared-memory limit to the most asked for so far (one
-  // card per process), so that a launch inside a CUDA-graph capture, after
-  // a warm-up call, sets no attribute
-  static int configured = 0;
-  if (bytes > configured) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const long long* st, int B, int Sq, int Sk, int H, int KV,
+               int hd, int causal, int window, cudaStream_t stream) {
+  const int bytes = f32_smem_floats() * static_cast<int>(sizeof(float));
+  static bool configured = false;
+  if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = bytes;
+    configured = true;
   }
+  const int n_os = (hd + kMaxHd - 1) / kMaxHd;
+  const int ow = (hd + n_os - 1) / n_os;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, Sq, Sk,
-      H, KV, hd, causal, window, 1.0f / sqrtf(static_cast<float>(hd)));
+  const dim3 grid((Sq + kBQ - 1) / kBQ * n_os, H, B);
+  flash_fwd_f32_kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
+      Sq, Sk, H, KV, hd, ow, n_os, causal, window,
+      1.0f / sqrtf(static_cast<float>(hd)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,30 +642,250 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// hd > 128, bf16 (see the top of the file): the output columns [o0, o0 +
+// ow_valid) of one query tile, OW_PAD (a multiple of 16, at most 128) wide;
+// QK^T over head-dim slices of kDS columns. blockIdx.z = (query tile * n_os
+// + output slice), heaviest query tiles first.
+constexpr int kDS = 64;
+__host__ __device__ constexpr int wide_smem_bytes(int ow_pad) {
+  return (2 * kBQ * row_len(kDS) + kBK * row_len(ow_pad)) *
+         static_cast<int>(sizeof(bf16));
+}
+
+template <int OW_PAD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_tc_wide_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         int Sq, int Sk, int H, int KV, int hd, int n_os,
+                         int causal, int window, float scale_log2,
+                         int flags) {
+  constexpr int LDS = row_len(kDS);
+  constexpr int LDV = row_len(OW_PAD);
+  constexpr int ND = OW_PAD / 8;         // n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);    // [kBQ][LDS]
+  bf16* Ks = Qs + kBQ * LDS;                        // [kBK][LDS]
+  bf16* Vs = Ks + kBK * LDS;                        // [kBK][LDV]
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int zt = gridDim.z - 1 - blockIdx.z;
+  const int q0 = zt / n_os * kBQ;
+  const int o0 = zt % n_os * OW_PAD;
+  const int ow_valid = min(OW_PAD, hd - o0);
+  const int kvh = h / (H / KV);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const bool vec = flags & 1;
+
+  const bf16* qb = q + b * qs.b + h * qs.h + q0 * qs.s;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h + o0;
+
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int kt0 = (k_lo / kBK) * kBK; kt0 < k_hi; kt0 += kBK) {
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    for (int d0 = 0; d0 < hd; d0 += kDS) {
+      __syncthreads();   // the previous slice's Q and K consumed
+      load_tile<kDS, kBQ>(Qs, qb + d0, qs.s, Sq - q0, min(kDS, hd - d0), vec);
+      load_tile<kDS, kBK>(Ks, kb + kt0 * ks.s + d0, ks.s, Sk - kt0,
+                          min(kDS, hd - d0), vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const bf16* qrow = Qs + (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kDS / 16; ++kk) {
+        unsigned qf[4];
+        ldsm_x4(smem_addr(qrow + kk * 16), qf);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          unsigned bk[4];
+          const int key = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldsm_x4(smem_addr(Ks + key * LDS + kk * 16 + ((lane >> 3) & 1) * 8),
+                  bk);
+          mma_bf16(s[2 * jp], qf, bk[0], bk[1]);
+          mma_bf16(s[2 * jp + 1], qf, bk[2], bk[3]);
+        }
+      }
+    }
+
+    const bool edge = kt0 + kBK > Sk || (causal && kt0 + kBK - 1 > q0) ||
+                      (window > 0 && kt0 <= q0 + kBQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kt0 + 8 * j + 2 * tig + (e & 1);
+          const int qi = q0 + warp * 16 + g + 8 * (e >> 1);
+          const bool ok = kj < Sk && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
+          if (!ok) s[j][e] = -INFINITY;
+        }
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * rr], s[j][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      const float ms = m_new == -INFINITY ? 0.0f : m_new * scale_log2;
+      const float alpha = fast_exp2(m[rr] * scale_log2 - ms);
+      m[rr] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * rr; e < 2 * rr + 2; ++e) {
+          s[j][e] = fast_exp2(fmaf(s[j][e], scale_log2, -ms));
+          sum += s[j][e];
+        }
+      l[rr] = l[rr] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * rr] *= alpha;
+        acc[n][2 * rr + 1] *= alpha;
+      }
+    }
+
+    __syncthreads();     // the previous tile's V consumed
+    load_tile<OW_PAD, kBK>(Vs, vb + kt0 * vs.s, vs.s, Sk - kt0, ow_valid, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const unsigned pa[4] = {pack_bf16x2(s[2 * t][0], s[2 * t][1]),
+                              pack_bf16x2(s[2 * t][2], s[2 * t][3]),
+                              pack_bf16x2(s[2 * t + 1][0], s[2 * t + 1][1]),
+                              pack_bf16x2(s[2 * t + 1][2], s[2 * t + 1][3])};
+      const bf16* vrow =
+          Vs + (16 * t + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        unsigned bv[4];
+        ldsm_x4_trans(smem_addr(vrow + np * 16), bv);
+        mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float sum = l[rr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum > 0.0f ? 1.0f / sum : 0.0f;
+    const int qi = q0 + warp * 16 + g + 8 * rr;
+    if (qi >= Sq) continue;
+    bf16* orow = o + b * os.b + qi * os.s + h * os.h + o0;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int d = 8 * n + 2 * tig;
+      const float v0 = acc[n][2 * rr] * inv, v1 = acc[n][2 * rr + 1] * inv;
+      if (d + 1 < ow_valid && (flags & 2)) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (d < ow_valid) orow[d] = __float2bfloat16_rn(v0);
+        if (d + 1 < ow_valid) orow[d + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+template <int OW_PAD>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                const long long* st, int B, int Sq, int Sk, int H, int KV,
+                int hd, int n_os, int causal, int window,
+                cudaStream_t stream) {
+  constexpr int bytes = wide_smem_bytes(OW_PAD);   // under 48 KB: no opt-in
+  auto al = [](const void* p, uintptr_t a) {
+    return reinterpret_cast<uintptr_t>(p) % a == 0;
+  };
+  bool vec = hd % 8 == 0 && al(q, 16) && al(k, 16) && al(v, 16);
+  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
+  const bool pairs = hd % 2 == 0 && al(o, 4) && st[9] % 2 == 0 &&
+                     st[10] % 2 == 0 && st[11] % 2 == 0;
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  const dim3 grid(H, B, (Sq + kBQ - 1) / kBQ * n_os);
+  flash_fwd_tc_wide_kernel<OW_PAD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), qs, ks, vs, os, Sq,
+      Sk, H, KV, hd, n_os, causal, window,
+      1.4426950408889634f / sqrtf(static_cast<float>(hd)),
+      (vec ? 1 : 0) | (pairs ? 2 : 0));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tc
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. strides holds 12 element strides:
 // (batch, sequence, head) of q, k, v and o in that order. is_bf16 selects
 // the element type (1 = bf16, 0 = f32) of all four tensors, and with it the
-// kernel: bf16 runs on the tensor cores, f32 on the CUDA cores. Returns the
-// cudaError_t of the launch (0 on success); shapes the kernels do not take
-// return cudaErrorInvalidValue.
+// kernel: bf16 runs on the tensor cores (hd > 128 on their wide route),
+// f32 on the CUDA cores. Returns the cudaError_t of the launch (0
+// on success); shapes the kernels do not take return cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o,
                                    const long long* strides, int is_bf16,
                                    int B, int Sq, int Sk, int H, int KV,
                                    int hd, int causal, int window,
                                    void* stream) {
+  const int n_os = (hd + kMaxHd - 1) / kMaxHd;   // output slices
   if (B < 1 || B > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535 ||
-      KV < 1 || H % KV || hd < 1 || hd > kMaxHd || window < 0 ||
-      (Sq + tc::kBQ - 1) / tc::kBQ > 65535) {
+      KV < 1 || H % KV || hd < 1 || window < 0 ||
+      (long long)((Sq + tc::kBQ - 1) / tc::kBQ) * n_os > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) {
-    return launch<float>(q, k, v, o, strides, B, Sq, Sk, H, KV, hd, causal,
-                         window, s);
+    return launch_f32(q, k, v, o, strides, B, Sq, Sk, H, KV, hd, causal,
+                      window, s);
+  }
+  if (hd > kMaxHd) {
+    // each slice ceil(hd / n_os) columns, rounded up to 16: 80 to 128
+    switch (((hd + n_os - 1) / n_os + 15) / 16 * 16) {
+#define FLASH_WIDE_CASE(P)                                                   \
+  case P:                                                                    \
+    return tc::launch_wide<P>(q, k, v, o, strides, B, Sq, Sk, H, KV, hd,     \
+                              n_os, causal, window, s);
+      FLASH_WIDE_CASE(80)
+      FLASH_WIDE_CASE(96)
+      FLASH_WIDE_CASE(112)
+      FLASH_WIDE_CASE(128)
+#undef FLASH_WIDE_CASE
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   switch ((hd + 15) / 16 * 16) {
 #define FLASH_TC_CASE(P)                                                    \

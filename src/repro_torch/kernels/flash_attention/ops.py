@@ -9,7 +9,9 @@ layout — q (B, Sq, H, hd), k and v (B, Sk, KV, hd) — and returns
 through their strides, maps head h to KV head h / (H / KV) and masks at the
 true Sk itself. bfloat16 inputs run on the tensor cores (``mma.sync`` on
 bf16 tiles, the probabilities rounded to bf16 before PV); float32 inputs on
-the CUDA cores, in float32 throughout. For tensors on the CPU the wrapper
+the CUDA cores, in float32 throughout. Any head dim is taken: the float32
+kernel, and above 128 the bf16 kernel's wide route, cut the output's head
+dim into slices of at most 128 columns, one block each. For tensors on the CPU the wrapper
 computes the plain version (`ref.flash_attention_ref`); for CUDA tensors it
 launches the kernel or raises. ``LAUNCHES["flash_attention_fwd"]`` counts
 every kernel launch, ``LAUNCHES["flash_attention_fwd_tc"]`` those of the
@@ -95,7 +97,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise RuntimeError(f"flash_attention_fwd kernel launch failed with "
                            f"CUDA error {err} (B={B}, Sq={Sq}, Sk={Sk}, "
                            f"H={H}, KV={KV}, hd={hd}, {q.dtype}; the kernel "
-                           f"takes hd <= 128 and B, H <= 65535)")
+                           f"takes B, H <= 65535 and ceil(Sq / 64) · "
+                           f"ceil(hd / 128) <= 65535)")
     LAUNCHES["flash_attention_fwd"] += 1
     if q.dtype == torch.bfloat16:
         LAUNCHES["flash_attention_fwd_tc"] += 1

@@ -49,8 +49,19 @@
 // where s <= q: above the diagonal cum_q - cum_s > 0 and could overflow.
 // Shared-memory rows are padded so that no fragment load has a bank
 // conflict. p and N are padded with zeros to 64 or 128 (one instantiation
-// each), so the limits are p, N <= 128 (206 KB of shared memory in kernel 3
-// at p = N = 128).
+// each; 206 KB of shared memory in kernel 3 at p = N = 128).
+//
+// p or N above 128 (the wide route, an instantiation of its own; narrower
+// shapes never take it) is cut into slices of 64 or 128, whichever pads
+// less, within the same shared memory. The p columns of x, y and the state
+// are independent, so each p-slice is a block of its own in kernels 1 and
+// 3; the n columns of a chunk state are independent too, so kernel 1 also
+// takes one block per n-slice. Kernel 3 contracts N in C.B^T and in
+// C.state: it stages B and C one n-slice at a time and adds each slice's
+// C.B^T tile into the one in shared memory (the tile's owner warp is the
+// same for every slice), and per head it adds each slice's C.state product
+// into the same accumulators, restaging that slice of C. Kernel 2 is
+// elementwise and takes any p and N.
 //
 // Where it stands (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): a
 // call at zamba2's shape takes about 11 times that bound, two thirds of it
@@ -189,23 +200,26 @@ struct HeadPrefetch {
   static constexpr int kRowsEach = kQ / kStep;
   float2 xv[kRowsEach];
   float dtv;
+  // columns j_off .. j_off + PP of x (j_off even: a p-slice's first)
   __device__ __forceinline__ void load(const T* x, const float* dt,
-                                       long long t0, int h, int H, int P) {
+                                       long long t0, int h, int H, int P,
+                                       int j_off) {
     const int j = 2 * (threadIdx.x % (PP / 2));
     const int q0 = threadIdx.x / (PP / 2);
     const long long row = (long long)H * P;
-    const T* src = x + (t0 + q0) * row + (long long)h * P + j;
+    const T* src = x + (t0 + q0) * row + (long long)h * P + j_off + j;
+    const int jp = j_off + j;
     const bool pairs =
         P % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
     if (pairs) {
 #pragma unroll
       for (int k = 0; k < kRowsEach; ++k)
-        xv[k] = j < P ? ld_pair(src + k * kStep * row) : make_float2(0.f, 0.f);
+        xv[k] = jp < P ? ld_pair(src + k * kStep * row) : make_float2(0.f, 0.f);
     } else {
 #pragma unroll
       for (int k = 0; k < kRowsEach; ++k) {
-        xv[k].x = j < P ? ld_f32(src + k * kStep * row) : 0.0f;
-        xv[k].y = j + 1 < P ? ld_f32(src + k * kStep * row + 1) : 0.0f;
+        xv[k].x = jp < P ? ld_f32(src + k * kStep * row) : 0.0f;
+        xv[k].y = jp + 1 < P ? ld_f32(src + k * kStep * row + 1) : 0.0f;
       }
     }
     if (threadIdx.x < kQ) dtv = dt[(t0 + threadIdx.x) * H + h];
@@ -246,14 +260,16 @@ __device__ __forceinline__ void chunk_cum(const float* dts, float a_h,
 
 // 1. chunk states from zero: st_c[j][n] = sum_s x[s][j] f_s B[s][n],
 //    f_s = dt_s exp(cum_end - cum_s); M = j, N = n, K = s. A warp owns one
-//    16-row m-tile and two 8-column n-tiles.
-template <typename T, int PP, int NP>
+//    16-row m-tile and two 8-column n-tiles. WIDE: blockIdx.x = (n-slice *
+//    n_ps + p-slice) * groups + group, the block's columns j_off + [0, PP)
+//    and n_off + [0, NP).
+template <typename T, int PP, int NP, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        const T* __restrict__ Bm, const float* __restrict__ A,
                        float* __restrict__ chunk_states,
                        float* __restrict__ decay, int S, int H, int P, int N,
-                       int G) {
+                       int G, int n_ps) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldb = NP + 8, ldx = PP + 8;
   float* Bs = smem;                   // [kQ][ldb]
@@ -264,26 +280,31 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int b = blockIdx.z, c = blockIdx.y;
   const int nc = gridDim.y;
-  const int h_begin = blockIdx.x * G;
+  const int groups = (H + G - 1) / G;
+  const int slice = WIDE ? blockIdx.x / groups : 0;
+  const int j_off = WIDE ? slice % n_ps * PP : 0;
+  const int n_off = WIDE ? slice / n_ps * NP : 0;
+  const int h_begin = (WIDE ? blockIdx.x % groups : blockIdx.x) * G;
   const int h_end = min(H, h_begin + G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const long long t0 = (long long)b * S + (long long)c * kQ;
 
   HeadPrefetch<T, PP> pre;
-  pre.load(x, dt, t0, h_begin, H, P);
+  pre.load(x, dt, t0, h_begin, H, P, j_off);
   stage(Bs, ldb, kQ, NP, [&](int q, int n) {
-    return n < N ? ld_f32(&Bm[(t0 + q) * N + n]) : 0.0f;
+    return n_off + n < N ? ld_f32(&Bm[(t0 + q) * N + n_off + n]) : 0.0f;
   });
   constexpr int MT = PP / 16, NG = NP / 16;
   for (int h = h_begin; h < h_end; ++h) {
     pre.store(Xs, ldx, dts);
     __syncthreads();
-    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P);
+    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P, j_off);
     if (warp == 0) chunk_cum(dts, A[h], cum, lane);
     __syncthreads();
     if (tid < kQ) fs[tid] = dts[tid] * expf(cum[kQ - 1] - cum[tid]);
-    if (tid == 0) decay[((long long)b * nc + c) * H + h] = expf(cum[kQ - 1]);
+    if (tid == 0 && slice == 0)
+      decay[((long long)b * nc + c) * H + h] = expf(cum[kQ - 1]);
     __syncthreads();
 
     float* out = chunk_states + (((long long)b * nc + c) * H + h) * P * N;
@@ -310,8 +331,8 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
         for (int i = 0; i < 4; i += 2) {
-          const int j = mt * 16 + g8 + (i >= 2 ? 8 : 0);
-          const int n = ng * 16 + nt * 8 + 2 * t4;
+          const int j = j_off + mt * 16 + g8 + (i >= 2 ? 8 : 0);
+          const int n = n_off + ng * 16 + nt * 8 + 2 * t4;
           if (j >= P) continue;
           if (N % 2 == 0 && n < N) {
             *reinterpret_cast<float2*>(&out[j * N + n]) =
@@ -365,8 +386,9 @@ ssd_state_pass_kernel(float* __restrict__ chunk_states,
 // 3. per (b, chunk, group of heads): C.B^T's lower triangle once, then per
 //    head y = W x + (exp(cum) C) state_in^T with W = C.B^T o L o dt. A warp
 //    owns the m-tiles {w % 4, 7 - w % 4} (equal shares of the triangle) and
-//    a quarter of the head dim's n-tiles.
-template <typename T, int PP, int NP>
+//    a quarter of the head dim's n-tiles. WIDE: blockIdx.x = p-slice *
+//    groups + group (y's columns j_off + [0, PP)), N in n_ns slices of NP.
+template <typename T, int PP, int NP, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
@@ -388,50 +410,71 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int b = blockIdx.z, c = blockIdx.y;
   const int nc = gridDim.y;
-  const int h_begin = blockIdx.x * G;
+  const int groups = (H + G - 1) / G;
+  const int j_off = WIDE ? blockIdx.x / groups * PP : 0;
+  const int n_ns = WIDE ? (N + NP - 1) / NP : 1;
+  const int h_begin = (WIDE ? blockIdx.x % groups : blockIdx.x) * G;
   const int h_end = min(H, h_begin + G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   const long long t0 = (long long)b * S + (long long)c * kQ;
 
-  HeadPrefetch<T, PP> pre;
-  pre.load(x, dt, t0, h_begin, H, P);
-  stage(Cs, ldc, kQ, NP, [&](int q, int n) {
-    return n < N ? ld_f32(&Cm[(t0 + q) * N + n]) : 0.0f;
-  });
-  stage(Bs, ldc, kQ, NP, [&](int q, int n) {
-    return n < N ? ld_f32(&Bm[(t0 + q) * N + n]) : 0.0f;
-  });
-  __syncthreads();
+  // the n-slice of C (Cs) and of B (Bs) starting at column n_off
+  auto stage_c = [&](int n_off) {
+    stage(Cs, ldc, kQ, NP, [&](int q, int n) {
+      return n_off + n < N ? ld_f32(&Cm[(t0 + q) * N + n_off + n]) : 0.0f;
+    });
+  };
+  auto stage_b = [&](int n_off) {
+    stage(Bs, ldc, kQ, NP, [&](int q, int n) {
+      return n_off + n < N ? ld_f32(&Bm[(t0 + q) * N + n_off + n]) : 0.0f;
+    });
+  };
 
-  // C.B^T on the tiles that touch the lower triangle: m-tile mi (16 rows
-  // q) with n-tiles ni <= 2 mi + 1 (8 columns s each), 72 tiles; the three
-  // passes in three accumulators, added in a fixed order
-#ifndef SSD_SKIP_CB
-  for (int i = warp; i < 72; i += kWarps) {
-    int mi = 0;
-    while ((mi + 1) * (mi + 2) <= i) ++mi;
-    const int ni = i - mi * (mi + 1);
-    const int q0 = mi * 16 + g8, s = ni * 8 + g8;
-    float acc[3][4] = {};
-#pragma unroll 2
-    for (int n0 = 0; n0 < NP; n0 += 8) {
-      FragA a;
-      a.set(Cs[q0 * ldc + n0 + t4], Cs[(q0 + 8) * ldc + n0 + t4],
-            Cs[q0 * ldc + n0 + t4 + 4], Cs[(q0 + 8) * ldc + n0 + t4 + 4]);
-      FragB bf;
-      bf.set(Bs[s * ldc + n0 + t4], Bs[s * ldc + n0 + t4 + 4]);
-      mma_tf32(acc[0], a.lo, bf.hi);
-      mma_tf32(acc[1], a.hi, bf.lo);
-      mma_tf32(acc[2], a.hi, bf.hi);
+  HeadPrefetch<T, PP> pre;
+  pre.load(x, dt, t0, h_begin, H, P, j_off);
+  for (int ns = 0; ns < n_ns; ++ns) {
+    if (ns > 0) {
+      __syncthreads();   // the previous slice's Cs and Bs consumed
     }
-    const int col = ni * 8 + 2 * t4;
-    CB[q0 * kCbLd + col] = (acc[0][0] + acc[1][0]) + acc[2][0];
-    CB[q0 * kCbLd + col + 1] = (acc[0][1] + acc[1][1]) + acc[2][1];
-    CB[(q0 + 8) * kCbLd + col] = (acc[0][2] + acc[1][2]) + acc[2][2];
-    CB[(q0 + 8) * kCbLd + col + 1] = (acc[0][3] + acc[1][3]) + acc[2][3];
-  }
+    stage_c(ns * NP);
+    stage_b(ns * NP);
+    __syncthreads();
+
+    // C.B^T on the tiles that touch the lower triangle: m-tile mi (16 rows
+    // q) with n-tiles ni <= 2 mi + 1 (8 columns s each), 72 tiles; the three
+    // passes in three accumulators, added in a fixed order; each n-slice
+    // after the first adds its tile into CB (the same warp owns it)
+#ifndef SSD_SKIP_CB
+    for (int i = warp; i < 72; i += kWarps) {
+      int mi = 0;
+      while ((mi + 1) * (mi + 2) <= i) ++mi;
+      const int ni = i - mi * (mi + 1);
+      const int q0 = mi * 16 + g8, s = ni * 8 + g8;
+      float acc[3][4] = {};
+#pragma unroll 2
+      for (int n0 = 0; n0 < NP; n0 += 8) {
+        FragA a;
+        a.set(Cs[q0 * ldc + n0 + t4], Cs[(q0 + 8) * ldc + n0 + t4],
+              Cs[q0 * ldc + n0 + t4 + 4], Cs[(q0 + 8) * ldc + n0 + t4 + 4]);
+        FragB bf;
+        bf.set(Bs[s * ldc + n0 + t4], Bs[s * ldc + n0 + t4 + 4]);
+        mma_tf32(acc[0], a.lo, bf.hi);
+        mma_tf32(acc[1], a.hi, bf.lo);
+        mma_tf32(acc[2], a.hi, bf.hi);
+      }
+      const int col = ni * 8 + 2 * t4;
+      float* cb[4] = {&CB[q0 * kCbLd + col], &CB[q0 * kCbLd + col + 1],
+                      &CB[(q0 + 8) * kCbLd + col],
+                      &CB[(q0 + 8) * kCbLd + col + 1]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = (acc[0][e] + acc[1][e]) + acc[2][e];
+        *cb[e] = ns == 0 ? v : *cb[e] + v;
+      }
+    }
 #endif
+  }
   __syncthreads();   // Bs is dead: its space takes x
 
   constexpr int kNtq = PP / 8 / 4;           // n-tiles per warp
@@ -440,7 +483,7 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int h = h_begin; h < h_end; ++h) {
     pre.store(Xs, ldx, dts);
     __syncthreads();
-    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P);
+    if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P, j_off);
     if (warp == 0) chunk_cum(dts, A[h], cum, lane);
     __syncthreads();
     if (tid < kQ) eq[tid] = expf(cum[tid]);
@@ -482,12 +525,18 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #endif
     __syncthreads();   // x is dead: its space takes the state
 
-    // inter-chunk: (exp(cum_q) C_q) . state_in, zero for the first chunk
+    // inter-chunk: (exp(cum_q) C_q) . state_in, zero for the first chunk;
+    // with more than one n-slice each is staged again per head
 #ifndef SSD_SKIP_INTER
-    if (c > 0) {
-      const float* src = states_in + (((long long)b * nc + c) * H + h) * P * N;
+    for (int ns = 0; c > 0 && ns < n_ns; ++ns) {
+      const int n_off = ns * NP;
+      const float* src = states_in +
+                         (((long long)b * nc + c) * H + h) * P * N + n_off;
+      if (ns > 0) __syncthreads();   // the previous slice's Cs, St consumed
+      if (n_ns > 1) stage_c(n_off);
       stage(St, lds, PP, NP, [&](int j, int n) {
-        return (j < P && n < N) ? src[j * N + n] : 0.0f;
+        return (j_off + j < P && n_off + n < N) ? src[(j_off + j) * N + n]
+                                                : 0.0f;
       });
       __syncthreads();
 #pragma unroll
@@ -519,7 +568,7 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int i = 0; i < 4; i += 2) {
           const int q = mtile[mm] * 16 + g8 + (i >= 2 ? 8 : 0);
-          const int j = (jt0 + nt) * 8 + 2 * t4;
+          const int j = j_off + (jt0 + nt) * 8 + 2 * t4;
           float* dst = y + ((t0 + q) * H + h) * P + j;
           if (P % 2 == 0 && j < P) {
             *reinterpret_cast<float2*>(dst) =
@@ -554,28 +603,33 @@ inline int heads_per_block(int B, int nc, int H, int sms) {
   return best_G;
 }
 
-template <typename T, int PP, int NP>
+template <typename T, int PP, int NP, bool WIDE>
 cudaError_t set_smem_limits() {
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_state_kernel<T, PP, NP>,
+      ssd_chunk_state_kernel<T, PP, NP, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, state_smem_floats(PP, NP) * 4);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel<T, PP, NP>,
+      ssd_chunk_scan_kernel<T, PP, NP, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, scan_smem_floats(PP, NP) * 4);
 }
 
-template <typename T, int PP, int NP>
+template <typename T, int PP, int NP, bool WIDE>
 int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
                  const float* A, float* y, float* state, float* chunk_states,
                  float* decay, int B, int S, int H, int P, int N, int sms,
                  cudaStream_t stream) {
   const int nc = S / kQ;
-  const int G = heads_per_block(B, nc, H, sms);
-  const dim3 grid((H + G - 1) / G, nc, B);
-  ssd_chunk_state_kernel<T, PP, NP>
-      <<<grid, kThreads, state_smem_floats(PP, NP) * 4, stream>>>(
-          x, dt, Bm, A, chunk_states, decay, S, H, P, N, G);
+  // the wide route's slices: blocks per (b, chunk) grow with the p-slices
+  const int n_ps = WIDE ? (P + PP - 1) / PP : 1;
+  const int n_ns = WIDE ? (N + NP - 1) / NP : 1;
+  const int G = heads_per_block(B * n_ps, nc, H, sms);
+  const int groups = (H + G - 1) / G;
+  const dim3 grid(groups * n_ps, nc, B);
+  ssd_chunk_state_kernel<T, PP, NP, WIDE>
+      <<<dim3(groups * n_ps * n_ns, nc, B), kThreads,
+         state_smem_floats(PP, NP) * 4, stream>>>(
+          x, dt, Bm, A, chunk_states, decay, S, H, P, N, G, n_ps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long elems = (long long)B * H * P * N;
@@ -585,13 +639,20 @@ int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
                                                      state, B, nc, H, P * N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_scan_kernel<T, PP, NP>
+  ssd_chunk_scan_kernel<T, PP, NP, WIDE>
       <<<grid, kThreads, scan_smem_floats(PP, NP) * 4, stream>>>(
           x, dt, Bm, Cm, A, chunk_states, y, S, H, P, N, G);
   return static_cast<int>(cudaGetLastError());
 }
 
-// p and N are padded to 64 or 128 (zeros), one instantiation each
+// The slice width of a dimension above 128: 128 unless slices of 64 pad
+// less (p = 192: three of 64, not two of 128)
+inline int wide_slice(int d) {
+  return (d + 127) / 128 * 128 <= (d + 63) / 64 * 64 ? 128 : 64;
+}
+
+// p and N are padded to 64 or 128 (zeros), one instantiation each; above
+// 128 the wide route's slices
 template <typename T>
 int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
            const float* A, float* y, float* state, float* chunk_states,
@@ -607,10 +668,14 @@ int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = set_smem_limits<T, 64, 64>();
-    if (err == cudaSuccess) err = set_smem_limits<T, 64, 128>();
-    if (err == cudaSuccess) err = set_smem_limits<T, 128, 64>();
-    if (err == cudaSuccess) err = set_smem_limits<T, 128, 128>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 64, false>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 128, false>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 64, false>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 128, false>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 64, true>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 64, 128, true>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 64, true>();
+    if (err == cudaSuccess) err = set_smem_limits<T, 128, 128, true>();
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -618,8 +683,23 @@ int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
   const T* bt = static_cast<const T*>(Bm);
   const T* ct = static_cast<const T*>(Cm);
 #define SSD_LAUNCH(PP, NP)                                                   \
-  return launch_sized<T, PP, NP>(xt, dt, bt, ct, A, y, state, chunk_states, \
-                                 decay, B, S, H, P, N, sms, stream)
+  return launch_sized<T, PP, NP, false>(xt, dt, bt, ct, A, y, state,        \
+                                        chunk_states, decay, B, S, H, P, N, \
+                                        sms, stream)
+#define SSD_LAUNCH_WIDE(PP, NP)                                             \
+  return launch_sized<T, PP, NP, true>(xt, dt, bt, ct, A, y, state,        \
+                                       chunk_states, decay, B, S, H, P, N, \
+                                       sms, stream)
+  if (P > kMaxP || N > kMaxN) {
+    const int pp = P > kMaxP ? wide_slice(P) : (P <= 64 ? 64 : 128);
+    const int np = N > kMaxN ? wide_slice(N) : (N <= 64 ? 64 : 128);
+    if (pp == 64) {
+      if (np == 64) SSD_LAUNCH_WIDE(64, 64);
+      SSD_LAUNCH_WIDE(64, 128);
+    }
+    if (np == 64) SSD_LAUNCH_WIDE(128, 64);
+    SSD_LAUNCH_WIDE(128, 128);
+  }
   if (P <= 64) {
     if (N <= 64) SSD_LAUNCH(64, 64);
     SSD_LAUNCH(64, 128);
@@ -627,6 +707,7 @@ int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
   if (N <= 64) SSD_LAUNCH(128, 64);
   SSD_LAUNCH(128, 128);
 #undef SSD_LAUNCH
+#undef SSD_LAUNCH_WIDE
 }
 
 }  // namespace
@@ -641,7 +722,7 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const void* Bm,
                             int in_is_bf16, int B, int S, int H, int P, int N,
                             void* stream) {
   if (B < 1 || B > 65535 || H < 1 || S < kQ || S % kQ || S / kQ > 65535 ||
-      P < 1 || P > kMaxP || N < 1 || N > kMaxN) {
+      P < 1 || N < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

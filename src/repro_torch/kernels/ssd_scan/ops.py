@@ -8,9 +8,10 @@ tensors on the CPU it computes the plain chunked form (`ref.ssd_chunked`)
 on float32 casts; for CUDA tensors it runs ``csrc/ssd_scan.cu`` or raises.
 The kernel reads x, Bm and Cm in bfloat16 when all three are bfloat16 (as
 the hybrid model gives them) and converts them in registers, which is
-exact: the result is bitwise that of their float32 casts. One call runs the
-kernel's three CUDA kernels (chunk states, the pass over the chunks, the
-chunk scan) and counts one in ``LAUNCHES["ssd_scan"]``.
+exact: the result is bitwise that of their float32 casts. Any p and N are
+taken: above 128 the kernel's wide route cuts them into slices. One call
+runs the kernel's three CUDA kernels (chunk states, the pass over the
+chunks, the chunk scan) and counts one in ``LAUNCHES["ssd_scan"]``.
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ def ssd_scan(x, dt, Bm, Cm, A):
     if err != 0:   # 1 (invalid value): a shape the kernel does not take
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
                            f"{err} (B={Bsz}, S={Sp}, H={H}, p={p}, N={N}; "
-                           f"the kernel takes p, N <= 128 and B <= 65535)")
+                           f"the kernel takes B <= 65535 and S / 128 <= "
+                           f"65535)")
     LAUNCHES["ssd_scan"] += 1
     return (y[:, :S] if pad else y), state

@@ -13,7 +13,7 @@ checkpoint hot-swap drill. Runs on the GPU unless ``--device cpu``.
 the engine; it is the path of ``mamba2-370m`` and ``zamba2-2.7b``, whose
 caches the engine refuses (their leaves are layer-leading with a shared
 position). ``--ckpt`` and ``--hot-swap`` read checkpoints of the JAX
-package's msgpack format (which needs ``msgpack``).
+package's msgpack format.
 """
 from __future__ import annotations
 

@@ -9,9 +9,21 @@ format. Runs on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --vocab 300 --rounds 2 --n-users 60 --clients-per-round 8
 
+A faulty fleet (dropout, stragglers against a deadline, corrupt reports;
+rounds over-select and commit against a report goal), a run-state snapshot
+every 2 rounds, a simulated crash after round 4, then the resumed run, whose
+final checkpoint is byte for byte the uninterrupted run's:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 8 \\
+        --fault-dropout 0.1 --fault-straggler 0.2 --fault-corrupt 0.05 \\
+        --checkpoint-every 2 --crash-after 4 --out /tmp/run
+    PYTHONPATH=src python -m repro_torch.launch.train --rounds 8 \\
+        --fault-dropout 0.1 --fault-straggler 0.2 --fault-corrupt 0.05 \\
+        --checkpoint-every 2 --resume --out /tmp/run
+
 The flags are the reference's. Its flags for cohort sharding, the streamed
-population, the sharded sampler, the fault model and resume are accepted
-and refused with the queue item that ports them.
+population and the sharded sampler are accepted and refused with the queue
+item that ports them.
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ from repro_torch.configs import ClientConfig, DPConfig, get_config
 from repro_torch.core.secret_sharer import make_canaries
 from repro_torch.data.corpus import BigramCorpus
 from repro_torch.data.federated import FederatedDataset
+from repro_torch.fl.faults import FaultConfig
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.round import FederatedTrainer
 from repro_torch.models import build
@@ -35,16 +48,7 @@ from repro_torch.train import checkpoint
 _UNPORTED = (("--num-shards", int, "item 5"), ("--num-pods", int, "item 5"),
              ("--population-backend", str, "item 5"),
              ("--population-store", str, "item 5"),
-             ("--sampler", str, "item 5"),
-             ("--fault-dropout", float, "item 4"),
-             ("--fault-straggler", float, "item 4"),
-             ("--fault-straggler-delay", float, "item 4"),
-             ("--fault-deadline", float, "item 4"),
-             ("--fault-corrupt", float, "item 4"),
-             ("--fault-seed", int, "item 4"),
-             ("--report-goal", int, "item 4"),
-             ("--checkpoint-every", int, "item 4"),
-             ("--crash-after", int, "item 4"))
+             ("--sampler", str, "item 5"))
 
 
 def main(argv=None):
@@ -98,22 +102,69 @@ def main(argv=None):
                          "availability·n_users above clients_per_round")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--fault-dropout", type=float, default=0.0,
+                    help="per-selected-client dropout probability (accepts "
+                         "the task, never reports); any fault flag > 0 "
+                         "enables the over-selection/report-goal round "
+                         "protocol (engine backend)")
+    ap.add_argument("--fault-straggler", type=float, default=0.0,
+                    help="fraction of selected clients whose report latency "
+                         "is Exponential(--fault-straggler-delay)")
+    ap.add_argument("--fault-straggler-delay", type=float, default=1.0,
+                    help="mean straggler report latency (same units as "
+                         "--fault-deadline)")
+    ap.add_argument("--fault-deadline", type=float, default=3.0,
+                    help="round deadline; straggler reports past it are "
+                         "dropped from the round")
+    ap.add_argument("--fault-corrupt", type=float, default=0.0,
+                    help="probability a delivered report is non-finite "
+                         "garbage (rejected by the server-side guard)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault stream (disjoint from --seed's "
+                         "training generator)")
+    ap.add_argument("--report-goal", type=int, default=None,
+                    help="minimum usable reports for a round to commit; "
+                         "rounds below it abort (no server step, no privacy "
+                         "spend). Default: ceil(0.8 x clients_per_round) "
+                         "when faults are on")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save the run state every N rounds (engine "
+                         "backend); 0 = only the final checkpoint")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the run-state snapshot in --out if "
+                         "one exists; the finished run is bitwise an "
+                         "uninterrupted one")
+    ap.add_argument("--crash-after", type=int, default=None,
+                    help="simulate a crash: exit (skipping the final "
+                         "checkpoint) once this many rounds are done — for "
+                         "exercising --resume")
     # the reference's flags for what the port does not have yet: refused
     for flag, kind, item in _UNPORTED:
         ap.add_argument(flag, type=kind, default=None,
                         help=f"not ported yet (ROADMAP.md, queue A, {item})")
-    ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (ROADMAP.md, queue A, item 4)")
     args = ap.parse_args(argv)
     given = [f for f, _, _ in _UNPORTED
              if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.resume:
-        given.append("--resume")
     if given:
         ap.error(f"{', '.join(given)}: not ported yet — cohort sharding, the "
                  "streamed population and the sharded sampler are ROADMAP.md "
-                 "queue A, item 5; the fault model, run-state checkpoints and "
-                 "resume are item 4")
+                 "queue A, item 5")
+    faults = None
+    if (args.fault_dropout > 0 or args.fault_straggler > 0
+            or args.fault_corrupt > 0 or args.report_goal is not None):
+        faults = FaultConfig(seed=args.fault_seed,
+                             dropout_prob=args.fault_dropout,
+                             straggler_prob=args.fault_straggler,
+                             straggler_mean_delay=args.fault_straggler_delay,
+                             round_deadline=args.fault_deadline,
+                             corrupt_prob=args.fault_corrupt,
+                             report_goal=args.report_goal)
+    if args.backend == "host" and (faults is not None or args.resume
+                                   or args.checkpoint_every > 0
+                                   or args.crash_after is not None):
+        ap.error("--fault-*/--report-goal/--checkpoint-every/--resume/"
+                 "--crash-after need the engine backend (the fault protocol "
+                 "and the run state live in the engine)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -147,15 +198,38 @@ def main(argv=None):
                                n_local_batches=3, backend=args.backend,
                                rounds_per_call=args.rounds_per_call,
                                cohort_chunk=args.cohort_chunk,
-                               clip_path=args.clip_path, device=args.device)
+                               clip_path=args.clip_path,
+                               fault_config=faults, device=args.device)
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trainer.train(args.rounds, log_every=max(1, args.rounds // 20))
+    log_every = max(1, args.rounds // 20)
+    state_path = out / f"{args.arch}_r{args.rounds}_state.msgpack"
+    done = 0
+    if args.resume and state_path.exists():
+        done = trainer.restore_run_state(state_path)
+        print(f"resumed from {state_path} at round {done}")
+    chunk = args.checkpoint_every if args.checkpoint_every > 0 \
+        else args.rounds
+    while done < args.rounds:
+        k = min(chunk - done % chunk, args.rounds - done)
+        if args.crash_after is not None:
+            k = min(k, args.crash_after - done)
+        trainer.train(k, log_every=log_every)
+        done += k
+        if args.checkpoint_every > 0 and done % args.checkpoint_every == 0 \
+                and done < args.rounds:
+            trainer.save_run_state(state_path)
+        if args.crash_after is not None and done >= args.crash_after:
+            print(f"simulated crash after round {done} "
+                  f"(resume with --resume)")
+            return None
 
+    committed = sum(r.get("committed", True)
+                    for r in trainer.state.history)
     eps = trainer.accountant.get_epsilon(1e-6)
     print(f"RDP accountant after {args.rounds} rounds "
-          f"({args.rounds} committed): eps={eps:.2f} at delta=1e-6 "
+          f"({committed} committed): eps={eps:.2f} at delta=1e-6 "
           f"(q={trainer.accountant.q:.4f})")
 
     ck = out / f"{args.arch}_r{args.rounds}.msgpack"

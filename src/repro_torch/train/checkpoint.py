@@ -9,11 +9,12 @@ as ``{"__nd__": raw bytes, "dtype": str, "shape": list}`` and sequences as
 checkpoint's fused ``w_gates (d+h, 3h)`` into ``w_x (d, 3h)`` and
 ``w_h (h, 3h)``, as the reference's loader does.
 
-``msgpack`` is imported inside :func:`load`: hosts that only serve from
-freshly initialised weights do not need it. :func:`save` needs no package:
-it encodes the subset of msgpack the format uses by hand, byte for byte as
-the reference's ``msgpack.packb(..., use_bin_type=True)`` does, and writes
-atomically (temp file, fsync, rename).
+Neither direction needs the ``msgpack`` package. :func:`save` encodes the
+subset of msgpack the format uses by hand, byte for byte as the reference's
+``msgpack.packb(..., use_bin_type=True)`` does, and writes atomically (temp
+file, fsync, rename). :func:`load` decodes the same subset by hand, as
+``msgpack.unpackb(..., raw=True)`` does: strings and binaries both come back
+as ``bytes``, arrays as lists.
 """
 from __future__ import annotations
 
@@ -186,21 +187,96 @@ def migrate_lstm_gates(tree):
     return tree
 
 
+class _Reader:
+    """Decoder of the msgpack subset :func:`_pack` writes (nil, bool, the
+    int and float forms, str, bin, array, map), with ``raw=True``
+    semantics: str and bin both decode to ``bytes``."""
+
+    _FIXED = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
+              0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
+              0xCA: ">f", 0xCB: ">d"}
+    # code → (kind, struct format of the length)
+    _SIZED = {0xD9: ("raw", ">B"), 0xDA: ("raw", ">H"), 0xDB: ("raw", ">I"),
+              0xC4: ("raw", ">B"), 0xC5: ("raw", ">H"), 0xC6: ("raw", ">I"),
+              0xDC: ("array", ">H"), 0xDD: ("array", ">I"),
+              0xDE: ("map", ">H"), 0xDF: ("map", ">I")}
+
+    def __init__(self, blob: bytes):
+        self.blob = memoryview(blob)
+        self.at = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.at + n > len(self.blob):
+            raise ValueError(f"truncated: {n} bytes wanted at offset "
+                             f"{self.at} of {len(self.blob)}")
+        out = self.blob[self.at:self.at + n]
+        self.at += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        code = self._unpack(">B")
+        if code <= 0x7F:
+            return code
+        if code >= 0xE0:
+            return code - 0x100
+        if 0xA0 <= code <= 0xBF:
+            return bytes(self._take(code & 0x1F))
+        if 0x90 <= code <= 0x9F:
+            return self._array(code & 0x0F)
+        if 0x80 <= code <= 0x8F:
+            return self._map(code & 0x0F)
+        if code == 0xC0:
+            return None
+        if code in (0xC2, 0xC3):
+            return code == 0xC3
+        if code in self._FIXED:
+            return self._unpack(self._FIXED[code])
+        if code in self._SIZED:
+            kind, fmt = self._SIZED[code]
+            n = self._unpack(fmt)
+            if kind == "raw":
+                return bytes(self._take(n))
+            return self._array(n) if kind == "array" else self._map(n)
+        raise ValueError(f"unknown msgpack type code 0x{code:02x} at offset "
+                         f"{self.at - 1}")
+
+    def _array(self, n: int) -> list:
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+
+def unpackb(blob: bytes):
+    """Decode one msgpack object that fills ``blob`` exactly (``ValueError``
+    on truncated input, trailing bytes or a type code outside the subset)."""
+    reader = _Reader(blob)
+    obj = reader.read()
+    if reader.at != len(blob):
+        raise ValueError(f"{len(blob) - reader.at} trailing bytes after the "
+                         f"object")
+    return obj
+
+
 def load(path) -> Tuple[Any, Dict[str, Any]]:
     """Read a checkpoint → (tree of numpy arrays, meta dict)."""
-    import msgpack
-
     path = pathlib.Path(path)
     blob = path.read_bytes()   # missing file → plain FileNotFoundError
     try:
-        obj = msgpack.unpackb(blob, raw=True, strict_map_key=False)
+        obj = unpackb(blob)
         meta = {k.decode() if isinstance(k, bytes) else k:
                 (v.decode() if isinstance(v, bytes) else v)
                 for k, v in obj[b"meta"].items()}
         return migrate_lstm_gates(_decode(obj[b"tree"])), meta
     except (ValueError, KeyError, TypeError, IndexError, AttributeError,
-            struct.error, msgpack.exceptions.UnpackException,
-            msgpack.exceptions.ExtraData) as e:
+            struct.error) as e:
         raise CheckpointError(
             f"corrupt or truncated checkpoint {path}: "
             f"{type(e).__name__}: {e}") from e

@@ -49,15 +49,15 @@ def tree_global_norm(tree) -> torch.Tensor:
 
 def tree_noise(generator: torch.Generator, tree, std):
     """Gaussian noise matching ``tree``'s shapes, always float32, drawn from
-    ``generator`` (which must live on the tree's device), leaf by leaf in
-    sorted-key order.
+    ``generator`` on its device, leaf by leaf in sorted-key order, and
+    moved to each leaf's device.
 
     DP noise must be float32: at the paper's σ=3.2e-5 the perturbation is
     below bfloat16 resolution near typical weight scales and would round
     away."""
-    return tree_map(lambda l: torch.randn(l.shape, generator=generator,
-                                          dtype=torch.float32,
-                                          device=l.device) * std, tree)
+    return tree_map(lambda l: (torch.randn(
+        l.shape, generator=generator, dtype=torch.float32,
+        device=generator.device) * std).to(l.device), tree)
 
 
 def tree_unflatten(tree, leaves):

@@ -551,7 +551,10 @@ def _flash_inputs(B, Sq, Sk, H, KV, hd, dtype, dev, seed):
     (2, 256, 256, 4, 2, 64), (1, 100, 100, 2, 1, 32),
     (1, 200, 200, 4, 4, 80), (2, 130, 130, 4, 1, 96),
     (1, 64, 300, 2, 2, 128), (1, 96, 200, 4, 2, 32),
-    (2, 200, 70, 4, 4, 112)])
+    (2, 200, 70, 4, 4, 112),
+    # the wide route: stablelm-12b's 160, 192, 256, and 170 (plain loads)
+    (2, 200, 200, 4, 2, 160), (1, 130, 130, 2, 2, 192),
+    (1, 160, 160, 2, 1, 256), (1, 100, 70, 2, 2, 170)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, B, Sq, Sk, H, KV,
                                             hd, causal, window, dtype):
     from repro_torch.kernels.flash_attention import (LAUNCHES as FA,
@@ -627,7 +630,10 @@ def _ssd_inputs(B, S, H, p, N, dev, seed):
 @pytest.mark.parametrize("B,S,H,p,N", [
     (2, 256, 4, 64, 32), (1, 128, 2, 32, 16), (1, 384, 3, 16, 8),
     (1, 200, 2, 64, 64), (2, 512, 8, 64, 64), (1, 256, 4, 64, 128),
-    (1, 512, 32, 64, 128), (1, 256, 3, 128, 128), (1, 128, 5, 65, 33)])
+    (1, 512, 32, 64, 128), (1, 256, 3, 128, 128), (1, 128, 5, 65, 33),
+    # the wide route: p or N above 128
+    (1, 256, 2, 64, 192), (1, 256, 2, 192, 64), (1, 256, 2, 256, 256),
+    (2, 384, 3, 200, 130)])
 def test_ssd_kernel_matches_plain_on_card(cuda_device, B, S, H, p, N):
     from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
@@ -682,49 +688,14 @@ def test_ssd_kernel_heads_do_not_depend_on_the_call(cuda_device, B, S, H, p,
 # ------------------------------------- the engine and the Secret Sharer
 #
 # The engine on the card against the engine on the CPU, both fed one
-# CPU-drawn stream of draws (float32 products: atol 1e-5 / rtol 1e-4 on the
-# params after 2 rounds, rtol 1e-4 on the losses and norms). Canary scores
+# CPU-drawn stream of draws (`EngineDraws` over a CPU generator; float32
+# products: atol 1e-5 / rtol 1e-4 on the params after 2 rounds, rtol 1e-4 on the losses and norms). Canary scores
 # at the Random-Sampling chunk's shape (B 27,648, S 5) and beam search (B
 # ≤ 5), card against CPU: relative to the largest score, float32 1e-5,
 # bfloat16 1e-3 (a one-ulp flip of a bf16 rounding of h); ranks and beams
 # equal but for near ties within that tolerance.
 
 SCORE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
-
-
-class _CpuDraws:
-    """Every draw made on the CPU from one seed; the engine moves them to
-    its device."""
-
-    def __init__(self, seed):
-        self.g = torch.Generator().manual_seed(seed)
-
-    def begin_round(self, round_idx):
-        pass
-
-    def available(self, n):
-        return torch.rand((n,), generator=self.g)
-
-    def cohort(self, weights, available, cohort):
-        from repro_torch.fl.engine import sample_cohort
-
-        return sample_cohort(self.g, weights.cpu(), available.cpu(), cohort)
-
-    def poisson(self, q, available, buffer):
-        from repro_torch.fl.engine import poisson_select
-
-        return poisson_select(self.g, q, available.cpu(), buffer)
-
-    def example_indices(self, counts, need):
-        from repro_torch.fl.engine import example_indices
-
-        return example_indices(self.g, counts.cpu(), need)
-
-    def noise(self, like, std):
-        from repro_torch.utils.pytree import tree_map
-
-        return tree_map(lambda l: (torch.randn(l.shape, generator=self.g)
-                                   * std).to(l.device), like)
 
 
 def _canary_data(vocab=300):
@@ -744,7 +715,7 @@ def _canary_data(vocab=300):
 def test_engine_round_on_card_matches_cpu(cuda_device, sampling):
     from repro_torch.configs import ClientConfig, DPConfig
     from repro_torch.core.secret_sharer import canary_eval_fn
-    from repro_torch.fl.engine import SimEngine
+    from repro_torch.fl.engine import EngineDraws, SimEngine
     from repro_torch.kernels.dp_clip import ops as clip_ops
     from repro_torch.utils.pytree import tree_leaves
 
@@ -765,7 +736,8 @@ def test_engine_round_on_card_matches_cpu(cuda_device, sampling):
         for c in (LAUNCHES, clip_ops.LAUNCHES):
             for k in c:
                 c[k] = 0
-        out[dev.type] = e.run(e.init_state(params, draws=_CpuDraws(0)), 2)
+        draws = EngineDraws(torch.Generator().manual_seed(0))
+        out[dev.type] = e.run(e.init_state(params, draws=draws), 2)
         if dev.type == "cuda":
             # every slot of a chunk with a live slot computes (the round's
             # slots are the first n_clients, so ceil(n / chunk) chunks)
@@ -864,3 +836,115 @@ def test_cell_kernels_repeat_bitwise_and_stay_in_bounds_at_memorize_shapes(
     for _, B, S in sanitize.FWD_SHAPES:
         assert sanitize.check_fwd(S, B, 256, dtype, 5, cuda_device) == ""
     assert sanitize.check_bwd(16, 10, 256, 5, cuda_device) == ""
+
+
+# ------------------------------------------- the fault model and resume
+#
+# A fault-on engine round on the card against the CPU on one CPU-drawn
+# stream (the same tolerances as the fault-free engine test above; the
+# round sizes, reported and accepted counts and verdicts exactly); a run
+# state saved and restored on the card, bitwise; the checkpoint reader with
+# no msgpack importable.
+
+# the goal of 10 (of 12 selected) makes some rounds abort
+FAULTS = dict(seed=3, dropout_prob=0.3, straggler_prob=0.2,
+              straggler_mean_delay=2.0, round_deadline=3.0, corrupt_prob=0.2,
+              report_goal=10)
+
+
+def _fault_setup(cohort=8, server_opt="momentum"):
+    from repro_torch.configs import ClientConfig, DPConfig
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+
+    model = build(get_config("gboard-cifg-lstm").with_(
+        **SMALL, compute_dtype="float32"))
+    ds = FederatedDataset(BigramCorpus(vocab_size=300, seed=0), n_users=60,
+                          seq_len=6, sentences_per_user=8)
+    # Adam's step is about server_lr in every coordinate
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.05, server_opt=server_opt,
+                  server_lr=0.5 if server_opt == "momentum" else 0.01,
+                  server_momentum=0.9)
+    return model, ds, dp, ClientConfig(batch_size=4, lr=0.3)
+
+
+# Adam takes its bias correction from the step count that the commits
+# select on the device
+@pytest.mark.parametrize("server_opt", ["momentum", "adam"])
+def test_fault_engine_rounds_on_card_match_cpu(cuda_device, server_opt):
+    from repro_torch.fl.engine import EngineDraws, SimEngine
+    from repro_torch.fl.faults import FaultConfig
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.utils.pytree import tree_leaves
+
+    model, ds, dp, cl = _fault_setup(server_opt=server_opt)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        e = SimEngine(model, ds.to_device_arrays(), dp, cl,
+                      n_local_batches=2, availability=1.0, rounds_per_call=2,
+                      fault_config=FaultConfig(**FAULTS), device=dev)
+        for c in (LAUNCHES, clip_ops.LAUNCHES):
+            for k in c:
+                c[k] = 0
+        draws = EngineDraws(torch.Generator().manual_seed(0))
+        out[dev.type] = e.run(e.init_state(params, draws=draws), 4)
+        if dev.type == "cuda":
+            assert LAUNCHES["cifg_cell_bwd_seq"] > 0
+            assert clip_ops.LAUNCHES["dp_sumsq"] > 0
+    (sd, hd), (sc, hc) = out["cuda"], out["cpu"]
+    for k in ("n_selected", "n_reported", "n_clients", "committed"):
+        np.testing.assert_array_equal(hd[k], hc[k], err_msg=k)
+    assert hd["committed"].any() and not hd["committed"].all()
+    for k in ("loss", "mean_update_norm", "frac_clipped"):
+        np.testing.assert_allclose(hd[k], hc[k], rtol=1e-4, atol=1e-6)
+    for x, y in ((sd.params, sc.params),
+                 (sd.opt_state.momentum, sc.opt_state.momentum),
+                 (sd.opt_state.nu, sc.opt_state.nu)):
+        for a, b in zip(tree_leaves(x), tree_leaves(y)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                       rtol=1e-4)
+    assert int(sd.opt_state.count) == int(sc.opt_state.count)
+
+
+@pytest.mark.parametrize("faults", [None, FAULTS],
+                         ids=["faults-off", "faults-on"])
+def test_run_state_on_card_resumes_bitwise(cuda_device, tmp_path,
+                                           monkeypatch, faults):
+    import sys
+
+    from repro_torch.fl.faults import FaultConfig
+    from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.round import FederatedTrainer
+    from repro_torch.train import checkpoint
+    from repro_torch.utils.pytree import tree_leaves
+
+    # the reader needs no msgpack (the card's host has none)
+    monkeypatch.setitem(sys.modules, "msgpack", None)
+    model, ds, dp, cl = _fault_setup()
+
+    def trainer():
+        return FederatedTrainer(
+            model, ds, dp, cl, pop=PopulationSim(len(ds.users),
+                                                 availability=1.0),
+            seed=0, n_local_batches=2, backend="engine", rounds_per_call=2,
+            device=cuda_device,
+            fault_config=None if faults is None else FaultConfig(**faults))
+
+    full = trainer()
+    full.train(4)
+    part = trainer()
+    part.train(2)
+    path = tmp_path / "state.msgpack"
+    part.save_run_state(path)
+    tree, meta = checkpoint.load(path)
+    assert meta["kind"] == "trainer-run-state" and meta["round_idx"] == "2"
+    resumed = trainer()
+    assert resumed.restore_run_state(path) == 2
+    resumed.train(2)
+    for a, b in zip(tree_leaves(resumed.state.params),
+                    tree_leaves(full.state.params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert resumed.state.history == full.state.history
+    assert resumed.accountant.rounds == full.accountant.rounds

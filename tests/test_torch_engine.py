@@ -361,8 +361,7 @@ def test_unported_options_raise(tiny_ds):
     for kw, item in ((dict(num_shards=2), "item 5"),
                      (dict(num_pods=2), "item 5"),
                      (dict(population_backend="streamed"), "item 5"),
-                     (dict(sampler="sharded"), "item 5"),
-                     (dict(fault_config=object()), "item 4")):
+                     (dict(sampler="sharded"), "item 5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             _tiny_engine(tiny_ds, **kw)
     with pytest.raises(ValueError, match="sampler"):
@@ -435,7 +434,7 @@ def test_training_cli_engine_with_canaries_on_cpu(tmp_path, capsys):
     tree, meta = checkpoint.load(ck)
     assert meta["rounds"] == "3" and tree["w_h"].shape == (256, 768)
     for flag in (["--num-shards", "2"], ["--sampler", "sharded"],
-                 ["--fault-dropout", "0.1"], ["--resume"]):
+                 ["--num-pods", "2"], ["--population-backend", "streamed"]):
         with pytest.raises(SystemExit):
             train.main(["--device", "cpu"] + flag)
         assert "ROADMAP" in capsys.readouterr().err

@@ -42,6 +42,8 @@ def _jax_ref(q, k, v, causal, window):
     (2, 256, 256, 4, 2, 64),
     (1, 100, 100, 2, 1, 32),     # unpadded
     (1, 130, 130, 4, 4, 80),     # zamba2's head dim, ragged S
+    (1, 130, 130, 2, 2, 160),    # stablelm-12b's head dim (the wide route)
+    (1, 96, 96, 2, 1, 256),
 ])
 def test_plain_version_matches_jax(B, Sq, Sk, H, KV, hd, causal, window,
                                    dtype):

@@ -24,6 +24,8 @@ from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_chunked, ssd_scan,
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRID = [(2, 256, 4, 64, 32), (1, 128, 2, 32, 16), (1, 384, 3, 16, 8),
         (1, 200, 2, 64, 64)]  # the JAX test's grid; S = 200 is unpadded
+# p or N above 128: the shapes of the CUDA kernel's wide route
+WIDE = [(1, 256, 2, 64, 192), (1, 256, 2, 192, 64), (1, 256, 2, 160, 160)]
 
 
 def _inputs(B, S, H, p, N, seed=0):
@@ -42,7 +44,8 @@ def _close(got, want):
 
 @pytest.mark.parametrize(
     "B,S,H,p,N,io",
-    [pytest.param(*g, torch.float32, id="-".join(map(str, g))) for g in GRID]
+    [pytest.param(*g, torch.float32, id="-".join(map(str, g)))
+     for g in GRID + WIDE]
     + [pytest.param(*g, torch.bfloat16, id="-".join(map(str, g)) + "-bf16")
        for g in ((1, 128, 2, 32, 16), (1, 200, 2, 64, 64))])
 def test_wrapper_matches_jax_kernel_and_oracle(B, S, H, p, N, io):
