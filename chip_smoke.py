@@ -58,7 +58,19 @@ line each (any failure exits non-zero and prints no result):
    save and restore bitwise against the uninterrupted run; the training
    CLI's ``--crash-after`` then ``--resume`` at full width in subprocesses
    with no ``msgpack`` importable, sha256-equal final checkpoints; rounds/s
-   and the device busy share.
+   and the device busy share;
+10. fleet — the paper's fleet on the card: the same CIFG-LSTM at full width
+   trained over N = 4·10⁶ users through the streamed population backend
+   (the Train corpus written by ``repro_torch.launch.build_corpus``, opened
+   memory-mapped, replicated to N) and the block-keyed sharded sampler:
+   the streamed backend bitwise the device backend at N = 1000 (both
+   samplers; fixed, Poisson and faulty rounds; in-memory and mmap stores;
+   ``run`` and ``run_python``), the sharded cohorts on the card equal to
+   the CPU's at N, the corpus bytes on the card equal at both N, 10
+   rounds through ``FederatedTrainer`` with a read every 5 rounds and 10
+   with a read every round (bitwise equal; launches exact), the sample phase per
+   sampler, the busy share of one round, the training CLI over the store
+   crashed and resumed (sha256-equal).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1124,14 +1136,16 @@ def phase_sumsq_chunk(dev, gen, worst_ss: float) -> dict:
     return row
 
 
-def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
+def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6,
+                       cpu: bool = True):
     """Device (kernel) time per ``fn()`` call over ``iters`` calls, from
     ``torch.profiler``'s CUDA activity, the host wall time per call of the
     profiled window, and the ``top`` kernels (all for ``None``) with the
     most device time as (name, ms per call, launches per call); device time
     is None when the profiler saw no kernel. Only the kernel events are
     summed: an operator's own device time is its kernels' time counted a
-    second time."""
+    second time. ``cpu=False`` records the device activity alone, which
+    makes the trace of a long call far quicker to process."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1139,8 +1153,10 @@ def profiled_device_ms(fn, iters: int, warmup: bool = True, top: int = 6):
     if warmup:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -2697,6 +2713,359 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
             "committed": committed, "busy": busy}
 
 
+def _rss_mb() -> float:
+    """This process's resident set, MB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def phase_fleet(dev, **kw) -> dict:
+    """:func:`_phase_fleet` in a temporary directory; the subprocesses it
+    starts are stopped however it ends."""
+    import tempfile
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return _phase_fleet(dev, tmp, procs, **kw)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
+                 base_users: int = 1000, cohort: int = 128,
+                 vocab: int = 10_000, rounds: int = 10, per_call: int = 5,
+                 parity_rounds: int = 3, sampler_rounds: int = 5) -> dict:
+    """The paper's fleet on one card: full-width gboard-cifg-lstm trained
+    over n_users through the streamed population backend (the corpus on the
+    host behind a PopulationStore, one cohort staged a round) and the
+    block-keyed sharded sampler. The store is the Train corpus written by
+    the port's corpus builder, opened memory-mapped and replicated to
+    n_users. Checks: the streamed backend bitwise the device backend at
+    base_users (both samplers; fixed, Poisson and faulty rounds; in-memory
+    and mmap stores; run and run_python); the sharded cohorts on the card
+    equal to the CPU's at n_users; launches over the counted rounds; the
+    corpus bytes on the card equal at base_users and n_users; the training
+    CLI over the store, crashed and resumed, sha256-equal."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.data.population_store import (InMemoryPopulationStore,
+                                                   MmapPopulationStore,
+                                                   ReplicatedPopulationStore)
+    from repro_torch.fl.engine import EngineDraws, SimEngine
+    from repro_torch.fl.faults import FaultConfig
+    from repro_torch.fl.population import PopulationSim
+    from repro_torch.fl.reduction import canon_pad
+    from repro_torch.fl.round import FederatedTrainer
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.launch import build_corpus
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gboard-cifg-lstm")
+    if vocab != cfg.vocab:
+        cfg = cfg.with_(vocab=vocab)
+    model = build(cfg)
+    seq_len, batch, n_batches = 16, 10, 3
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                  server_momentum=0.9)
+    cl = ClientConfig(local_epochs=1, batch_size=batch, lr=0.3)
+    params0 = model.init(torch.Generator().manual_seed(1), device="cpu")
+    rss0 = _rss_mb()
+    # ----------------------------------------------------------- the store
+    t0 = time.perf_counter()
+    path = build_corpus.main(["--out", os.path.join(tmp, "pop"),
+                              "--n-users", str(base_users), "--vocab",
+                              str(cfg.vocab), "--seq-len", str(seq_len)])
+    base = MmapPopulationStore(path)
+    ds = FederatedDataset(BigramCorpus(vocab_size=cfg.vocab, seed=0),
+                          n_users=base_users, seq_len=seq_len,
+                          sentences_per_user=30)
+    train_arrays = ds.to_device_arrays()
+    if any(not np.array_equal(v, train_arrays[k])
+           for k, v in base.device_arrays().items()):
+        fail("fleet: the built store is not the Train corpus")
+    mem = InMemoryPopulationStore.from_arrays(train_arrays)
+    fleet = ReplicatedPopulationStore(base, n_users)
+    payload = sum(os.path.getsize(p) for p in path.iterdir())
+    vectors = fleet.counts.nbytes + fleet.synthetic.nbytes
+    rss1 = _rss_mb()
+    say(f"fleet: store of the Train corpus ({base_users} users, E_max "
+        f"{base.emax}, seq_len {base.row_len - 1}) written by "
+        f"repro_torch.launch.build_corpus, equal to the dataset's "
+        f"to_device_arrays(), opened memory-mapped ({payload} bytes on "
+        f"disk) and replicated to N = {n_users} users ({vectors} bytes of "
+        f"per-user vectors, {vectors / n_users:.0f} bytes a user); process "
+        f"RSS {rss0:.0f} MB before, {rss1:.0f} MB after; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the training CLI over the store, uninterrupted and crashed after
+    # round 2, in subprocesses while the parity runs; resumed after them
+    t_cli = time.perf_counter()
+    cli = ["--population-store", str(path), "--sampler", "sharded",
+           "--rounds", "3", "--clients-per-round", str(cohort), "--vocab",
+           str(cfg.vocab), "--device", str(dev)]
+    code = ("import sys; sys.modules['msgpack'] = None; "
+            "from repro_torch.launch.train import main; main(sys.argv[1:])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    full_dir = Path(tmp) / "full"
+    cut_dir = Path(tmp) / "cut"
+
+    def run(args, out_dir):
+        p = subprocess.Popen([sys.executable, "-c", code, *cli, *args,
+                              "--out", str(out_dir)], env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        procs.append(p)
+        return p
+
+    run([], full_dir)
+    run(["--checkpoint-every", "1", "--crash-after", "2"], cut_dir)
+
+    def engine(data, backend, sampler, sampling="fixed", faults=None,
+               d=dev, **kw):
+        return SimEngine(model, data, dataclasses.replace(dp,
+                                                          sampling=sampling),
+                         cl, n_local_batches=n_batches, availability=0.3,
+                         rounds_per_call=per_call, sampler=sampler,
+                         population_backend=backend, fault_config=faults,
+                         device=d, **kw)
+
+    # ------------------------------------ parity at base_users, bitwise
+    t0 = time.perf_counter()
+    fc = FaultConfig(**FAULT_CFG)
+    cases = (("fixed", None), ("poisson", None), ("fixed", fc))
+    # which store and which entry point each case's streamed run takes:
+    # every pairing of {in-memory, mmap} x {run, run_python} occurs
+    ways = ((mem, "run"), (base, "run_python"), (base, "run"),
+            (mem, "run_python"), (mem, "run"), (base, "run_python"))
+    checked, way = [], iter(ways)
+    for sampler in ("global", "sharded"):
+        for sampling, faults in cases:
+            e = engine(train_arrays, "device", sampler, sampling, faults)
+            want = e.run(e.init_state(params0, seed=11), parity_rounds)
+            store, meth = next(way)
+            s = engine(store, "streamed", sampler, sampling, faults)
+            got = getattr(s, meth)(s.init_state(params0, seed=11),
+                                   parity_rounds)
+            (ws, wh), (gs, gh) = want, got
+            if not (_same_tree(gs.params, ws.params)
+                    and _same_tree(gs.opt_state.momentum,
+                                   ws.opt_state.momentum)
+                    and torch.equal(gs.last_round, ws.last_round)
+                    and torch.equal(gs.participation, ws.participation)
+                    and _same_hist(gh, wh)):
+                fail(f"fleet: streamed ({type(store).__name__}, {meth}) "
+                     f"differs from device, sampler {sampler}, {sampling}"
+                     f"{' with faults' if faults else ''}")
+            checked.append(f"{sampler}/{sampling}"
+                           f"{'+faults' if faults else ''} "
+                           f"({'mmap' if store is base else 'in-memory'}, "
+                           f"{meth}; clients {wh['n_clients'].tolist()})")
+    say(f"fleet: at N = {base_users}, {parity_rounds} rounds from one seed, "
+        f"the streamed backend bitwise the device backend (params, momentum,"
+        f" last_round, participation, history): " + "; ".join(checked)
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    if any(p.returncode for p in procs) or \
+            "simulated crash after round 2" not in logs[1] or \
+            "population store:" not in logs[0]:
+        fail("fleet: the training CLI failed:\n" + "\n".join(
+            l[-2000:] for l in logs))
+    resume = run(["--checkpoint-every", "1", "--resume"], cut_dir)
+
+    # ------------------- the sharded cohorts, card against CPU, at N
+    t0 = time.perf_counter()
+    engines = {"card": engine(fleet, "streamed", "sharded"),
+               "cpu": engine(fleet, "streamed", "sharded",
+                             d=torch.device("cpu"))}
+    states = {k: e.init_state(params0, draws=EngineDraws(
+        torch.Generator().manual_seed(3))) for k, e in engines.items()}
+    k_sel, cpu = engines["cpu"].sel_cohort, engines["cpu"]
+    near = 0
+    for r in range(sampler_rounds):
+        lr_before = states["cpu"].last_round
+        ids = {}
+        for k, e in engines.items():
+            s = states[k]
+            lr, part, c = e._sample_phase(s.draws, s.last_round,
+                                          s.participation, r)
+            states[k] = s._replace(last_round=lr, participation=part)
+            ids[k] = c.ids.cpu()
+        if not torch.equal(ids["card"], ids["cpu"]):
+            fail(f"fleet: sharded cohort of round {r} differs card vs CPU "
+                 f"at N = {n_users} in "
+                 f"{int((ids['card'] != ids['cpu']).sum())} slots")
+        # near ties, printed beside the result: neighbours of the top k+1
+        # scores within 1e-6 (the block draws do not touch the generators,
+        # so they can be redrawn)
+        score = cpu._sharded_score(states["cpu"].draws, r, lr_before)
+        top = torch.topk(score, k_sel + 1).values
+        near += int((top[:-1] - top[1:] <= 1e-6).sum())
+    if not (torch.equal(states["card"].last_round.cpu(),
+                        states["cpu"].last_round)
+            and torch.equal(states["card"].participation.cpu(),
+                            states["cpu"].participation)):
+        fail("fleet: last_round or participation differs card vs CPU")
+    say(f"fleet: the sharded sampler at N = {n_users} (padded "
+        f"{cpu.n_pad}, {cpu.pop_blocks} blocks), card against CPU on one "
+        f"CPU stream of block draws, {sampler_rounds} rounds: cohorts "
+        f"equal (ids in order), {near} near ties among the top k+1 scores "
+        f"(within 1e-6); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del engines, states, cpu
+
+    log = resume.communicate(timeout=300)[0]
+    if resume.returncode or "resumed from" not in log:
+        fail(f"fleet: the resumed CLI run failed:\n{log[-2000:]}")
+    name = "gboard-cifg-lstm_r3.msgpack"
+    digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
+    if digests[0] != digests[1]:
+        fail(f"fleet: CLI checkpoints differ: uninterrupted {digests[0]}, "
+             f"crashed then resumed {digests[1]}")
+    say(f"fleet: the training CLI over the store (--population-store, "
+        f"--sampler sharded, cohort {cohort}, vocab {cfg.vocab}), 3 rounds "
+        f"uninterrupted and crashed after round 2 then resumed, in "
+        f"subprocesses with msgpack made unimportable, beside the parity "
+        f"and sampler checks: final checkpoints sha256 {digests[0][:16]}... "
+        f"equal; {time.perf_counter() - t_cli:.1f} s from launch to the "
+        f"resumed run's end")
+
+    # ------------------------------------- memory with N, and the fleet run
+    def trainer(backend):
+        return FederatedTrainer(
+            model, None, dp, cl, pop=PopulationSim(n_users,
+                                                   availability=0.3, seed=0),
+            seed=0, n_local_batches=n_batches, backend=backend,
+            rounds_per_call=per_call, population_backend="streamed",
+            population_store=fleet, sampler="sharded", device=dev,
+            params=params0)
+
+    torch.cuda.synchronize()
+    mem_at = {}
+    for n, data in ((base_users, base), (n_users, fleet)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        e = engine(data, "streamed", "sharded")
+        st = e.init_state(params0, seed=0)
+        e.run(st, 1)
+        torch.cuda.synchronize()
+        mem_at[n] = (torch.cuda.memory_allocated() - m0,
+                     e.corpus_device_bytes,
+                     torch.cuda.max_memory_allocated() - m0)
+        del e, st
+    staged = 2 * canon_pad(cohort) * base.emax * base.row_len * 4
+    if not mem_at[base_users][1] == mem_at[n_users][1] == staged:
+        fail(f"fleet: corpus bytes on the card {mem_at} != 2 x padded x "
+             f"E_max x {base.row_len} x 4 = {staged}")
+    per_user = (mem_at[n_users][0] - mem_at[base_users][0]) \
+        / (n_users - base_users)
+    device_corpus = n_users * base.emax * base.row_len * 4
+    say(f"fleet: device memory after one round (state, staging, params): "
+        f"{mem_at[base_users][0]} bytes at N = {base_users}, "
+        f"{mem_at[n_users][0]} at N = {n_users}: {per_user:.2f} bytes a user"
+        f" grow with N; the corpus on the card {mem_at[n_users][1]} bytes at"
+        f" both N (2 staged cohorts), peak over the round "
+        f"{mem_at[n_users][2] / 1e6:.1f} MB; the device backend's corpus at "
+        f"N = {n_users} would be {device_corpus / 1e9:.2f} GB (reckoned, not "
+        f"allocated)")
+
+    counters = (cell_ops.LAUNCHES, clip_ops.LAUNCHES)
+    run_s, out = {}, {}
+    for backend in ("engine", "engine_python"):
+        tr = trainer(backend)
+        torch.cuda.synchronize()
+        if backend == "engine":
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+        t0 = time.perf_counter()
+        tr.train(rounds)
+        torch.cuda.synchronize()
+        run_s[backend] = time.perf_counter() - t0
+        if backend == "engine":
+            launches = {**cell_ops.LAUNCHES, **clip_ops.LAUNCHES}
+        out[backend] = tr
+    a, b = out["engine"], out["engine_python"]
+    if not (_same_tree(a.state.params, b.state.params)
+            and a.state.history == b.state.history):
+        fail("fleet: run and run_python differ")
+    hist = a.state.history
+    if not all(np.isfinite(r["loss"]) for r in hist) or any(
+            r["n_clients"] != cohort for r in hist):
+        fail(f"fleet: bad round records {hist[:2]}")
+    chunks = rounds * canon_pad(cohort) // a.engine.cohort_chunk
+    n_leaves = len(tree_leaves(a.state.params))
+    want = {"cifg_cell_fwd": rounds * cohort * n_batches,
+            "cifg_cell_bwd_seq": rounds * cohort * n_batches,
+            "dp_sumsq": chunks, "dp_clip_accumulate": chunks * n_leaves}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"fleet launched {k} {launches[k]} times, expected {v}")
+    rps = {k: rounds / v for k, v in run_s.items()}
+    say(f"fleet: gboard-cifg-lstm vocab {cfg.vocab} d {cfg.d_model} H "
+        f"{cfg.d_ff} {cfg.compute_dtype} over N = {n_users} users (streamed,"
+        f" sharded sampler), cohort {cohort}, {rounds} rounds through "
+        f"FederatedTrainer: run (a read every {per_call} rounds) "
+        f"{run_s['engine']:.2f} s = {rps['engine']:.3f} rounds/s, "
+        f"run_python (in order, a read every round) "
+        f"{run_s['engine_python']:.2f} s = {rps['engine_python']:.3f} "
+        f"rounds/s; params and history bitwise equal; losses "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; launches "
+        f"{launches} as predicted; eps "
+        f"{a.accountant.get_epsilon(1e-6):.3f} at delta 1e-6 (q "
+        f"{a.accountant.q:.2e})")
+
+    # ------------------------------------------- the sample phase alone
+    sample_ms = {}
+    for sampler in ("global", "sharded"):
+        e = a.engine if sampler == "sharded" else engine(fleet, "streamed",
+                                                         "global")
+        st = e.run_sampler(e.init_state(params0, seed=5), 1)
+        t0 = time.perf_counter()
+        e.run_sampler(st, sampler_rounds)
+        sample_ms[sampler] = (time.perf_counter() - t0) * 1e3 \
+            / sampler_rounds
+    say(f"fleet: the sample phase alone (run_sampler: selection, population "
+        f"vectors, example indices, the ids read, the noise draw) at N = "
+        f"{n_users}: global {sample_ms['global']:.2f} ms a round, sharded "
+        f"{sample_ms['sharded']:.2f} ms a round")
+
+    # -------------------------------------------- one profiled round
+    t0 = time.perf_counter()
+    round_dev, round_wall, top = profiled_device_ms(
+        lambda: a.train(1), 1, warmup=False, cpu=False)
+    busy = None if round_dev is None else 100 * round_dev / round_wall
+    say(f"fleet: one streamed round under the profiler (device activity "
+        f"only): {_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, "
+        f"device busy {'not measured' if busy is None else f'{busy:.1f}%'}; "
+        f"by kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
+                                   for n, ms, c in top)
+        + f"; {time.perf_counter() - t0:.1f} s with the trace's processing")
+    del out, a, b
+    say(f"fleet: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rounds_per_s": rps, "busy": busy,
+            "sample_ms": sample_ms, "bytes_per_user": per_user}
+
+
 def main() -> None:
     try:
         import torch
@@ -2728,15 +3097,19 @@ def main() -> None:
     step_launches = phase_decode_grad(dev)
     memo = phase_memorize(dev)
     faults = phase_faults(dev)
-    paths = (train["launches"], memo["launches"], faults["launches"])
+    fleet = phase_fleet(dev)
+    paths = (train["launches"], memo["launches"], faults["launches"],
+             fleet["launches"])
     bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths)
     fwd["launches"] = serve["launches"] + sum(p["cifg_cell_fwd"]
                                               for p in paths)
     say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
         f"{train['launches']['cifg_cell_fwd']}, memorize "
         f"{memo['launches']['cifg_cell_fwd']}, faults "
-        f"{faults['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
-        f"sequence form {bwd['launches']} in training, memorize and faults, "
+        f"{faults['launches']['cifg_cell_fwd']}, fleet "
+        f"{fleet['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
+        f"sequence form {bwd['launches']} in training, memorize, faults and "
+        f"fleet, "
         f"the per-step form {step_launches} through decode steps")
     for row in clip_rows:
         row["launches"] = sum(p[row["name"]] for p in paths)

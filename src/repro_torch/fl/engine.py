@@ -1,24 +1,38 @@
 """Multi-round DP-FedAvg simulation engine on one device (the reference's
-``fl/engine.py``, its ``device`` population backend and ``global``
-sampler).
+``fl/engine.py`` on one device: both population backends, both samplers).
 
 The host trainer (`repro_torch.fl.round.FederatedTrainer`,
 ``backend="host"``) samples cohorts and stacks client tensors with numpy
-every round. This engine keeps the whole simulation on the device:
+every round. This engine keeps the simulation on the device:
 
 * **population** — per-round availability draws and Pace Steering weights
   computed on the device from a ``last_round`` vector (the weight function
   is a hook, see :func:`pace_steering_weights`);
-* **sampling** — fixed-size weighted sampling without replacement
-  (:func:`sample_cohort`, ``torch.multinomial``; unavailable devices carry
-  weight 1e-30, so they are chosen only when fewer than ``cohort`` devices
-  checked in), or Poisson rounds (:func:`poisson_select`): every available
-  device i.i.d. Bernoulli(q = qN/N), the first ``buffer`` of them packed
-  into a fixed-shape cohort buffer with a slot mask;
-* **data** — client batches gathered from the padded corpus tensor of
-  ``FederatedDataset.to_device_arrays()`` by per-slot example indices drawn
-  uniformly in ``[0, counts[u])`` (:func:`gather_client_batches`); no host
-  data movement after construction;
+* **sampling** — ``sampler="global"``: fixed-size weighted sampling without
+  replacement (:func:`sample_cohort`, ``torch.multinomial``; unavailable
+  devices carry weight 1e-30, so they are chosen only when fewer than
+  ``cohort`` devices checked in), or Poisson rounds (:func:`poisson_select`):
+  every available device i.i.d. Bernoulli(q = qN/N), the first ``buffer``
+  of them packed into a fixed-shape cohort buffer with a slot mask.
+  ``sampler="sharded"``: the block-keyed sampler of `fl.pop_sampler` — the
+  population in canonical blocks, each block's uniforms from a generator of
+  its own (:meth:`EngineDraws.block_uniforms`), the cohort an exact Gumbel
+  top-k over unique (score, user id) keys, Poisson rounds packed in index
+  order, and O(cohort) scatters into population vectors padded to whole
+  blocks. The two samplers are two families of draws: each is
+  deterministic in the seed, neither reproduces the other's cohorts;
+* **data** — ``population_backend="device"``: client batches gathered from
+  the padded corpus tensor of ``FederatedDataset.to_device_arrays()`` by
+  per-slot example indices drawn uniformly in ``[0, counts[u])``
+  (:func:`gather_client_batches`). ``population_backend="streamed"``: the
+  corpus stays on the host behind a `data.population_store.PopulationStore`
+  and each round's cohort rows are staged through two pinned host buffers
+  into two device buffers of (padded, E_max, seq_len+1) int32, slot ``i``
+  holding user ``ids[i]``'s rows, so the gathered tokens are bitwise the
+  device backend's. The card holds the O(N) population vectors (``counts``
+  for the index draw, ``last_round``, ``participation``, ``synthetic``:
+  13 bytes a user, 15 with the sharded sampler's padded masks) and two
+  staged cohorts, whatever N;
 * **round** — the port's streaming round body
   (`repro_torch.fl.client.stream_block_sums`): the padded cohort in the
   canonical blocks, ``cohort_chunk`` clients at a time, each client's clip
@@ -43,9 +57,10 @@ every round. This engine keeps the whole simulation on the device:
 Every draw of a round — availability, cohort or Poisson selection, per-slot
 example indices, noise — comes from one ``torch.Generator`` on the engine's
 device, through :class:`EngineDraws`, seeded from the trainer seed; the
-fault fates alone come from their own stream. The
-generator cannot reproduce the reference's JAX streams; a test hands the
-engine an object with the same methods that returns the reference's draws.
+fault fates and the sharded sampler's block draws come from their own
+per-round streams. The generator cannot reproduce the reference's JAX
+streams; a test hands the engine an object with the same methods that
+returns the reference's draws.
 
 :meth:`SimEngine.run` runs ``rounds_per_call`` rounds between host reads,
 keeping each round's history on the device and reading it once per call.
@@ -56,9 +71,19 @@ is known on the host and a round reads nothing back; a Poisson round's
 mask is made on the device and is read once per round by the streaming sum
 (which skips chunks that are entirely masked).
 
-Not ported (they raise): cohort sharding over devices (``num_shards`` /
-``num_pods`` > 1), the streamed population backend and the sharded sampler
-(ROADMAP.md, queue A, item 5).
+The streamed backend reads the cohort's ids once a round (a Poisson round's
+mask rides in the same transfer). Its order of draws is the device
+backend's — round k's availability, cohort, example indices and noise are
+all launched before round k+1's sampling — and a CUDA generator fixes a
+draw's bits when the draw is launched, so the streamed trajectory is
+bitwise the device backend's on one seed. The sampler, the ids read and the
+staging copy run in order on the compute stream in :meth:`SimEngine.run`
+and :meth:`SimEngine.run_python` alike: the ids read waits for the previous
+round's compute, and the store's rows go through one of two pinned host
+buffers into one of two device buffers.
+
+Not ported (it raises): cohort sharding over several devices
+(``num_shards`` / ``num_pods`` > 1; ROADMAP.md, queue A, item 5).
 """
 from __future__ import annotations
 
@@ -72,7 +97,10 @@ from repro_torch.configs.base import ClientConfig, DPConfig
 from repro_torch.core.clipping import CLIP_PATHS
 from repro_torch.core.dp_fedavg import finalize_round, server_step
 from repro_torch.core.server_optim import ServerOptState, init_state
+from repro_torch.data.population_store import (PopulationStore,
+                                               as_population_store)
 from repro_torch.data.tokenizer import PAD
+from repro_torch.fl import pop_sampler
 from repro_torch.fl.client import (fold_round, local_deltas,
                                    round_compute, stream_block_sums)
 from repro_torch.fl.faults import FaultConfig, fault_fates, fault_generator
@@ -177,19 +205,27 @@ class EngineDraws:
     """Every random draw of a round, from one ``torch.Generator`` on the
     engine's device, one method per draw. The engine calls
     :meth:`begin_round` first, then :meth:`available`, then :meth:`cohort`
-    (fixed rounds) or :meth:`poisson`, then, with a fault model,
-    :meth:`fates`, then :meth:`example_indices`, then :meth:`noise`. An
-    object with these methods can stand in for this one
-    (`SimEngine.init_state(draws=...)`) to feed the engine another stream's
-    draws — the reference's, or the host trainer's.
+    (fixed rounds) or :meth:`poisson` — under ``sampler="sharded"``
+    :meth:`block_uniforms` and :meth:`block_gumbels` in their place —,
+    then, with a fault model, :meth:`fates`, then :meth:`example_indices`,
+    then :meth:`noise`. An object with these methods can stand in for this
+    one (`SimEngine.init_state(draws=...)`) to feed the engine another
+    stream's draws — the reference's, or the host trainer's.
 
     Each draw is made on the generator's device and the engine moves it to
     its own, so a CPU generator feeds an engine on any device: an engine on
     the card and one on the CPU, each given ``EngineDraws`` over a CPU
-    generator of one seed, take the same draws."""
+    generator of one seed, take the same draws.
+
+    The block draws come from a second generator on the same device,
+    reseeded per block from (the generator's initial seed, round, stream,
+    block) (`fl.pop_sampler.block_seed`): they never advance the main
+    generator, and a block's draws do not depend on the other blocks."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
+        self.seed = generator.initial_seed()
+        self._block_gen = None
 
     def begin_round(self, round_idx: int) -> None:
         """One generator carries every round; nothing to split."""
@@ -205,6 +241,25 @@ class EngineDraws:
 
     def poisson(self, q: float, available, buffer: int):
         return poisson_select(self.generator, q, available, buffer)
+
+    def _blocks(self) -> torch.Generator:
+        if self._block_gen is None:
+            self._block_gen = torch.Generator(device=self.generator.device)
+        return self._block_gen
+
+    def block_uniforms(self, stream: str, round_idx: int, block_ids,
+                       blk: int) -> torch.Tensor:
+        """(len(block_ids), blk) uniforms of the ``"available"`` or
+        ``"sample"`` stream, block ``b`` from its own seed."""
+        return pop_sampler.block_uniforms(
+            self._blocks(), self.seed, round_idx,
+            pop_sampler.STREAMS[stream], block_ids, blk)
+
+    def block_gumbels(self, round_idx: int, block_ids, blk: int
+                      ) -> torch.Tensor:
+        """(len(block_ids), blk) Gumbel draws of the ``"sample"`` stream."""
+        return pop_sampler.block_gumbels(self._blocks(), self.seed,
+                                         round_idx, block_ids, blk)
 
     def fates(self, round_idx: int, n_slots: int, cfg: FaultConfig):
         """The round's fault fates, on the CPU, from the fault stream of
@@ -223,22 +278,38 @@ class EngineDraws:
 class EngineState(NamedTuple):
     """Simulation state threaded through the rounds. ``draws`` holds the
     engine's generator, which advances as rounds run: like the reference's
-    donated state, a state is consumed by the run it is given to."""
+    donated state, a state is consumed by the run it is given to. Under
+    ``sampler="sharded"`` the population vectors are padded to whole
+    population blocks (``SimEngine.n_pad`` rows; padding never
+    participates)."""
 
     params: object
     opt_state: ServerOptState
     draws: EngineDraws
-    last_round: torch.Tensor     # (N,) int32 — last participation
-    participation: torch.Tensor  # (N,) int32 — participation counts
+    last_round: torch.Tensor     # (n_pad,) int32 — last participation
+    participation: torch.Tensor  # (n_pad,) int32 — participation counts
     round_idx: int
 
 
-class SimEngine:
-    """Multi-round DP-FedAvg simulator over a device-resident population.
+class _Cohort(NamedTuple):
+    """One round's selection, as the compute phase takes it."""
 
-    ``data`` is the dict from ``FederatedDataset.to_device_arrays()``. The
-    availability / Pace-Steering parameters mirror ``PopulationSim``; pass
-    ``weight_fn(last_round, synthetic, round_idx) -> (N,) weights`` to
+    ids: torch.Tensor            # (padded,) user ids; empty slots alias 0
+    slot_mask: torch.Tensor      # (padded,) bool — selected slots
+    report_mask: torch.Tensor    # (padded,) bool — reports the sum folds
+    corrupt: Optional[torch.Tensor]  # (padded,) bool, fault model only
+    idx: torch.Tensor            # (padded, need) per-slot example indices
+    live: Optional[List]         # host list of live chunks, or None
+
+
+class SimEngine:
+    """Multi-round DP-FedAvg simulator on one device.
+
+    ``data`` is the dict from ``FederatedDataset.to_device_arrays()``, or a
+    `data.population_store.PopulationStore` (a ``FederatedDataset`` or a
+    store's directory also serve under ``population_backend="streamed"``).
+    The availability / Pace-Steering parameters mirror ``PopulationSim``;
+    pass ``weight_fn(last_round, synthetic, round_idx) -> (N,) weights`` to
     replace the Pace-Steering prior.
 
     ``sampling`` defaults to ``dp.sampling``: ``"fixed"`` rounds of exactly
@@ -246,14 +317,20 @@ class SimEngine:
     available device i.i.d. Bernoulli(qN/N); Pace-Steering weights don't
     apply).
 
+    ``population_backend``: ``"device"`` holds the whole padded corpus on
+    the device; ``"streamed"`` keeps it on the host and stages one cohort a
+    round (see the module docstring), bitwise the device backend's
+    trajectory. ``sampler``: ``"global"`` or ``"sharded"`` (the block-keyed
+    Gumbel top-k of `fl.pop_sampler`).
+
     ``cohort_chunk`` streams the round ``cohort_chunk`` clients at a time
     (it must divide the block size, padded cohort / 8); ``None``
     auto-selects; ``0`` is the materializing path. ``clip_path`` selects
     the clip→accumulate: ``"fused"`` (the CUDA dp_clip kernels) or
     ``"tree"`` (plain tensor ops).
 
-    ``device`` (default ``cuda``; raises without a GPU) holds the corpus,
-    the population vectors and the generator."""
+    ``device`` (default ``cuda``; raises without a GPU) holds the corpus
+    (or the staged cohorts), the population vectors and the generator."""
 
     def __init__(self, model: Model, data, dp: DPConfig,
                  client: ClientConfig, *,
@@ -274,23 +351,15 @@ class SimEngine:
         if num_shards != 1 or num_pods != 1:
             raise NotImplementedError(
                 f"num_shards={num_shards}, num_pods={num_pods}: cohort "
-                "sharding over devices is not ported yet (ROADMAP.md, queue "
-                "A, item 5); the port's engine runs on one device")
+                "sharding over several GPUs is not ported yet (ROADMAP.md, "
+                "queue A, item 5); the port's engine runs on one device")
         if population_backend not in POPULATION_BACKENDS:
             raise ValueError(f"population_backend must be one of "
                              f"{POPULATION_BACKENDS}, got "
                              f"{population_backend!r}")
-        if population_backend != "device":
-            raise NotImplementedError(
-                "population_backend='streamed' is not ported yet (ROADMAP.md,"
-                " queue A, item 5); the port keeps the corpus on the device")
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, "
                              f"got {sampler!r}")
-        if sampler != "global":
-            raise NotImplementedError(
-                "sampler='sharded' is not ported yet (ROADMAP.md, queue A, "
-                "item 5); the port samples with the global sampler")
         if clip_path not in CLIP_PATHS:
             raise ValueError(f"clip_path must be one of {CLIP_PATHS}, "
                              f"got {clip_path!r}")
@@ -309,15 +378,41 @@ class SimEngine:
         self.eval_fn = eval_fn
         self.eval_every = max(int(eval_every), 1)
         self._eval_like = None
-        self.examples = torch.as_tensor(np.asarray(data["examples"]),
-                                        dtype=torch.int32).to(self.device)
-        self.counts = torch.as_tensor(np.asarray(data["counts"]),
+        self.population_backend = population_backend
+        self.sampler = sampler
+        if population_backend == "device":
+            if isinstance(data, PopulationStore):
+                data = data.device_arrays()
+            self.store = None
+            self.examples = torch.as_tensor(np.asarray(data["examples"]),
+                                            dtype=torch.int32
+                                            ).to(self.device)
+            counts, synth_np = data["counts"], data["synthetic"]
+        else:
+            # the corpus stays on the host: only the per-user vectors and
+            # the two staged cohorts reach the device
+            self.store = as_population_store(data)
+            self.examples = None
+            counts, synth_np = self.store.counts, self.store.synthetic
+        self.counts = torch.as_tensor(np.asarray(counts),
                                       dtype=torch.int32).to(self.device)
-        synth_np = np.asarray(data["synthetic"], bool)
+        synth_np = np.asarray(synth_np, bool)
         self.synthetic = torch.from_numpy(synth_np).to(self.device)
         self.n_users = int(synth_np.shape[0])
         self.cohort = min(dp.clients_per_round, self.n_users)
         self.q = self.cohort / self.n_users
+        if sampler == "sharded":
+            # the population axis in whole canonical blocks; the vectors,
+            # the synthetic mask and the validity mask are padded to it
+            self.pop_blocks = pop_sampler.n_pop_blocks()
+            self.n_pad = pop_sampler.pop_pad(self.n_users)
+            valid = torch.arange(self.n_pad) < self.n_users
+            self._valid = valid.to(self.device)
+            self._synth_pad = torch.nn.functional.pad(
+                self.synthetic, (0, self.n_pad - self.n_users))
+        else:
+            self.pop_blocks = None
+            self.n_pad = self.n_users
         # Δ̄ and σ divide by qN: the exact fixed round size, the expected
         # Poisson one [MRTZ17]; under the fault model by the report goal,
         # and the round over-selects so that the expected survivor count
@@ -399,6 +494,7 @@ class SimEngine:
         self._fixed_host = torch.arange(self.padded) < self.sel_cohort
         self._fixed_mask = self._fixed_host.to(self.device)
         self._fixed_live = self._live(self._fixed_host)
+        self._staging = None
 
     def _live(self, host_mask: torch.Tensor):
         """Which chunks of the streaming sum hold an unmasked slot, from a
@@ -410,6 +506,18 @@ class SimEngine:
     def _shape3(self) -> Tuple[int, int, int]:
         chunk = self.cohort_chunk
         return (CANON_BLOCKS, self.padded // (CANON_BLOCKS * chunk), chunk)
+
+    @property
+    def corpus_device_bytes(self) -> int:
+        """Bytes of corpus on the device: the whole padded corpus (device
+        backend) or the two staged cohort buffers (streamed backend, 0
+        before the first streamed round)."""
+        if self.examples is not None:
+            return self.examples.numel() * self.examples.element_size()
+        if self._staging is None:
+            return 0
+        return sum(b.numel() * b.element_size()
+                   for b in self._staging["device"])
 
     # ------------------------------------------------------------------ state
 
@@ -425,7 +533,7 @@ class SimEngine:
         if draws is None:
             draws = EngineDraws(torch.Generator(device=self.device)
                                 .manual_seed(seed))
-        n = self.n_users
+        n = self.n_pad
         return EngineState(
             params=params,
             opt_state=opt_state if opt_state is not None
@@ -439,29 +547,81 @@ class SimEngine:
 
     # ------------------------------------------------------------- round body
 
-    def _sample_phase(self, state: EngineState):
+    def _sharded_avail(self, d, r: int) -> torch.Tensor:
+        """(n_pad,) check-ins from the ``available`` stream's block
+        uniforms; padding rows never check in."""
+        blk = self.n_pad // self.pop_blocks
+        u = d.block_uniforms("available", r, range(self.pop_blocks), blk)
+        return ((u.to(self.device).reshape(-1) < self.availability)
+                | self._synth_pad) & self._valid
+
+    def _sharded_score(self, d, r: int, last_round,
+                       avail=None) -> torch.Tensor:
+        """(n_pad,) Gumbel scores log(weight) + g of a fixed round (weight
+        1e-30 for devices that did not check in). The block draws never
+        advance the training generator, so a round's scores can be drawn
+        again."""
+        if avail is None:
+            avail = self._sharded_avail(d, r)
+        blk = self.n_pad // self.pop_blocks
+        w = self.weight_fn(last_round, self._synth_pad, r)
+        g = d.block_gumbels(r, range(self.pop_blocks), blk)
+        return torch.log(torch.where(avail, w.to(torch.float32),
+                                     _UNAVAILABLE_W)) \
+            + g.to(self.device).reshape(-1)
+
+    def _select_sharded(self, d, r: int, last_round):
+        """The block-keyed selection of `fl.pop_sampler` on one device (the
+        reference's ``_pop_shard_body`` at rank 0 of 1): availability, then
+        the Gumbel top-k of fixed rounds or the index-order packing of
+        Poisson rounds. Returns ``(ids (padded,), slot_mask (padded,))``."""
+        avail = self._sharded_avail(d, r)
+        if self.sampling == "poisson":
+            blk = self.n_pad // self.pop_blocks
+            u = d.block_uniforms("sample", r, range(self.pop_blocks), blk)
+            sel = (u.to(self.device).reshape(-1) < self.sel_q) & avail
+            # one packed list is already in index order: nothing to merge
+            gids, cnt = pop_sampler.pack_selected(sel, self.padded)
+            slot_mask = torch.arange(self.padded, device=self.device) < cnt
+            return torch.where(slot_mask, gids, 0), slot_mask
+        score = self._sharded_score(d, r, last_round, avail)
+        skey = torch.where(self._valid, pop_sampler.sortable_f32(score),
+                           pop_sampler.INT32_MIN)
+        # one shard: one top-k of the (score, id) keys over the population
+        ids = pop_sampler.merge_topk(
+            skey, torch.arange(self.n_pad, device=self.device),
+            self.sel_cohort)
+        return (torch.nn.functional.pad(ids, (0, self.padded
+                                              - self.sel_cohort)),
+                self._fixed_mask)
+
+    def _sample_phase(self, d, last_round, participation, r: int):
         """Availability, cohort selection, the fault fates and the
         population vectors' update, then the per-slot example indices.
-        Returns ``(last_round, participation, ids, slot_mask, report_mask,
-        corrupt, idx, live)``: without faults ``report_mask`` is
-        ``slot_mask`` and ``corrupt`` None; ``live`` is the host list of
-        live chunks (fixed rounds) or None (read from the mask)."""
-        d, r = state.draws, state.round_idx
+        Returns ``(last_round, participation, cohort)``: without faults the
+        cohort's ``report_mask`` is its ``slot_mask`` and ``corrupt`` None;
+        ``live`` is the host list of live chunks (fixed rounds) or None
+        (read from the mask)."""
         d.begin_round(r)
-        avail = (d.available(self.n_users).to(self.device)
-                 < self.availability) | self.synthetic
-        if self.sampling == "poisson":
-            ids, slot_mask, took = d.poisson(self.sel_q, avail, self.padded)
-            ids, slot_mask = ids.to(self.device), slot_mask.to(self.device)
-            took = took.to(self.device)
-            live = None
+        took = None
+        if self.sampler == "sharded":
+            ids, slot_mask = self._select_sharded(d, r, last_round)
         else:
-            w = self.weight_fn(state.last_round, self.synthetic, r)
-            ids = d.cohort(w, avail, self.sel_cohort).to(self.device)
-            ids = torch.nn.functional.pad(ids,
-                                          (0, self.padded - self.sel_cohort))
-            slot_mask = self._fixed_mask
-            live = self._fixed_live
+            avail = (d.available(self.n_users).to(self.device)
+                     < self.availability) | self.synthetic
+            if self.sampling == "poisson":
+                ids, slot_mask, took = d.poisson(self.sel_q, avail,
+                                                 self.padded)
+                ids, slot_mask = ids.to(self.device), slot_mask.to(
+                    self.device)
+                took = took.to(self.device)
+            else:
+                w = self.weight_fn(last_round, self.synthetic, r)
+                ids = d.cohort(w, avail, self.sel_cohort).to(self.device)
+                ids = torch.nn.functional.pad(
+                    ids, (0, self.padded - self.sel_cohort))
+                slot_mask = self._fixed_mask
+        live = self._fixed_live if self.sampling == "fixed" else None
         if self.faults is None:
             report_mask, corrupt = slot_mask, None
         else:
@@ -473,37 +633,50 @@ class SimEngine:
             corrupt = report_mask & fates.corrupt.to(self.device)
             if live is not None:
                 live = self._live(self._fixed_host & reported)
-        if self.sampling == "poisson":
-            last_round = torch.where(took, r, state.last_round).to(torch.int32)
+        part_mask = slot_mask if self.faults is None else report_mask
+        if self.sampler == "sharded":
+            # O(cohort) masked scatters: last_round reacts to selection,
+            # participation to the reports that arrived
+            last_round = pop_sampler.scatter_max(last_round, ids, slot_mask,
+                                                 r)
+            participation = pop_sampler.scatter_add(participation, ids,
+                                                    part_mask)
+        elif self.sampling == "poisson":
+            last_round = torch.where(took, r, last_round).to(torch.int32)
             if self.faults is None:
-                participation = state.participation + took.to(torch.int32)
+                participation = participation + took.to(torch.int32)
             else:
-                participation = state.participation.index_add(
+                participation = participation.index_add(
                     0, ids, report_mask.to(torch.int32))
         else:
             # padded slots alias device 0: scatter through the mask so they
             # never touch the population vectors
-            last_round = state.last_round.scatter_reduce(
+            last_round = last_round.scatter_reduce(
                 0, ids, torch.where(slot_mask, r, _NEVER).to(torch.int32),
                 reduce="amax")
-            participation = state.participation.index_add(
-                0, ids, report_mask.to(torch.int32))
+            participation = participation.index_add(
+                0, ids, part_mask.to(torch.int32))
         need = self.n_local_batches * self.client.batch_size
         idx = d.example_indices(self.counts[ids], need).to(self.device)
-        return (last_round, participation, ids, slot_mask, report_mask,
-                corrupt, idx, live)
+        return last_round, participation, _Cohort(ids, slot_mask,
+                                                  report_mask, corrupt, idx,
+                                                  live)
 
-    def _cohort_sums(self, params, ids, idx, mask, live, corrupt=None):
+    def _cohort_sums(self, params, examples, ids, idx, mask, live,
+                     corrupt=None):
         """The masked clipped sum over the padded cohort and its stats
         (mean norm, clipped fraction, mean loss over the unmasked slots).
-        ``corrupt`` (fault model) marks the slots whose reports are
-        non-finite garbage: their deltas and losses are multiplied by NaN
-        (clean slots by 1, which changes no bit) and the fold rejects them
-        (``guard_nonfinite``). Returns the folded sum, the three stats and
-        the count of accepted slots (a device scalar)."""
+        Client ``c`` takes rows ``examples[ids[c], idx[c]]``: the corpus
+        and the user ids (device backend), or a staged cohort and the slot
+        numbers (streamed backend). ``corrupt`` (fault model) marks the
+        slots whose reports are non-finite garbage: their deltas and losses
+        are multiplied by NaN (clean slots by 1, which changes no bit) and
+        the fold rejects them (``guard_nonfinite``). Returns the folded
+        sum, the three stats and the count of accepted slots (a device
+        scalar)."""
         nb, B = self.n_local_batches, self.client.batch_size
         if self.cohort_chunk == 0:
-            batches = gather_client_batches(self.examples, ids, idx, nb, B)
+            batches = gather_client_batches(examples, ids, idx, nb, B)
             return round_compute(self.model, params, batches, self.client,
                                  self.dp, mask, cohort_chunk=0) + (
                                      mask.to(torch.float32).sum(),)
@@ -514,7 +687,7 @@ class SimEngine:
             inputs["bad"] = corrupt.to(torch.float32).reshape(shape3)
 
         def compute_chunk(inp):
-            batches = gather_client_batches(self.examples, inp["ids"],
+            batches = gather_client_batches(examples, inp["ids"],
                                             inp["idx"], nb, B)
             deltas, losses = local_deltas(self.model, params, batches,
                                           self.client)
@@ -531,22 +704,22 @@ class SimEngine:
             guard_nonfinite=corrupt is not None, live=live)
         return fold_round(partials, stats)
 
-    def _round(self, state: EngineState) -> Tuple[EngineState, Dict]:
-        r = state.round_idx
-        (last_round, participation, ids, slot_mask, report_mask, corrupt,
-         idx, live) = self._sample_phase(state)
+    def _compute_phase(self, params, opt_state, draws, r: int,
+                       cohort: _Cohort, examples, slot_ids):
+        """The round's clipped sum, noise, server step and record, from a
+        cohort and the rows it gathers from (``examples[slot_ids[c]]``)."""
         total, mean_norm, frac, loss, accepted = self._cohort_sums(
-            state.params, ids, idx, report_mask, live, corrupt)
+            params, examples, slot_ids, cohort.idx, cohort.report_mask,
+            cohort.live, cohort.corrupt)
         std = self.dp.noise_multiplier * self.dp.clip_norm \
             / float(self._round_denom)
         # the noise is drawn whether or not the round commits, so that no
         # later draw depends on the verdict
         delta, _ = finalize_round(total, self._round_denom, None, self.dp,
                                   stats=(mean_norm, frac),
-                                  noise=state.draws.noise(total, std))
-        params, opt_state = server_step(state.params, state.opt_state, delta,
-                                        self.dp)
-        n_selected = slot_mask.sum().to(torch.int32)
+                                  noise=draws.noise(total, std))
+        new_params, new_opt = server_step(params, opt_state, delta, self.dp)
+        n_selected = cohort.slot_mask.sum().to(torch.int32)
         rec = {"loss": loss, "mean_update_norm": mean_norm,
                "frac_clipped": frac, "noise_std": std,
                "n_clients": n_selected}
@@ -554,19 +727,151 @@ class SimEngine:
             # commit iff the accepted reports reach the goal, decided on
             # the device: an aborted round keeps every old leaf's bits
             committed = accepted >= float(self.report_goal)
-            params, opt_state = _select(committed, (params, opt_state),
-                                        (state.params, state.opt_state))
+            new_params, new_opt = _select(committed, (new_params, new_opt),
+                                          (params, opt_state))
             rec.update(n_clients=accepted.to(torch.int32),
                        n_selected=n_selected,
-                       n_reported=report_mask.sum().to(torch.int32),
+                       n_reported=cohort.report_mask.sum().to(torch.int32),
                        committed=committed)
         if self.eval_fn is not None:
             rec["eval_mask"] = (r + 1) % self.eval_every == 0
             if rec["eval_mask"]:
                 with torch.no_grad():
-                    rec["eval"] = self.eval_fn(params, r)
+                    rec["eval"] = self.eval_fn(new_params, r)
+        return new_params, new_opt, rec
+
+    def _round(self, state: EngineState) -> Tuple[EngineState, Dict]:
+        r = state.round_idx
+        last_round, participation, cohort = self._sample_phase(
+            state.draws, state.last_round, state.participation, r)
+        params, opt_state, rec = self._compute_phase(
+            state.params, state.opt_state, state.draws, r, cohort,
+            self.examples, cohort.ids)
         return EngineState(params, opt_state, state.draws, last_round,
                            participation, r + 1), rec
+
+    # ------------------------------------------------------------- streaming
+
+    def _ensure_staging(self) -> Dict:
+        """Two device cohort buffers of (padded, E_max, seq_len+1) int32;
+        on a CUDA engine also two pinned host buffers of that shape, a
+        pinned buffer for the ids read, and per buffer the events that
+        order its reuse."""
+        if self._staging is None:
+            shape = (self.padded, self.store.emax, self.store.row_len)
+            st = {"device": [torch.empty(shape, dtype=torch.int32,
+                                         device=self.device)
+                             for _ in range(2)],
+                  "slots": torch.arange(self.padded, device=self.device)}
+            if self.device.type == "cuda":
+                st.update(
+                    host=[torch.empty(shape, dtype=torch.int32,
+                                      pin_memory=True) for _ in range(2)],
+                    ids=torch.empty((2 * self.padded,), dtype=torch.int64,
+                                    pin_memory=True),
+                    # copied[i]: the copy out of host[i] is done;
+                    # consumed[i]: the compute that read device[i] is done
+                    copied=[torch.cuda.Event() for _ in range(2)],
+                    consumed=[torch.cuda.Event() for _ in range(2)])
+            self._staging = st
+        return self._staging
+
+    def _read_cohort(self, cohort: _Cohort) -> torch.Tensor:
+        """The round's one host read: the ids, and under Poisson rounds the
+        report mask in the same transfer. On a CUDA engine it goes through
+        a pinned buffer and waits for the current stream alone."""
+        payload = cohort.ids
+        if self.sampling == "poisson":
+            payload = torch.cat([cohort.ids,
+                                 cohort.report_mask.to(torch.int64)])
+        if self.device.type != "cuda":
+            return payload
+        host = self._ensure_staging()["ids"][:payload.numel()]
+        host.copy_(payload, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host
+
+    def _sample_and_stage(self, d, last_round, participation, r: int,
+                          slot: int):
+        """Round ``r``'s sample phase, its host read, the gather of its
+        cohort's rows from the store and their copy into device buffer
+        ``slot``, in order on the current stream. On a CUDA engine the
+        compute that reads device buffer ``slot`` must then record
+        ``staging["consumed"][slot]``."""
+        st = self._ensure_staging()
+        last_round, participation, cohort = self._sample_phase(
+            d, last_round, participation, r)
+        host = self._read_cohort(cohort)
+        ids = host[:self.padded].numpy()
+        if self.sampling == "poisson":
+            cohort = cohort._replace(live=self._live(host[self.padded:] > 0))
+        rows = self.store.gather(ids)
+        if self.device.type != "cuda":
+            st["device"][slot].copy_(torch.from_numpy(rows))
+            return last_round, participation, cohort
+        # host[slot] is free once its last copy has run; device[slot] once
+        # the compute that read it two rounds ago has
+        stream = torch.cuda.current_stream(self.device)
+        st["copied"][slot].synchronize()
+        np.copyto(st["host"][slot].numpy(), rows)
+        stream.wait_event(st["consumed"][slot])
+        st["device"][slot].copy_(st["host"][slot], non_blocking=True)
+        st["copied"][slot].record(stream)
+        return last_round, participation, cohort
+
+    def _run_streamed(self, state: EngineState, n_rounds: int,
+                      per_call: int):
+        """The streamed backend's round loop: sample and stage round r, then
+        launch its compute, ``per_call`` rounds between history reads."""
+        cuda = self.device.type == "cuda"
+        st = self._ensure_staging()
+        last_round, participation = state.last_round, state.participation
+        params, opt_state, r = state.params, state.opt_state, \
+            state.round_idx
+        hists, recs = [], []
+        for _ in range(n_rounds):
+            slot = r % 2
+            last_round, participation, cohort = self._sample_and_stage(
+                state.draws, last_round, participation, r, slot)
+            params, opt_state, rec = self._compute_phase(
+                params, opt_state, state.draws, r, cohort, st["device"][slot],
+                st["slots"])
+            if cuda:
+                st["consumed"][slot].record()
+            r += 1
+            recs.append(rec)
+            if len(recs) == per_call:
+                hists.append(self._read(recs, params))
+                recs = []
+        if recs:
+            hists.append(self._read(recs, params))
+        return EngineState(params, opt_state, state.draws, last_round,
+                           participation, r), _concat(hists)
+
+    def run_sampler(self, state: EngineState, n_rounds: int) -> EngineState:
+        """The sample phase alone, ``n_rounds`` times (its time per round is
+        the round's sampling share): selection, the population vectors'
+        update and the example indices — with the streamed backend's host
+        read of the ids —, then the round's noise draw, so that the
+        generator ends where full rounds leave it. No staging, no compute;
+        params and optimizer state are passed through."""
+        last_round, participation = state.last_round, state.participation
+        r = state.round_idx
+        std = self.dp.noise_multiplier * self.dp.clip_norm \
+            / float(self._round_denom)
+        for _ in range(n_rounds):
+            last_round, participation, cohort = self._sample_phase(
+                state.draws, last_round, participation, r)
+            if self.store is not None:
+                self._read_cohort(cohort)
+            state.draws.noise(state.params, std)
+            r += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return EngineState(state.params, state.opt_state, state.draws,
+                           last_round, participation, r)
 
     # --------------------------------------------------------------- history
 
@@ -632,6 +937,8 @@ class SimEngine:
     def _run(self, state: EngineState, n_rounds: int, per_call: int):
         if n_rounds <= 0:
             return state, {}
+        if self.store is not None:
+            return self._run_streamed(state, n_rounds, per_call)
         hists = []
         left = n_rounds
         while left > 0:

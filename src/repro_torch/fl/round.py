@@ -31,8 +31,13 @@ aborted round released nothing), and round records carry ``n_selected``,
 a long run survive a crash: the resumed run is bitwise the uninterrupted
 one, faults on or off.
 
-The reference's cohort sharding, streamed population and sharded sampler
-are not ported (ROADMAP.md, queue A, item 5): asking for one raises.
+Engine backends take the reference's ``population_backend`` (``"device"``
+or ``"streamed"``: the corpus on the host, one cohort staged a round),
+``population_store`` (a `data.population_store.PopulationStore`, which may
+replace the dataset: ``dataset=None``) and ``sampler`` (``"global"`` or the
+block-keyed ``"sharded"``). The host backend refuses them, as the
+reference's does. Cohort sharding over several GPUs is not ported
+(ROADMAP.md, queue A, item 5): asking for it raises.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.core import accountant as acct
 from repro_torch.core.dp_fedavg import finalize_round, server_step
 from repro_torch.core.server_optim import ServerOptState, init_state
 from repro_torch.data.federated import FederatedDataset
+from repro_torch.data.population_store import as_population_store
 from repro_torch.fl.client import make_round_fn
 from repro_torch.fl.engine import EngineDraws, EngineState, SimEngine
 from repro_torch.fl.population import PopulationSim
@@ -80,9 +86,10 @@ class FederatedTrainer:
     backend) replaces the generator's draw of each round's noise (a tree
     shaped like ``like``, already scaled by ``std``); ``draws`` (optional,
     engine backends) replaces the engine's generator
-    (`fl.engine.EngineDraws`)."""
+    (`fl.engine.EngineDraws`). ``population_store`` (engine backends) is
+    the population's corpus; with it ``dataset`` may be None."""
 
-    def __init__(self, model: Model, dataset: FederatedDataset,
+    def __init__(self, model: Model, dataset: Optional[FederatedDataset],
                  dp: DPConfig, client: ClientConfig,
                  pop: Optional[PopulationSim] = None, seed: int = 0,
                  n_local_batches: int = 4, backend: str = "host",
@@ -90,7 +97,8 @@ class FederatedTrainer:
                  num_shards: int = 1, num_pods: int = 1,
                  cohort_chunk: Optional[int] = None,
                  clip_path: str = "fused",
-                 population_backend: str = "device", sampler: str = "global",
+                 population_backend: str = "device",
+                 population_store=None, sampler: str = "global",
                  fault_config=None, eval_fn: Optional[Callable] = None,
                  eval_every: int = 1, params=None, device=None,
                  noise_fn: Optional[Callable] = None, draws=None):
@@ -100,10 +108,15 @@ class FederatedTrainer:
         if backend == "host" and (
                 num_shards != 1 or num_pods != 1 or sampler != "global"
                 or population_backend != "device"
+                or population_store is not None
                 or fault_config is not None):
             raise ValueError("num_shards/num_pods, sampler, "
-                             "population_backend and fault_config are "
-                             "engine-backend features; use backend='engine'")
+                             "population_backend/population_store and "
+                             "fault_config are engine-backend features; use "
+                             "backend='engine'")
+        if dataset is None and population_store is None:
+            raise ValueError("pass a FederatedDataset, a population_store, "
+                             "or both")
         if backend == "host" and eval_fn is not None:
             raise ValueError("eval_fn is an engine-backend feature "
                              "(in-engine hook); score params post hoc on "
@@ -123,8 +136,21 @@ class FederatedTrainer:
         if self.sampling not in ("fixed", "poisson"):
             raise ValueError(f"sampling must be 'fixed' or 'poisson', "
                              f"got {self.sampling!r}")
-        n_users = len(dataset.users)
-        synth = [u.user_id for u in dataset.users if u.is_synthetic]
+        self.population_store = None
+        if population_store is not None:
+            store = as_population_store(population_store)
+            if dataset is not None and len(dataset.users) != store.n_users:
+                raise ValueError(
+                    f"dataset has {len(dataset.users)} users but the "
+                    f"population store holds {store.n_users} — pass matching "
+                    "populations (or only one of the two)")
+            self.population_store = store
+            n_users = store.n_users
+            synth = np.nonzero(np.asarray(store.synthetic))[0].tolist()
+        else:
+            n_users = len(dataset.users)
+            synth = [u.user_id for u in dataset.users if u.is_synthetic]
+        self.n_users = n_users
         self.pop = pop or PopulationSim(n_users, synthetic_ids=synth,
                                         seed=seed)
         self.rng = np.random.default_rng(seed)
@@ -159,8 +185,10 @@ class FederatedTrainer:
                 f"dataset ({synth}), but the PopulationSim was built with "
                 f"synthetic_ids={list(self.pop.synthetic_ids)} — make them "
                 "agree (or omit synthetic_ids)")
+        data = (self.population_store if self.population_store is not None
+                else dataset.to_device_arrays())
         self.engine = SimEngine(
-            model, dataset.to_device_arrays(), dp, client,
+            model, data, dp, client,
             n_local_batches=n_local_batches,
             availability=self.pop.availability,
             pace_cooldown=self.pop.pace_cooldown,
@@ -277,10 +305,13 @@ class FederatedTrainer:
 
     def _mirror_population(self) -> None:
         """Mirror the device population state back into the host
-        PopulationSim so post-hoc analyses see it."""
-        self.participation = self._estate.participation.cpu().numpy(
+        PopulationSim so post-hoc analyses see it (the sharded sampler's
+        vectors carry padding rows past ``n_users``, which never
+        participate)."""
+        n = self.n_users
+        self.participation = self._estate.participation[:n].cpu().numpy(
         ).astype(np.int64)
-        self.pop.absorb_last_round(self._estate.last_round.cpu().numpy())
+        self.pop.absorb_last_round(self._estate.last_round[:n].cpu().numpy())
 
     # ------------------------------------------------------- crash resilience
 

@@ -31,12 +31,14 @@ import argparse
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ClientConfig, DPConfig, get_config
 from repro_torch.core.secret_sharer import make_canaries
 from repro_torch.data.corpus import BigramCorpus
 from repro_torch.data.federated import FederatedDataset
+from repro_torch.data.population_store import MmapPopulationStore
 from repro_torch.fl.faults import FaultConfig
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.round import FederatedTrainer
@@ -45,10 +47,7 @@ from repro_torch.train import checkpoint
 
 
 # the reference's flags that the port refuses: (flag, type, queue A item)
-_UNPORTED = (("--num-shards", int, "item 5"), ("--num-pods", int, "item 5"),
-             ("--population-backend", str, "item 5"),
-             ("--population-store", str, "item 5"),
-             ("--sampler", str, "item 5"))
+_UNPORTED = (("--num-shards", int, "item 5"), ("--num-pods", int, "item 5"))
 
 
 def main(argv=None):
@@ -97,6 +96,23 @@ def main(argv=None):
                          "the same backward (seq), plain autograd (ref), or "
                          "auto = fused on CUDA / seq on the CPU (default: "
                          "the config's cell_path)")
+    ap.add_argument("--population-backend", default=None,
+                    choices=["device", "streamed"],
+                    help="device = the whole padded corpus on the device; "
+                         "streamed = the corpus stays on the host and one "
+                         "cohort is staged a round (engine backends; "
+                         "bitwise the device backend's run)")
+    ap.add_argument("--population-store", default=None, metavar="DIR",
+                    help="an on-disk population store (python -m "
+                         "repro_torch.launch.build_corpus): replaces the "
+                         "synthesized dataset and implies "
+                         "--population-backend streamed unless given")
+    ap.add_argument("--sampler", default="global",
+                    choices=["global", "sharded"],
+                    help="cohort selection (engine backends): global = "
+                         "torch.multinomial over the population; sharded = "
+                         "the block-keyed Gumbel top-k of "
+                         "repro_torch.fl.pop_sampler")
     ap.add_argument("--availability", type=float, default=0.3,
                     help="per-round device check-in probability; keep "
                          "availability·n_users above clients_per_round")
@@ -146,9 +162,21 @@ def main(argv=None):
     given = [f for f, _, _ in _UNPORTED
              if getattr(args, f[2:].replace("-", "_")) is not None]
     if given:
-        ap.error(f"{', '.join(given)}: not ported yet — cohort sharding, the "
-                 "streamed population and the sharded sampler are ROADMAP.md "
-                 "queue A, item 5")
+        ap.error(f"{', '.join(given)}: not ported yet — cohort sharding over "
+                 "several GPUs is ROADMAP.md queue A, item 5")
+    population_backend = args.population_backend or (
+        "streamed" if args.population_store is not None else "device")
+    if args.population_store is not None and args.inject_canaries:
+        ap.error("--inject-canaries builds synthetic devices into a "
+                 "dataset; bake them into the store instead "
+                 "(python -m repro_torch.launch.build_corpus "
+                 "--inject-canaries)")
+    if args.backend == "host" and population_backend == "streamed":
+        ap.error("--population-backend streamed needs an engine backend "
+                 "(the host loop reads the dataset directly)")
+    if args.backend == "host" and args.sampler != "global":
+        ap.error("--sampler sharded needs an engine backend (the host loop "
+                 "samples through PopulationSim)")
     faults = None
     if (args.fault_dropout > 0 or args.fault_straggler > 0
             or args.fault_corrupt > 0 or args.report_goal is not None):
@@ -175,16 +203,26 @@ def main(argv=None):
         cfg = cfg.with_(cell_path=args.cell_path)
     model = build(cfg)
 
-    corpus = BigramCorpus(vocab_size=cfg.vocab, seed=args.seed)
-    ds = FederatedDataset(corpus, n_users=args.n_users, seq_len=args.seq_len,
-                          sentences_per_user=30)
-    if args.inject_canaries:
-        canaries = make_canaries(torch.Generator().manual_seed(42),
-                                 vocab=cfg.vocab)
-        ds.inject_canaries(canaries)
-        print(f"injected {len(canaries)} canaries "
-              f"({sum(c.n_u for c in canaries)} synthetic devices)")
-    synth_ids = [u.user_id for u in ds.users if u.is_synthetic]
+    store = ds = None
+    if args.population_store is not None:
+        store = MmapPopulationStore(args.population_store)
+        n_users = store.n_users
+        synth_ids = np.nonzero(store.synthetic)[0].tolist()
+        print(f"population store: {args.population_store} "
+              f"({n_users} users, E_max={store.emax}, "
+              f"seq_len={store.row_len - 1}, {len(synth_ids)} synthetic)")
+    else:
+        corpus = BigramCorpus(vocab_size=cfg.vocab, seed=args.seed)
+        ds = FederatedDataset(corpus, n_users=args.n_users,
+                              seq_len=args.seq_len, sentences_per_user=30)
+        if args.inject_canaries:
+            canaries = make_canaries(torch.Generator().manual_seed(42),
+                                     vocab=cfg.vocab)
+            ds.inject_canaries(canaries)
+            print(f"injected {len(canaries)} canaries "
+                  f"({sum(c.n_u for c in canaries)} synthetic devices)")
+        n_users = len(ds.users)
+        synth_ids = [u.user_id for u in ds.users if u.is_synthetic]
     dp = DPConfig(clients_per_round=args.clients_per_round,
                   noise_multiplier=args.noise_multiplier,
                   clip_norm=args.clip_norm, server_opt=args.server_opt,
@@ -192,13 +230,15 @@ def main(argv=None):
                   server_momentum=args.server_momentum)
     cl = ClientConfig(local_epochs=args.local_epochs,
                       batch_size=args.client_batch, lr=args.client_lr)
-    pop = PopulationSim(len(ds.users), availability=args.availability,
+    pop = PopulationSim(n_users, availability=args.availability,
                         synthetic_ids=synth_ids, seed=args.seed)
     trainer = FederatedTrainer(model, ds, dp, cl, pop=pop, seed=args.seed,
                                n_local_batches=3, backend=args.backend,
                                rounds_per_call=args.rounds_per_call,
                                cohort_chunk=args.cohort_chunk,
                                clip_path=args.clip_path,
+                               population_backend=population_backend,
+                               population_store=store, sampler=args.sampler,
                                fault_config=faults, device=args.device)
 
     out = Path(args.out)

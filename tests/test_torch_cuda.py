@@ -948,3 +948,121 @@ def test_run_state_on_card_resumes_bitwise(cuda_device, tmp_path,
         assert a.device.type == "cuda" and torch.equal(a, b)
     assert resumed.state.history == full.state.history
     assert resumed.accountant.rounds == full.accountant.rounds
+
+
+# ------------------------- the streamed population and the sharded sampler
+#
+# The streamed backend on the card against the device backend, bitwise (one
+# generator on the card, the same draws launched in the same order); the
+# staging, whose two pinned host buffers and two device buffers are each
+# reused two rounds later, while a long kernel each round holds the compute
+# stream back behind the non-blocking copies; the sharded sampler's cohorts
+# on the card against the CPU's on one CPU stream of block draws.
+
+
+def _fleet_setup(sampling="fixed"):
+    from repro_torch.configs import ClientConfig, DPConfig
+    from repro_torch.data.corpus import BigramCorpus
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.data.population_store import InMemoryPopulationStore
+
+    model = build(get_config("gboard-cifg-lstm").with_(
+        **SMALL, compute_dtype="float32"))
+    ds = FederatedDataset(BigramCorpus(vocab_size=300, seed=0), n_users=60,
+                          seq_len=6, sentences_per_user=8)
+    dp = DPConfig(clients_per_round=8, noise_multiplier=0.3, clip_norm=0.05,
+                  server_opt="momentum", server_lr=0.5, server_momentum=0.9,
+                  sampling=sampling)
+    return (model, InMemoryPopulationStore.from_dataset(ds), dp,
+            ClientConfig(batch_size=4, lr=0.3))
+
+
+def _same_state(a, b):
+    from repro_torch.utils.pytree import tree_leaves
+
+    for x, y in ((a.params, b.params),
+                 (a.opt_state.momentum, b.opt_state.momentum)):
+        for u, v in zip(tree_leaves(x), tree_leaves(y)):
+            assert u.device.type == "cuda" and torch.equal(u, v)
+    assert torch.equal(a.participation, b.participation)
+    assert torch.equal(a.last_round, b.last_round)
+
+
+@pytest.mark.parametrize("sampler", ["global", "sharded"])
+@pytest.mark.parametrize("sampling", ["fixed", "poisson"])
+def test_streamed_is_bitwise_the_device_backend_on_card(cuda_device, sampler,
+                                                        sampling):
+    from repro_torch.fl.engine import SimEngine
+
+    model, store, dp, cl = _fleet_setup(sampling)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    out = []
+    for backend, meth in (("device", "run"), ("streamed", "run"),
+                          ("streamed", "run_python")):
+        e = SimEngine(model, store, dp, cl, n_local_batches=2,
+                      availability=1.0, rounds_per_call=2, sampler=sampler,
+                      population_backend=backend, device=cuda_device)
+        out.append(getattr(e, meth)(e.init_state(params, seed=3), 4))
+    for s, h in out[1:]:
+        _same_state(s, out[0][0])
+        for k in ("loss", "mean_update_norm", "n_clients"):
+            np.testing.assert_array_equal(h[k], out[0][1][k])
+
+
+def test_pinned_staging_reuses_each_buffer_after_two_rounds(cuda_device):
+    """The compute stream sleeps ~20 ms a round in the eval hook, behind
+    each round's non-blocking copy out of a pinned buffer: a staging write
+    that did not wait for the copy and the compute two rounds back would
+    overwrite a cohort still being read, and the trajectory would leave
+    the device backend's."""
+    from repro_torch.fl.engine import SimEngine
+
+    model, store, dp, cl = _fleet_setup()
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+
+    def slow_hook(p, r):
+        torch.cuda._sleep(40_000_000)
+        return {"w": p["w_h"].sum()}
+
+    out = []
+    for backend in ("device", "streamed"):
+        e = SimEngine(model, store, dp, cl, n_local_batches=2,
+                      availability=1.0, rounds_per_call=6, sampler="sharded",
+                      population_backend=backend, eval_fn=slow_hook,
+                      device=cuda_device)
+        out.append(e.run(e.init_state(params, seed=3), 6))
+    _same_state(out[1][0], out[0][0])
+    np.testing.assert_array_equal(out[1][1]["eval"]["w"],
+                                  out[0][1]["eval"]["w"])
+    st = e._staging
+    assert all(b.is_pinned() for b in st["host"]) and st["ids"].is_pinned()
+    assert len(st["device"]) == 2 and e.corpus_device_bytes == \
+        2 * e.padded * store.emax * store.row_len * 4
+
+
+def test_sharded_cohorts_on_card_equal_the_cpus(cuda_device):
+    from repro_torch.data.population_store import ReplicatedPopulationStore
+    from repro_torch.fl.engine import EngineDraws, SimEngine
+
+    model, store, dp, cl = _fleet_setup()
+    fleet = ReplicatedPopulationStore(store, 200_000)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    states, engines = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        e = SimEngine(model, fleet, dp, cl, n_local_batches=2,
+                      availability=0.3, sampler="sharded",
+                      population_backend="streamed", device=dev)
+        engines[dev.type] = e
+        states[dev.type] = e.init_state(
+            params, draws=EngineDraws(torch.Generator().manual_seed(0)))
+    for r in range(5):
+        ids = {}
+        for k, e in engines.items():
+            s = states[k]
+            lr, part, cohort = e._sample_phase(s.draws, s.last_round,
+                                               s.participation, r)
+            states[k] = s._replace(last_round=lr, participation=part)
+            ids[k] = cohort.ids.cpu()
+        assert torch.equal(ids["cuda"], ids["cpu"])
+    assert torch.equal(states["cuda"].last_round.cpu(),
+                       states["cpu"].last_round)

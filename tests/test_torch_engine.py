@@ -51,6 +51,22 @@ KW = dict(n_users=40, seq_len=6, sentences_per_user=8)
 GRID = [(1, 4), (2, 6)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch intra-op thread for a file's tests, restored after: under
+    the suite's parallel workers the default thread pools oversubscribe the
+    cores and a CLI run of a second takes minutes. Both sides of every
+    bitwise comparison in a file run under the same setting. It is autouse
+    in this module; `test_torch_faults.py`, `test_torch_streamed.py` and
+    `test_torch_train.py` activate it by importing it, so that import must
+    stay (pytest applies an imported autouse fixture to the importing
+    module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class RefDraws:
     """The reference engine's draws, behind `EngineDraws`' methods."""
 
@@ -359,11 +375,17 @@ def test_noise_std_is_zS_over_qN(tiny_ds):
 
 def test_unported_options_raise(tiny_ds):
     for kw, item in ((dict(num_shards=2), "item 5"),
-                     (dict(num_pods=2), "item 5"),
-                     (dict(population_backend="streamed"), "item 5"),
-                     (dict(sampler="sharded"), "item 5")):
+                     (dict(num_pods=2), "item 5")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             _tiny_engine(tiny_ds, **kw)
+    # the streamed backend and the sharded sampler are ported
+    for kw in (dict(population_backend="streamed"), dict(sampler="sharded")):
+        e, _ = _tiny_engine(tiny_ds, **kw)
+        assert (e.population_backend, e.sampler) == (
+            kw.get("population_backend", "device"),
+            kw.get("sampler", "global"))
+    with pytest.raises(ValueError, match="population_backend"):
+        _tiny_engine(tiny_ds, population_backend="nope")
     with pytest.raises(ValueError, match="sampler"):
         _tiny_engine(tiny_ds, sampler="nope")
     with pytest.raises(ValueError, match="clip_path"):
@@ -433,11 +455,17 @@ def test_training_cli_engine_with_canaries_on_cpu(tmp_path, capsys):
     assert "round    3" in out and "eps=" in out and f"checkpoint: {ck}" in out
     tree, meta = checkpoint.load(ck)
     assert meta["rounds"] == "3" and tree["w_h"].shape == (256, 768)
-    for flag in (["--num-shards", "2"], ["--sampler", "sharded"],
-                 ["--num-pods", "2"], ["--population-backend", "streamed"]):
+    for flag in (["--num-shards", "2"], ["--num-pods", "2"]):
         with pytest.raises(SystemExit):
             train.main(["--device", "cpu"] + flag)
         assert "ROADMAP" in capsys.readouterr().err
+    # the streamed backend and the sharded sampler are ported: the host
+    # backend refuses them, as the reference's CLI does
+    for flag in (["--sampler", "sharded"],
+                 ["--population-backend", "streamed"]):
+        with pytest.raises(SystemExit):
+            train.main(["--device", "cpu", "--backend", "host"] + flag)
+        assert "engine backend" in capsys.readouterr().err
 
 
 def test_engine_entry_points_run_on_cuda_unless_asked_for_the_cpu(tiny_ds,

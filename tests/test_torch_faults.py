@@ -55,6 +55,9 @@ from repro_torch.utils.params import from_jax_params
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from test_torch_engine import (SMALL, TINY, RefDraws, _bitwise,
                                _close_trees, _hist_equal)
+# importing the autouse fixture `_one_thread` is what runs this file's tests
+# on one torch thread (see its docstring); the import is not dead code
+from test_torch_engine import _one_thread  # noqa: F401
 
 KW = dict(n_users=60, seq_len=6, sentences_per_user=8)
 # a mixed stream: at cohort 8 with goal 7 some rounds commit and some abort,

@@ -55,6 +55,9 @@ from repro_torch.models.layers import lm_loss
 from repro_torch.train import checkpoint
 from repro_torch.utils.params import from_jax_params, strip_compute
 from repro_torch.utils.pytree import tree_leaves, tree_map
+# importing the autouse fixture `_one_thread` is what runs this file's tests
+# on one torch thread (see its docstring); the import is not dead code
+from test_torch_engine import _one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": dict(atol=1e-5, rtol=1e-4),
