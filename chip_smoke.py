@@ -38,7 +38,7 @@ line each (any failure exits non-zero and prints no result):
    decode against ``forward`` at full depth; the card's kernels against the
    CPU's plain versions at full width and 6 layers; timings;
 8. memorize — the Secret Sharer on the same CIFG-LSTM: 1000 users and the
-   paper's 27 canaries (189 synthetic devices) trained 20 rounds at cohort
+   paper's 27 canaries (189 synthetic devices) trained 10 rounds at cohort
    128 through ``FederatedTrainer(backend="engine")`` with the canary eval
    hook every 5 rounds, then Random-Sampling ranks at |R| = 2·10⁶ and
    beam-search extraction of every canary; the engine's ``run`` against
@@ -70,7 +70,19 @@ line each (any failure exits non-zero and prints no result):
    rounds through ``FederatedTrainer`` with a read every 5 rounds and 10
    with a read every round (bitwise equal; launches exact), the sample phase per
    sampler, the busy share of one round, the training CLI over the store
-   crashed and resumed (sha256-equal).
+   crashed and resumed (sha256-equal);
+11. decoder serve — granite-3-2b (dense, GQA 32/8 at hd 64) and
+   olmoe-1b-7b (MoE, 64 experts top-8, hd 128) at their published widths
+   and full depth, bf16, random weights from a seed, through ``generate``:
+   4 prompts of 512 tokens, 16 decode steps, half greedy and half sampled;
+   one ``flash_attention_fwd`` launch per layer in the prefill, all on the
+   tensor cores, none in the decode steps; the MoE prefill's dropped pairs
+   counted; prefill plus decode against ``forward`` at full depth (f32 and
+   bf16); timings; then all six decoder configs (phi3-mini's hd 96,
+   phi3-medium's GQA 40/10 at hd 128, stablelm-12b's hd 160 also in bf16
+   on the wide route) card against CPU at full width and 2 layers, the
+   MoE's top-k sets compared token by token (a difference must be a near
+   tie). Runs after phase 7.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1576,6 +1588,13 @@ FLASH_CASES = (
     (2, 512, 32, 32, 80, False, 0, "bfloat16"),
     (2, 512, 32, 32, 80, True, 0, "float32"),
     (2, 100, 8, 2, 96, False, 64, "float32"),
+    # the decoders' prefills: granite-3-2b (GQA 32/8, hd 64), olmoe-1b-7b
+    # (MHA 16, hd 128), phi3-mini-3.8b (hd 96), phi3-medium-14b (GQA
+    # 40/10, hd 128)
+    (4, 512, 32, 8, 64, True, 0, "bfloat16"),
+    (4, 512, 16, 16, 128, True, 0, "bfloat16"),
+    (2, 512, 32, 32, 96, True, 0, "bfloat16"),
+    (2, 512, 40, 10, 128, True, 0, "bfloat16"),
     # hd > 128 (bf16 on the wide route, f32 over more than one output
     # slice): stablelm-12b's 160, then 192 and 256
     (4, 512, 32, 32, 160, True, 0, "bfloat16"),
@@ -1589,14 +1608,19 @@ FLASH_CASES = (
 # the wide route's timed shape: stablelm-12b's head dim at the prefill's
 # (B 4, S 512, 32 heads, causal, bf16)
 FLASH_WIDE_TIMED = (4, 512, 32, 32, 160)
+# the decoders' main-path shapes (B, S, H, KV, hd), causal, bf16:
+# granite-3-2b's and olmoe-1b-7b's prefill of 4 x 512
+FLASH_DECODER_TIMED = ((4, 512, 32, 8, 64), (4, 512, 16, 16, 128))
 
 
 def phase_kernel_flash(dev) -> dict:
     """flash_attention_fwd vs its plain version at the hybrid prefill's
     shape (B 4, S 512, 32 heads, hd 80, causal, bf16) and around it (hd 64
-    and 128, GQA, ragged S, window, bidirectional, f32), and on the wide
-    route (hd 160, 192, 256); every bf16 case on the tensor cores; timed at
-    the path's shape and at hd 160 against the bound, the plain version and
+    and 128, GQA, ragged S, window, bidirectional, f32), at the decoders'
+    prefill shapes (GQA 32/8 at hd 64, hd 96, hd 128 MHA and GQA 40/10), and
+    on the wide route (hd 160, 192, 256); every bf16 case on the tensor
+    cores; timed at the hybrid's shape, at hd 160 and at granite-3-2b's and
+    olmoe-1b-7b's prefill shapes against the bound, the plain version and
     SDPA."""
     import torch
     import torch.nn.functional as F
@@ -1681,6 +1705,25 @@ def phase_kernel_flash(dev) -> dict:
         f"{wide_sdpa * 1e3:.2f} us; bound {wb_ms * 1e3:.3f} us "
         f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, {wb_by}); from the "
         f"profiler's trace: {wide_res}")
+    for B, S, H, KV, hd in FLASH_DECODER_TIMED:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                 (B, S, KV, hd)))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        d_ms = graph_time_ms(lambda: flash_attention(q, k, v), per_graph=20)
+        d_plain = graph_time_ms(lambda: flash_attention_ref(q, k, v),
+                                per_graph=5)
+        d_sdpa = graph_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=KV < H), per_graph=20)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        ops = 4 * B * H * hd * _attention_pairs(S, S, True, 0)
+        db_ms, db_by = _bound(nbytes, ops, "bfloat16")
+        say(f"kernel: flash_attention_fwd bf16 B={B} S={S} H={H} KV={KV} "
+            f"hd={hd} causal (a decoder prefill's), device time: "
+            f"{d_ms * 1e3:.2f} us/launch; plain {d_plain * 1e3:.2f} us; "
+            f"F.scaled_dot_product_attention {d_sdpa * 1e3:.2f} us; bound "
+            f"{db_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
+            f"GFLOP, {db_by})")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_fwd.cu",
@@ -1998,6 +2041,370 @@ def phase_hybrid(dev) -> dict:
     return launches
 
 
+# dense and MoE decoders at full depth, prefill of 256 + 3 decode steps
+# against forward, max abs error relative to the largest logit: the
+# hybrid's tolerances. float32: the prefill and forward differ only in the
+# order of sums (products of another M, flash over another S). bfloat16:
+# the decode step's plain attention rounds the normalised probabilities to
+# bf16 where the flash kernel rounds the unnormalised ones, and that
+# compounds over 40 layers
+TOL_DECODER_CONSISTENT = TOL_HYBRID_CONSISTENT
+# the card (kernels) against the CPU (plain versions), full width, 2
+# layers, relative to the largest logit: float32 as the hybrid's; bfloat16
+# (stablelm-12b, to run flash's wide route, hd 160, inside the model) as
+# the reduced models' CPU tests, where the two sides round at different
+# places (the flash kernel's P before normalising)
+TOL_DECODER_CPU = {"float32": TOL_HYBRID_CPU, "bfloat16": 2e-2}
+# a router near tie: the k-th and (k+1)-th probabilities of a token within
+# this fraction of the k-th, where the order of a float32 sum can decide
+NEAR_TIE = 1e-6
+DECODER_ARCHS = ("granite-3-2b", "phi3-mini-3.8b", "phi3-medium-14b",
+                 "stablelm-12b", "granite-moe-3b-a800m", "olmoe-1b-7b")
+# (name, n_layers, d, heads, kv heads, hd, vocab, parameters) served whole
+DECODER_SERVED = (
+    ("granite-3-2b", 40, 2048, 32, 8, 64, 49155, 2_534_049_792),
+    ("olmoe-1b-7b", 16, 2048, 16, 16, 128, 50304, 6_919_620_608))
+
+
+class RouteLog:
+    """While active, records every `moe.route` call (one per MoE layer and
+    call): per routed token, its top-k set (sorted expert ids, from the
+    router's own float32 probabilities, in lax.top_k's order), the relative
+    gap between its k-th and (k+1)-th probabilities, and how many of its k
+    pairs the capacity dropped. Tokens are those of the flattened groups,
+    padding included (`tokens` cuts it)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def spy(x, p, cfg, capacity=None):
+            combine, aux = self._route(x, p, cfg, capacity)
+            k = cfg.top_k
+            probs = torch.softmax(x.float() @ p["router"]["w"].float(), -1)
+            srt, idx = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+            gap = (srt[..., k - 1] - srt[..., k]) / srt[..., k - 1]
+            kept = (combine > 0).flatten(-2).sum(-1)
+            self.calls.append({
+                "sets": idx[..., :k].sort(-1).values.reshape(-1, k).cpu(),
+                "gap": gap.reshape(-1).cpu(),
+                "dropped": (k - kept).reshape(-1).cpu()})
+            return combine, aux
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def tokens(self, n: int) -> dict:
+        """Each record stacked over the calls (layers), cut to the first n
+        tokens: sets (calls, n, k), gap and dropped (calls, n)."""
+        import torch
+
+        return {key: torch.stack([c[key][:n] for c in self.calls])
+                for key in ("sets", "gap", "dropped")}
+
+
+def _moe_capacity(cfg) -> int:
+    """The capacity the inference path gives a full group of 512."""
+    from repro_torch.models import moe
+
+    return moe._capacity(moe.MOE_GROUP, cfg.n_experts, cfg.top_k,
+                         moe.INFERENCE_CAPACITY_FACTOR)
+
+
+def _clean_prefix(bad):
+    """bad (rows, positions) bool → clean (rows, positions): no bad
+    position at or before it in its row."""
+    return bad.int().cumsum(-1) == 0
+
+
+def _decoder_consistency(model, params, toks, n_pre: int, moe: bool):
+    """A prefill of the first ``n_pre`` tokens of ``toks`` (B, S) plus 3
+    decode steps against ``forward`` over all S (the MoE's on its inference
+    path, ``dropless``), at full depth. For the MoE, a row is held only up
+    to the first token that the two paths routed differently (a dropped
+    pair, or another top-k set: a near tie that the products' order
+    decided); both are counted and printed. Returns the errors relative to
+    the largest logit at positions n_pre - 1 .. n_pre + 2 (None where no
+    row is held) and a note for the line printed."""
+    import torch
+
+    B, S = toks.shape
+    checked = list(range(n_pre - 1, n_pre + 3))
+    held = torch.ones((B, 4), dtype=torch.bool)
+    note = ""
+    with RouteLog() as fwd_log:
+        full = model.forward(params, {"tokens": toks},
+                             **({"dropless": True} if moe else {}))
+    with RouteLog() as pre_log:
+        last, cache = model.prefill(params, {"tokens": toks[:, :n_pre]},
+                                    max_len=S)
+    outs = [last]
+    with RouteLog() as dec_log:
+        for t in checked[1:]:
+            lg, cache = model.decode_step(params, toks[:, t], cache)
+            outs.append(lg)
+    del cache
+    if moe:
+        f, p = fwd_log.tokens(B * S), pre_log.tokens(B * n_pre)
+        k = f["sets"].shape[-1]
+        if int(dec_log.tokens(B)["dropped"].sum()):
+            fail("a decode step dropped a pair: it must route dropless")
+        f_drop = (f["dropped"] > 0).any(0).reshape(B, S)
+        p_drop = (p["dropped"] > 0).any(0).reshape(B, n_pre)
+        moved = (f["sets"].reshape(-1, B, S, k)[:, :, :n_pre]
+                 != p["sets"].reshape(-1, B, n_pre, k)).any(-1).any(0)
+        bad = f_drop.clone()
+        bad[:, :n_pre] |= p_drop | moved
+        held = _clean_prefix(bad)[:, checked]
+        note = (f"; dropped pairs: forward {int(f['dropped'].sum())}, "
+                f"prefill {int(p['dropped'].sum())}; tokens the two paths "
+                f"routed to another top-k set {int(moved.sum())}; logits held "
+                f"in {int(held.sum())} of {held.numel()} (row, position)s")
+    scale = float(full.float().abs().max())
+    errs = []
+    for j, (t, lg) in enumerate(zip(checked, outs)):
+        rows = held[:, j]
+        errs.append(float((lg[rows].float() - full[rows, t].float()).abs()
+                          .max()) / scale if bool(rows.any()) else None)
+    return errs, note
+
+
+def phase_decoder(dev) -> dict:
+    """granite-3-2b and olmoe-1b-7b at their published widths and full
+    depth through generate (flash once per layer in the prefill, every
+    launch on the tensor cores, none in the decode steps), prefill plus
+    decode against forward (f32 and bf16), timings; then all six decoder
+    configs card against CPU at full width and 2 layers. Returns the flash
+    launches of the two served prefills."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+    from repro_torch.utils.pytree import tree_size
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = 0
+    for name, n_layers, d, H, KV, hd, vocab, n_want in DECODER_SERVED:
+        cfg = get_config(name)
+        moe = cfg.family == "moe"
+        widths = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                  cfg.head_dim, cfg.vocab, cfg.compute_dtype)
+        if widths != (n_layers, d, H, KV, hd, vocab, "bfloat16"):
+            fail(f"unexpected {name} widths: {widths}")
+        model = build(cfg)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated() / 2 ** 20
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = tree_size(strip_compute(params))
+        if n_params != n_want:
+            fail(f"{name}: {n_params} parameters, expected {n_want}")
+        weights_mb = torch.cuda.memory_allocated() / 2 ** 20 - base_mb
+
+        B, S0, steps = 4, 512, 16
+        rng = np.random.default_rng(7)
+        prompts = torch.from_numpy(rng.integers(4, cfg.vocab,
+                                                (B, S0))).to(dev)
+        temps = [0.0, 0.0, 0.8, 0.8]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in fa_ops.LAUNCHES:
+            fa_ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        out = generate(model, params, prompts, steps, temperature=temps,
+                       seed=11)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        got = dict(fa_ops.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        want = {"flash_attention_fwd": n_layers,
+                "flash_attention_fwd_tc": n_layers}
+        if got != want:
+            fail(f"{name}: generate launched {got}, expected {want} (one "
+                 f"prefill, none in the decode steps)")
+        launches += got["flash_attention_fwd"]
+        if tuple(out.shape) != (B, S0 + steps) or not torch.equal(
+                out[:, :S0], prompts):
+            fail(f"{name}: generate returned {tuple(out.shape)} or changed "
+                 f"the prompts")
+        new = out[:, S0:]
+        if int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+            fail(f"{name}: generated ids outside [0, {cfg.vocab})")
+        kind = (f"{cfg.n_experts} experts top-{cfg.top_k} (d_ff "
+                f"{cfg.expert_d_ff})" if moe else f"d_ff {cfg.d_ff}")
+        say(f"decoder: {name} {n_layers} layers, d {d}, {H} x hd {hd} heads "
+            f"({KV} KV), {kind}, vocab {vocab}, bf16: {n_params} parameters "
+            f"drawn on the card in {init_s:.2f} s ({weights_mb:.0f} MiB with "
+            f"the bf16 copies); generate {B} x {S0} prompts + {steps} tokens "
+            f"(temperatures {temps}) in {gen_s:.2f} s; flash launches {got} "
+            f"(one per layer in the prefill, all on the tensor cores, none "
+            f"in the decode steps); peak device memory {peak_mb:.0f} MiB; "
+            f"first new tokens {new[:, :4].tolist()}")
+
+        # timings, none claimed
+        batch = {"tokens": prompts}
+        pre = lambda: model.prefill(params, batch, max_len=S0 + steps)  # noqa: E731
+        pre_ms = cuda_time_ms(pre, 3, warmup=1)
+        pre_dev, _, kernels = profiled_device_ms(pre, 1, top=6)
+        _, cache = pre()
+        tok = out[:, S0]
+        dec = lambda: model.decode_step(params, tok, cache)  # noqa: E731
+        dec_ms = cuda_time_ms(dec, 5, warmup=2)
+        dec_dev, _, dec_top = profiled_device_ms(dec, 3, top=4)
+        gen_dev, gen_wall, _ = profiled_device_ms(
+            lambda: generate(model, params, prompts, steps,
+                             temperature=temps, seed=11), 1, warmup=False,
+            top=1, cpu=False)
+        flash_ms = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
+        say(f"decoder: {name} prefill {B} x {S0} {pre_ms:.2f} ms eager "
+            f"({B * S0 / pre_ms * 1e3:.0f} tokens/s), {_fmt_ms(pre_dev)} on "
+            f"the device; decode step at B={B} {dec_ms:.2f} ms eager, "
+            f"{_fmt_ms(dec_dev)} on the device ({B / dec_ms * 1e3:.0f} "
+            f"tokens/s); generate {B * steps / gen_s:.1f} generated tokens/s "
+            f"with its prefill; device busy "
+            f"{'not measured' if gen_dev is None else f'{100 * gen_dev / gen_wall:.1f}%'}"
+            f" of a profiled generate ({_fmt_ms(gen_dev)} of "
+            f"{gen_wall:.1f} ms)")
+        say(f"decoder: {name} device time of one prefill by kernel (flash "
+            f"{flash_ms * 1e3:.1f} us in the top six): " + "; ".join(
+                f"{k} {ms * 1e3:.1f} us x{n:g}" for k, ms, n in kernels))
+        say(f"decoder: {name} device time of one decode step by kernel: "
+            + "; ".join(f"{k} {ms * 1e3:.1f} us x{n:g}"
+                        for k, ms, n in dec_top))
+        del cache
+        if moe:
+            with RouteLog() as log:
+                pre()
+            drops = log.tokens(B * S0)["dropped"]
+            say(f"decoder: {name} prefill {B} x {S0}: groups of 512 routed "
+                f"at capacity {_moe_capacity(cfg)}: {int(drops.sum())} of "
+                f"{drops.numel() * cfg.top_k} token-expert pairs dropped "
+                f"(per layer {drops.sum(1).tolist()}); a decode step drops "
+                f"none")
+
+        # prefill + decode against forward at full depth: the MoE at 2 x
+        # 64 tokens, one group of 128, which its inference path routes
+        # dropless (a larger group drops pairs, counted above)
+        B_c, S_c, n_pre = (2, 64, 48) if moe else (4, 384, 256)
+        toks = torch.from_numpy(rng.integers(4, cfg.vocab,
+                                             (B_c, S_c))).to(dev)
+        m32 = build(cfg.with_(compute_dtype="float32"))
+        p32 = with_compute_copies(strip_compute(params), "float32",
+                                  m32.compute_copies)
+        for dname, m, p in (("float32", m32, p32), ("bfloat16", model,
+                                                    params)):
+            errs, note = _decoder_consistency(m, p, toks, n_pre, moe)
+            tol = TOL_DECODER_CONSISTENT[dname]
+            held = [e for e in errs if e is not None]
+            # a float32 check must hold something; in bfloat16 the MoE's
+            # router reads activations rounded differently on the two
+            # paths, and near ties may leave no row clean (counted)
+            if (dname == "float32" and len(held) < len(errs)) or not all(
+                    np.isfinite(held)) or max(held, default=0.0) > tol:
+                fail(f"{name} {dname}: prefill + decode disagree with "
+                     f"forward: {errs} (tol {tol:g}){note}")
+            say(f"decoder: {name} {dname}, full depth, prefill of {n_pre} + "
+                f"3 decode steps against forward over {S_c} tokens, "
+                f"B={B_c}: max abs err / max |logit| "
+                f"{', '.join('not held' if e is None else f'{e:.2e}' for e in errs)}"
+                f" (tol {tol:g}){note}")
+        del p32, params, m32
+        torch.cuda.empty_cache()
+
+    # the card's kernels against the CPU's plain versions: full width, 2
+    # layers, float32 (and stablelm-12b in bf16 too), B 2, S 64: a group of
+    # 128 tokens, so the MoE routes dropless
+    for name in DECODER_ARCHS:
+        for dname in (("float32", "bfloat16") if name == "stablelm-12b"
+                      else ("float32",)):
+            _decoder_card_vs_cpu(dev, get_config(name), dname)
+    say(f"decoder: phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _decoder_card_vs_cpu(dev, cfg, dname: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = cfg.with_(n_layers=2, compute_dtype=dname)
+    moe = cfg.family == "moe"
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    B, S = 2, 64
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        4, cfg.vocab, (B, S)))
+    kw = {"dropless": True} if moe else {}
+    for k in fa_ops.LAUNCHES:
+        fa_ops.LAUNCHES[k] = 0
+    with RouteLog() as card_log:
+        lg_dev = model.forward(params, {"tokens": toks.to(dev)}, **kw)
+    torch.cuda.synchronize()
+    want = {"flash_attention_fwd": 2,
+            "flash_attention_fwd_tc": 2 * (dname == "bfloat16")}
+    if fa_ops.LAUNCHES != want:
+        fail(f"{cfg.name} 2 layers {dname}: the card forward launched "
+             f"{dict(fa_ops.LAUNCHES)}, expected {want}")
+    cpu_p = with_compute_copies(tree_map(lambda t: t.cpu(),
+                                         strip_compute(params)), dname,
+                                model.compute_copies)
+    del params
+    t0 = time.perf_counter()
+    with RouteLog() as cpu_log:
+        lg_cpu = model.forward(cpu_p, {"tokens": toks}, **kw)
+    cpu_s = time.perf_counter() - t0
+    del cpu_p
+    held = torch.ones((B, S), dtype=torch.bool)
+    note = ""
+    if moe:
+        c, h = card_log.tokens(B * S), cpu_log.tokens(B * S)
+        if int(c["dropped"].sum()) or int(h["dropped"].sum()):
+            fail(f"{cfg.name}: a group of {B * S} tokens dropped a pair")
+        differ = (c["sets"] != h["sets"]).any(-1)          # (layers, tokens)
+        near = h["gap"] <= NEAR_TIE
+        if bool((differ & ~near).any()):
+            fail(f"{cfg.name}: {int((differ & ~near).sum())} tokens routed "
+                 f"to another top-k set on the card with no near tie (gap > "
+                 f"{NEAR_TIE:g})")
+        held = _clean_prefix(differ.any(0).reshape(B, S))
+        note = (f"; MoE routing: {int(differ.sum())} token-layers with "
+                f"another top-k set on the card, all near ties; {int(near.sum())} "
+                f"near ties (gap <= {NEAR_TIE:g}) of {near.numel()} "
+                f"token-layers; logits held at {int(held.sum())} of {B * S} "
+                f"positions")
+    lg_dev = lg_dev.cpu()
+    err = float((lg_dev[held].float() - lg_cpu[held].float()).abs().max()
+                / lg_cpu.float().abs().max())
+    tol = TOL_DECODER_CPU[dname]
+    if not err <= tol:
+        fail(f"{cfg.name}: card and CPU disagree at 2 layers, {dname}: "
+             f"{err:.3e} (tol {tol:g}){note}")
+    say(f"decoder: {cfg.name} card (flash_attention_fwd, hd {cfg.head_dim}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads) against CPU (plain), full "
+        f"width, 2 layers, {dname}, B={B} S={S}: max abs err / max |logit| "
+        f"{err:.2e} (tol {tol:g}); the CPU took {cpu_s:.1f} s{note}")
+
+
 # the card (kernels) against the CPU (plain versions) on canary scores at
 # full width, bf16 products: max abs error relative to the largest score
 # (the float32 sums run in another order, and a one-ulp flip of a bf16
@@ -2093,7 +2500,7 @@ def _pool_scores(model, params, toks, pool, batch: int):
 
 
 def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
-                   vocab: int = 10_000, rounds: int = 20, per_call: int = 5,
+                   vocab: int = 10_000, rounds: int = 10, per_call: int = 5,
                    rs_samples: int = 2_000_000, pool_n: int = 4096) -> dict:
     """The Secret Sharer at full width of gboard-cifg-lstm: DP-FedAvg on
     1000 users plus the paper's 27 canaries (189 synthetic devices) through
@@ -3114,8 +3521,12 @@ def main() -> None:
     for row in clip_rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     hybrid = phase_hybrid(dev)
-    for row in (flash, ssd):
-        row["launches"] = hybrid[row["name"]]
+    decoder = phase_decoder(dev)
+    ssd["launches"] = hybrid["ssd_scan"]
+    flash["launches"] = hybrid["flash_attention_fwd"] + decoder
+    say(f"launches of flash_attention_fwd on the main paths: zamba2-2.7b's "
+        f"prefill {hybrid['flash_attention_fwd']}, granite-3-2b's and "
+        f"olmoe-1b-7b's {decoder} (the card-against-CPU checks not counted)")
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if leaked:

@@ -14,7 +14,8 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture config. ``family`` selects the model implementation;
-    the port builds the ``lstm``, ``ssm`` and ``hybrid`` families so far."""
+    the port builds the ``lstm``, ``ssm``, ``hybrid``, ``dense`` and ``moe``
+    families so far."""
 
     name: str
     family: str

@@ -1,0 +1,18 @@
+"""olmoe-1b-7b [moe] — 64 experts top-8 [arXiv:2409.02060]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b",
+    family="moe",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,     # GQA kv=16 (MHA)
+    d_ff=1024,         # per-expert FFN width
+    expert_d_ff=1024,
+    vocab=50304,
+    n_experts=64,
+    top_k=8,
+    tie_embeddings=False,
+    citation="arXiv:2409.02060 (OLMoE)",
+)

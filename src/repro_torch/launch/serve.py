@@ -8,12 +8,16 @@ checkpoint hot-swap drill. Runs on the GPU unless ``--device cpu``.
         --ckpt experiments/runs/gboard-cifg-lstm_r100.msgpack --steps 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reference --prompt-len 512 --steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --reference --batch 4 --prompt-len 512 --steps 16
 
 ``--reference`` runs the one-shot batch path (:func:`generate`) instead of
-the engine; it is the path of ``mamba2-370m`` and ``zamba2-2.7b``, whose
-caches the engine refuses (their leaves are layer-leading with a shared
-position). ``--ckpt`` and ``--hot-swap`` read checkpoints of the JAX
-package's msgpack format.
+the engine; it is the path of ``mamba2-370m``, ``zamba2-2.7b`` and the dense
+and MoE decoders (granite-3-2b, phi3-mini-3.8b, phi3-medium-14b,
+stablelm-12b, granite-moe-3b-a800m, olmoe-1b-7b), whose caches the engine
+refuses (their leaves are layer-leading with a shared position). Those
+models' weights are drawn on the device from a generator there. ``--ckpt``
+and ``--hot-swap`` read checkpoints of the JAX package's msgpack format.
 """
 from __future__ import annotations
 

@@ -51,6 +51,25 @@ def embed_tokens(p, tokens: torch.Tensor, compute_dtype: torch.dtype
     return EmbedRows.apply(p["tok"], tokens).to(compute_dtype)
 
 
+def token_ids(params, tokens) -> torch.Tensor:
+    """``tokens`` as int64 on the device of a model's parameters (read from
+    ``params["ln_f"]``)."""
+    return torch.as_tensor(tokens, device=params["ln_f"]["scale"].device
+                           ).long()
+
+
+def head_logits(p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,d) → (B,S,Vpad) float32 against the tied (or separate) head
+    of the embedding parameters ``p``, in x's dtype: the serving families'
+    logits. On the CPU the float32 product of those values, as the
+    reference's ``preferred_element_type=float32``; on the card one product
+    in x's dtype (float32 sums, the output rounded to x's dtype)."""
+    w = p.get("head", p["tok"]).to(x.dtype)
+    if x.device.type == "cpu":
+        return x.float() @ w.float().t()
+    return (x @ w.t()).float()
+
+
 def lm_logits(p, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) → logits (B, S, Vpad) in float32. The head is rounded
     to ``x.dtype`` as in the reference (a no-op for weights that are

@@ -6,7 +6,8 @@ The port of ``repro.models.hybrid``, on the same stacked parameter tree
 (``mamba_layers`` leaves carry a leading ``(n_layers, …)`` axis). The
 prefill runs two hand-written CUDA kernels on the card: the SSD scan in
 every Mamba-2 mixer (`repro_torch.models.mamba2.mixer_fwd`) and causal flash
-attention at every shared-attention site (`_shared_attn_fwd`); on the CPU
+attention at every shared-attention site (the dense block,
+`repro_torch.models.transformer._layer_fwd`); on the CPU
 both are their plain PyTorch versions. The decode step's attention over the
 cache (one query, ``kv_len = pos + 1``) is the plain `layers.attention` on
 every device, as in the reference, which has no kernel for it either.
@@ -30,15 +31,16 @@ from functools import partial
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import transformer as T
 from repro_torch.models.api import Model
-from repro_torch.models.embed import embed_tokens, embedding_init
-from repro_torch.models.transformer import _pad_kv
+from repro_torch.models.embed import (embed_tokens, embedding_init,
+                                      head_logits, token_ids)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import torch_dtype
-from repro_torch.utils.params import matrix_copies, with_compute_copies
+from repro_torch.utils.params import (compute_view, matrix_copies,
+                                      with_compute_copies)
 
 
 def n_attn_sites(cfg: ModelConfig) -> int:
@@ -91,37 +93,17 @@ def _groups(params, cfg: ModelConfig):
     """Per attention site, the list of its ``hybrid_attn_every`` Mamba
     layers' parameters (views), in order."""
     grouped = _group_params(params, cfg)
-    return [[M.layer_params(M.layer_params(grouped, g), j)
+    return [[L.layer_params(L.layer_params(grouped, g), j)
              for j in range(cfg.hybrid_attn_every)]
             for g in range(n_attn_sites(cfg))]
-
-
-def _shared_attn_fwd(x, sp, cfg: ModelConfig, positions, *, window):
-    """The shared block over a whole sequence (positions 0..S-1): causal
-    attention through the flash kernel for CUDA tensors, the plain
-    `layers.attention` on the CPU. Returns (x, (k, v))."""
-    h = L.norm(x, sp["ln1"], cfg.norm)
-    q, k, v = L.gqa_project(h, sp["attn"], cfg.n_heads, cfg.n_kv_heads,
-                            cfg.head_dim, positions, cfg.rope_theta)
-    if x.device.type == "cuda":
-        a = flash_attention(q, k, v, causal=True, window=window)
-    else:
-        a = L.attention(q, k, v, q_positions=positions,
-                        kv_positions=positions, causal=True, window=window)
-    B, S = a.shape[:2]
-    x = x + L.matmul(a.reshape(B, S, -1), sp["attn"]["wo"])
-    h2 = L.norm(x, sp["ln2"], cfg.norm)
-    x = x + L.mlp(h2, sp["mlp"], cfg.act)
-    return x, (k, v)
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
     del remat   # the port runs no training of this family yet
     cd = torch_dtype(cfg.compute_dtype)
-    cw = M._weights(params)
-    tokens = M._tokens(params, batch["tokens"])
-    x = embed_tokens(cw["embed"], tokens, cd)
+    cw = compute_view(params)
+    x = embed_tokens(cw["embed"], token_ids(cw, batch["tokens"]), cd)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     sp = cw["shared_attn"]
     mcaches, kvs = [], []
@@ -135,12 +117,11 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             else:
                 out = M.mixer_fwd(h, lp["mixer"], cfg)
             x = x + out
-        x, kv = _shared_attn_fwd(x, sp, cfg, positions,
-                                 window=cfg.attn_window)
+        x, kv = T._layer_fwd(x, sp, cfg, positions, window=cfg.attn_window)
         if collect_cache:
             kvs.append(kv)
     x = L.norm(x, cw["ln_f"], "rmsnorm")
-    logits = M.logits(cw, x)
+    logits = head_logits(cw["embed"], x)
     return (logits, (mcaches, kvs)) if collect_cache else logits
 
 
@@ -166,8 +147,8 @@ def prefill(params, batch, cfg: ModelConfig, *, max_len: int = None):
     ``max_len`` KV slots per site)."""
     logits, (mcaches, kvs) = forward(params, batch, cfg, collect_cache=True)
     cache = M.stack_caches(mcaches, torch_dtype(cfg.compute_dtype))
-    cache["k"] = _pad_kv(torch.stack([k for k, _ in kvs]), max_len)
-    cache["v"] = _pad_kv(torch.stack([v for _, v in kvs]), max_len)
+    cache["k"] = T._pad_kv(torch.stack([k for k, _ in kvs]), max_len)
+    cache["v"] = T._pad_kv(torch.stack([v for _, v in kvs]), max_len)
     cache["pos"] = torch.tensor(logits.shape[1], dtype=torch.int32,
                                 device=logits.device)
     return logits[:, -1, :], cache
@@ -177,13 +158,12 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     """One token for every row at the cache's position ``pos``. Writes the
     token's K and V into ``cache["k"]`` and ``cache["v"]`` in place."""
     cd = torch_dtype(cfg.compute_dtype)
-    cw = M._weights(params)
+    cw = compute_view(params)
     pos = cache["pos"]
-    x = embed_tokens(cw["embed"], M._tokens(params, tokens)[:, None], cd)
+    x = embed_tokens(cw["embed"], token_ids(cw, tokens)[:, None], cd)
     sp = cw["shared_attn"]
     max_len = cache["k"].shape[2]
     kv_positions = torch.arange(max_len, dtype=torch.int32, device=x.device)
-    q_positions = pos.reshape(1)
     # the reference's dynamic_update_slice clamps its start index
     slot = pos.reshape(1).long().clamp(max=max_len - 1)
     new = {"ssm": [], "conv_x": [], "conv_B": [], "conv_C": []}
@@ -199,20 +179,12 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
             for k, c in zip(("conv_x", "conv_B", "conv_C"), conv):
                 new[k].append(c)
             i += 1
-        h = L.norm(x, sp["ln1"], cfg.norm)
-        q, k, v = L.gqa_project(h, sp["attn"], cfg.n_heads, cfg.n_kv_heads,
-                                cfg.head_dim, q_positions, cfg.rope_theta)
-        kc, vc = cache["k"][site], cache["v"][site]
-        kc.index_copy_(1, slot, k.to(kc.dtype))
-        vc.index_copy_(1, slot, v.to(vc.dtype))
-        a = L.attention(q, kc, vc, q_positions=q_positions,
-                        kv_positions=kv_positions, kv_len=pos + 1,
-                        causal=True, window=cfg.attn_window)
-        x = x + L.matmul(a.reshape(x.shape[0], 1, -1), sp["attn"]["wo"])
+        x = T._attn_step(x, sp, cfg, cache["k"][site], cache["v"][site], pos,
+                         slot, kv_positions)
         h2 = L.norm(x, sp["ln2"], cfg.norm)
         x = x + L.mlp(h2, sp["mlp"], cfg.act)
     x = L.norm(x, cw["ln_f"], "rmsnorm")
-    logits = M.logits(cw, x)[:, 0, :]
+    logits = head_logits(cw["embed"], x)[:, 0, :]
     new = {k: torch.stack(v) for k, v in new.items()}
     new.update(k=cache["k"], v=cache["v"], pos=pos + 1)
     return logits, new

@@ -41,6 +41,23 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
     return w.to(device)
 
 
+def stacked_dense_init(generator: torch.Generator, n: int,
+                       shape: Sequence[int], in_dim: Optional[int] = None, *,
+                       device=None) -> torch.Tensor:
+    """``n`` stacked `dense_init` matrices of ``shape`` (fan-in ``in_dim``,
+    default ``shape[0]``), drawn in one call: the leaves of a parameter
+    tree whose layers lie on a leading axis."""
+    return dense_init(generator, (n,) + tuple(shape),
+                      in_dim=in_dim or shape[0], device=device)
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i`` of a stacked parameter tree (views, no copy)."""
+    if isinstance(stacked, dict):
+        return {k: layer_params(v, i) for k, v in stacked.items()}
+    return stacked[i]
+
+
 def embed_init(generator: torch.Generator, shape: Sequence[int], *,
                device=None) -> torch.Tensor:
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
@@ -164,6 +181,26 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_len=None,
         _attend_block(q[:, i:i + q_chunk], k, v, q_positions[i:i + q_chunk],
                       kv_positions, kv_len, window, causal)
         for i in range(0, Sq, q_chunk)], dim=1)
+
+
+# Sliding-window decode keeps a ring of W = attn_window KV slots: position p
+# lives in slot p % W, and a slot's position follows from the arithmetic.
+
+
+def ring_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
+    """Absolute position held by each of the W ring slots at decode step
+    ``pos`` (the new token's position); negative for a slot still empty."""
+    i = torch.arange(W, dtype=torch.int32, device=pos.device)
+    return pos - torch.remainder(pos - i, W)
+
+
+def ring_pack(kv: torch.Tensor, W: int, axis: int = 2) -> torch.Tensor:
+    """The last W positions of a prefill KV stack (…, S, …) in ring order
+    (slot = position % W)."""
+    S = kv.shape[axis]
+    if S <= W:
+        return kv
+    return torch.roll(kv.narrow(axis, S - W, W), S % W, dims=axis)
 
 
 def gqa_init(generator: torch.Generator, d_model: int, n_heads: int,

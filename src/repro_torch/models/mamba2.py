@@ -15,7 +15,7 @@ so the reference's parameter tree crosses over as it is
 
 Weights: a parameter set with compute-dtype copies (``params["compute"]``,
 made once by `repro_torch.utils.params`) computes with them; without them
-each product casts its weight (`_weights`).
+each product casts its weight (`repro_torch.utils.params.compute_view`).
 """
 from __future__ import annotations
 
@@ -30,10 +30,11 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import CHUNK
 from repro_torch.models import layers as L
 from repro_torch.models.api import Model
-from repro_torch.models.embed import embed_tokens, embedding_init
+from repro_torch.models.embed import (embed_tokens, embedding_init,
+                                      head_logits, token_ids)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import torch_dtype
-from repro_torch.utils.params import (COMPUTE, matrix_copies,
+from repro_torch.utils.params import (compute_view, matrix_copies,
                                       with_compute_copies)
 
 
@@ -50,8 +51,8 @@ def mixer_init(generator: torch.Generator, cfg: ModelConfig, *,
     n = n_layers
 
     def dense(shape, in_dim):
-        return L.dense_init(generator, (n,) + shape, in_dim=in_dim,
-                            device=device)
+        return L.stacked_dense_init(generator, n, shape, in_dim,
+                                    device=device)
 
     u = torch.rand((n, H), generator=generator, dtype=torch.float32,
                    device=generator.device).to(device)
@@ -88,13 +89,6 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
                                       device=device),
             "mixer": mixer_init(generator, cfg, n_layers=n_layers,
                                 device=device)}
-
-
-def layer_params(stacked, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copy)."""
-    if isinstance(stacked, dict):
-        return {k: layer_params(v, i) for k, v in stacked.items()}
-    return stacked[i]
 
 
 def _causal_conv(seq, w, b):
@@ -188,29 +182,6 @@ def mixer_step(x, p, cfg: ModelConfig, h, conv_state):
 # ------------------------------------------------------------ the model
 
 
-def _weights(params):
-    """The tree the products read: the compute copies when ``params``
-    carries them, else ``params`` itself (each product then casts)."""
-    return params.get(COMPUTE, params)
-
-
-def _tokens(params, tokens) -> torch.Tensor:
-    return torch.as_tensor(tokens, device=params["ln_f"]["scale"].device
-                           ).long()
-
-
-def logits(cw, x) -> torch.Tensor:
-    """x: (B,S,d) → (B,S,Vpad) float32 against the tied (or separate) head
-    in x's dtype. On the CPU the float32 product of those values, as the
-    reference's ``preferred_element_type=float32``; on the card one product
-    in x's dtype (float32 sums, the output rounded to x's dtype)."""
-    emb = cw["embed"]
-    w = emb.get("head", emb["tok"]).to(x.dtype)
-    if x.device.type == "cpu":
-        return x.float() @ w.float().t()
-    return (x @ w.t()).float()
-
-
 # a compute-dtype mirror of every per-layer matrix; "layers" leaves carry
 # the stacked layer axis
 compute_copies = partial(matrix_copies, stacked=("layers",))
@@ -232,11 +203,11 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
     del remat   # the port runs no training of this family yet
     cd = torch_dtype(cfg.compute_dtype)
-    cw = _weights(params)
-    x = embed_tokens(cw["embed"], _tokens(params, batch["tokens"]), cd)
+    cw = compute_view(params)
+    x = embed_tokens(cw["embed"], token_ids(params, batch["tokens"]), cd)
     caches = []
     for i in range(cfg.n_layers):
-        lp = layer_params(cw["layers"], i)
+        lp = L.layer_params(cw["layers"], i)
         h = L.norm(x, lp["ln"], "rmsnorm")
         if collect_cache:
             out, h_fin, tails = mixer_fwd(h, lp["mixer"], cfg,
@@ -246,7 +217,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             out = mixer_fwd(h, lp["mixer"], cfg)
         x = x + out
     x = L.norm(x, cw["ln_f"], "rmsnorm")
-    out = logits(cw, x)
+    out = head_logits(cw["embed"], x)
     return (out, caches) if collect_cache else out
 
 
@@ -294,11 +265,11 @@ def prefill(params, batch, cfg: ModelConfig, *, max_len: int = None):
 
 def decode_step(params, tokens, cache, cfg: ModelConfig):
     cd = torch_dtype(cfg.compute_dtype)
-    cw = _weights(params)
-    x = embed_tokens(cw["embed"], _tokens(params, tokens)[:, None], cd)
+    cw = compute_view(params)
+    x = embed_tokens(cw["embed"], token_ids(params, tokens)[:, None], cd)
     new = {"ssm": [], "conv_x": [], "conv_B": [], "conv_C": []}
     for i in range(cfg.n_layers):
-        lp = layer_params(cw["layers"], i)
+        lp = L.layer_params(cw["layers"], i)
         hin = L.norm(x, lp["ln"], "rmsnorm")
         out, h_new, conv = mixer_step(
             hin, lp["mixer"], cfg, cache["ssm"][i],
@@ -308,7 +279,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
         for k, c in zip(("conv_x", "conv_B", "conv_C"), conv):
             new[k].append(c.to(cd))
     x = L.norm(x, cw["ln_f"], "rmsnorm")
-    out = logits(cw, x)[:, 0, :]
+    out = head_logits(cw["embed"], x)[:, 0, :]
     new = {k: torch.stack(v) for k, v in new.items()}
     new["pos"] = cache["pos"] + 1
     return out, new

@@ -1,0 +1,249 @@
+"""Mixture-of-Experts decoder (olmoe-1b-7b, granite-moe-3b-a800m): the port
+of ``repro.models.moe``.
+
+GShard/Switch-style dense dispatch: top-k routing with a capacity per
+expert, one-hot dispatch and combine products, and the Switch load-balance
+aux loss. The attention blocks are the dense family's
+(`repro_torch.models.transformer`): flash attention once per layer in the
+prefill for CUDA tensors. The dispatch, expert and combine products are
+plain `torch.einsum` calls, as the reference computes them outside any
+Pallas kernel.
+
+Numerics, as the reference's:
+
+- the router runs in float32 (``x.float() @ w.float()``), so its compute
+  copy stays the float32 parameter (`compute_copies`);
+- the top-k order among equal probabilities is ``lax.top_k``'s (the lower
+  expert first; `_top_k`);
+- ``combine`` is rounded to bfloat16 whatever the compute dtype, and
+  ``dispatch = combine > 0`` is taken after that rounding, so a weight that
+  rounds to 0 drops its token.
+
+Tokens are routed in groups of ``MOE_GROUP`` (the last zero-padded). The
+inference path (``dropless=True``: the prefill and the decode step) gives
+capacity = the group only for groups of at most 128 tokens; a larger group
+(a 4 × 512 prefill) routes at ``_capacity(group, E, k, 1.5)`` and can drop
+pairs that a decode step keeps.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.api import Model
+from repro_torch.models.embed import (embed_tokens, embedding_init,
+                                      head_logits, token_ids)
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.numerics import torch_dtype
+from repro_torch.utils.params import compute_view, with_compute_copies
+
+AUX_LOSS_COEF = 0.01
+CAPACITY_FACTOR = 1.25
+INFERENCE_CAPACITY_FACTOR = 1.5
+MOE_GROUP = 512  # GShard-style local routing groups
+
+
+def _capacity(n_tokens: int, n_experts: int, top_k: int,
+              factor: float = CAPACITY_FACTOR) -> int:
+    c = int(n_tokens * top_k * factor / n_experts) + 1
+    return max(4, min(n_tokens, ((c + 15) // 16) * 16))
+
+
+def compute_copies(params, cd: torch.dtype):
+    """The dense family's copies, but the router keeps its float32 weight:
+    the reference routes in float32 whatever the compute dtype."""
+    out = T.compute_copies(params, cd)
+    out["layers"]["moe"]["router"] = params["layers"]["moe"]["router"]
+    return out
+
+
+def moe_layers_init(generator: torch.Generator, cfg: ModelConfig, n: int, *,
+                    device=None):
+    """Router and experts of ``n`` stacked layers: router ``w`` (n, d, E),
+    ``w_gate`` and ``w_up`` (n, E, d, f), ``w_down`` (n, E, f, d)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+
+    def dense(shape, in_dim):
+        return L.stacked_dense_init(generator, n, shape, in_dim,
+                                    device=device)
+
+    return {"router": {"w": dense((d, E), d)},
+            "w_gate": dense((E, d, f), d), "w_up": dense((E, d, f), d),
+            "w_down": dense((E, f, d), f)}
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
+    """Random parameters drawn from ``generator`` on its own device, then
+    moved to ``device``, with the compute-dtype copies made."""
+    dev = resolve_device(device)
+    layers = T.attn_layers_init(generator, cfg, cfg.n_layers, device=dev)
+    layers["moe"] = moe_layers_init(generator, cfg, cfg.n_layers, device=dev)
+    params = {
+        "embed": embedding_init(generator, cfg, device=dev),
+        "layers": layers,
+        "ln_f": L.norm_init(cfg.d_model, cfg.norm, device=dev),
+    }
+    return with_compute_copies(params, cfg.compute_dtype, compute_copies)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, in descending
+    order, the lower index first among equal values (a stable sort;
+    `torch.topk` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x, p, cfg: ModelConfig, capacity: int = None):
+    """x: (..., T, d), each leading index one routing group → combine
+    (..., T, E, C) float32 and the aux load-balance loss (...) float32."""
+    T_ = x.shape[-2]
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity or _capacity(T_, E, k)
+    logits = x.float() @ p["router"]["w"].float()
+    probs = torch.softmax(logits, dim=-1)                      # (..., T, E)
+    topv, topi = _top_k(probs, k)                              # (..., T, k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    # each pair's place in its expert: the reference counts the pairs of
+    # slot 0 token by token, then those of slot 1 after them, and so on (a
+    # cumsum per slot plus the running fill). In that slot-major order, a
+    # pair's place is its rank among the pairs of its expert: a stable sort
+    # by expert gives the same integers. Pairs at C or past it are dropped
+    # (their weight adds 0 at place 0)
+    lead = x.shape[:-2]
+    e = topi.transpose(-1, -2).reshape(lead + (k * T_,))
+    srt, order = torch.sort(e, dim=-1, stable=True)
+    counts = torch.zeros(lead + (E,), dtype=torch.long, device=x.device)
+    counts.scatter_add_(-1, e, torch.ones_like(e))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    rank = torch.arange(k * T_, device=x.device) - starts.gather(-1, srt)
+    place = torch.empty_like(e).scatter_(-1, order, rank)
+    place = place.reshape(lead + (k, T_)).transpose(-1, -2)    # (..., T, k)
+    # Switch aux loss: E · Σ_e f_e · P_e (f = token fraction, P = mean prob)
+    frac = counts.float() / T_                                 # (..., E)
+    aux = E * torch.sum(frac * probs.mean(-2), dim=-1) / k
+    keep = place < C
+    where = topi * C + torch.where(keep, place, 0)
+    combine = torch.zeros(lead + (T_, E * C), dtype=torch.float32,
+                          device=x.device)
+    combine.scatter_add_(-1, where, topv * keep.float())
+    return combine.reshape(x.shape[:-2] + (T_, E, C)), aux
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in ``a``'s dtype, summed in float32: on the CPU the
+    float32 product rounded once (as `layers.matmul`)."""
+    b = b.to(a.dtype)
+    if a.device.type == "cpu" and a.dtype != torch.float32:
+        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+    return torch.einsum(eq, a, b)
+
+
+def moe_ffn(x, p, cfg: ModelConfig, *, dropless: bool = False):
+    """x: (B, S, d) → (B, S, d) and the aux loss (the mean over groups)."""
+    B, S, d = x.shape
+    cd = x.dtype
+    n = B * S
+    group = min(MOE_GROUP, n)
+    pad = (-n) % group
+    xf = x.reshape(n, d)
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, d))])
+    xg = xf.reshape(-1, group, d)
+    cap = None
+    if dropless:
+        cap = group if group <= 128 else _capacity(
+            group, cfg.n_experts, cfg.top_k, INFERENCE_CAPACITY_FACTOR)
+    combine, aux = route(xg, p, cfg, capacity=cap)
+    combine = combine.to(torch.bfloat16)
+    dispatch = (combine > 0).to(cd)                            # (G,t,E,C)
+    xe = _einsum("gtec,gtd->gecd", dispatch, xg)
+    gate = F.silu(_einsum("gecd,edf->gecf", xe, p["w_gate"]))
+    up = _einsum("gecd,edf->gecf", xe, p["w_up"])
+    h = _einsum("gecf,efd->gecd", gate * up, p["w_down"])
+    y = _einsum("gtec,gecd->gtd", combine.to(cd), h).reshape(-1, d)[:n]
+    return y.reshape(B, S, d), aux.mean()
+
+
+def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
+            collect_cache: bool = False, with_aux: bool = False,
+            dropless: bool = False):
+    """Logits (B, S, Vpad) float32; ``with_aux`` adds the aux loss (the mean
+    over layers); ``collect_cache`` returns (logits, (ks, vs), aux)."""
+    del remat   # the port runs no training of this family yet
+    cw = compute_view(params)
+    x = T._embed_batch(cw, batch, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = []
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(cw["layers"], i)
+        x, kv = T._attn_block(x, lp, cfg, positions, window=cfg.attn_window)
+        h = L.norm(x, lp["ln2"], cfg.norm)
+        y, aux = moe_ffn(h, lp["moe"], cfg, dropless=dropless)
+        x = x + y
+        aux_total = aux_total + aux
+        if collect_cache:
+            kvs.append(kv)
+    x = L.norm(x, cw["ln_f"], cfg.norm)
+    logits = head_logits(cw["embed"], x)
+    aux_total = aux_total / cfg.n_layers
+    if collect_cache:
+        return logits, (torch.stack([k for k, _ in kvs]),
+                        torch.stack([v for _, v in kvs])), aux_total
+    return (logits, aux_total) if with_aux else logits
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+    logits, aux = forward(params, batch, cfg, remat=remat, with_aux=True)
+    nll = L.lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
+    return nll + AUX_LOSS_COEF * aux
+
+
+def prefill(params, batch, cfg: ModelConfig, *, max_len: int = None):
+    """Prompt prefill on the inference path (``dropless``) → (last-position
+    logits (B, Vpad), decode cache)."""
+    logits, (ks, vs), _ = forward(params, batch, cfg, collect_cache=True,
+                                  dropless=True)
+    return logits[:, -1, :], T.prefill_cache(ks, vs, batch["tokens"], cfg,
+                                             max_len)
+
+
+def decode_step(params, tokens, cache, cfg: ModelConfig):
+    """One token (B,) for every row at the cache's position ``pos``, every
+    group routed dropless. Writes into ``cache["k"]`` and ``cache["v"]`` in
+    place."""
+    cd = torch_dtype(cfg.compute_dtype)
+    cw = compute_view(params)
+    pos = cache["pos"]
+    x = embed_tokens(cw["embed"], token_ids(cw, tokens)[:, None], cd)
+    slot, kv_positions = T.decode_slots(cfg, pos, cache["k"].shape[2])
+    for i in range(cfg.n_layers):
+        lp = L.layer_params(cw["layers"], i)
+        x = T._attn_step(x, lp, cfg, cache["k"][i], cache["v"][i], pos, slot,
+                         kv_positions)
+        h = L.norm(x, lp["ln2"], cfg.norm)
+        y, _ = moe_ffn(h, lp["moe"], cfg, dropless=True)
+        x = x + y
+    x = L.norm(x, cw["ln_f"], cfg.norm)
+    logits = head_logits(cw["embed"], x)[:, 0, :]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def build(cfg: ModelConfig) -> Model:
+    return Model(
+        cfg=cfg,
+        init=partial(init, cfg=cfg),
+        forward=partial(forward, cfg=cfg),
+        loss_fn=partial(loss_fn, cfg=cfg),
+        init_cache=partial(T.init_cache, cfg),
+        prefill=partial(prefill, cfg=cfg),
+        decode_step=partial(decode_step, cfg=cfg),
+        compute_copies=compute_copies,
+    )

@@ -72,6 +72,12 @@ def with_compute_copies(params: Dict[str, Any], compute_dtype,
     return out
 
 
+def compute_view(params: Dict[str, Any]) -> Dict:
+    """The tree the products read: the compute copies when ``params``
+    carries them, else ``params`` itself (each product then casts)."""
+    return params.get(COMPUTE, params)
+
+
 def param_device(params: Dict[str, Any]) -> torch.device:
     """The device a parameter set lives on (that of its first leaf)."""
     return tree_leaves(strip_compute(params))[0].device

@@ -1066,3 +1066,58 @@ def test_sharded_cohorts_on_card_equal_the_cpus(cuda_device):
         assert torch.equal(ids["cuda"], ids["cpu"])
     assert torch.equal(states["cuda"].last_round.cpu(),
                        states["cpu"].last_round)
+
+
+# ------------------------------------------------ dense and MoE decoders
+
+
+@pytest.mark.parametrize("arch,dtype", [("granite-3-2b", "float32"),
+                                        ("granite-3-2b", "bfloat16"),
+                                        ("phi3-mini-3.8b", "bfloat16"),
+                                        ("olmoe-1b-7b", "float32")])
+def test_decoder_serving_on_card_matches_cpu(cuda_device, arch, dtype):
+    """A reduced decoder on the card against the same weights on the CPU:
+    the prefill runs flash attention once per layer (the tensor-core form
+    in bf16), the decode steps none. Logits within 1e-4 of the largest in
+    float32 (sums in another order), 2e-2 in bfloat16 (the two round at
+    different places). The MoE runs in float32 only: in bf16 the router
+    reads activations that the two devices round differently, and a near
+    tie among its 4 experts then sends a token elsewhere."""
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = get_config(arch).reduced().with_(compute_dtype=dtype)
+    model = build(cfg)
+    cpu_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card_p = with_compute_copies(
+        tree_map(lambda t: t.to(cuda_device), strip_compute(cpu_p)), dtype,
+        model.compute_copies)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        4, cfg.vocab, (2, 48)))
+    nxt = torch.from_numpy(np.random.default_rng(3).integers(
+        4, cfg.vocab, (3, 2)))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    outs = {}
+    for name, p in (("cuda", card_p), ("cpu", cpu_p)):
+        dev = cuda_device if name == "cuda" else torch.device("cpu")
+        before = dict(FA)
+        last, cache = model.prefill(p, {"tokens": toks.to(dev)}, max_len=56)
+        after = dict(FA)
+        steps = [last]
+        for t in range(3):
+            lg, cache = model.decode_step(p, nxt[t].to(dev), cache)
+            steps.append(lg)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            assert after["flash_attention_fwd"] == \
+                before["flash_attention_fwd"] + cfg.n_layers
+            assert after["flash_attention_fwd_tc"] == \
+                before["flash_attention_fwd_tc"] + cfg.n_layers * (
+                    dtype == "bfloat16")
+        assert FA == after                       # no launch in decode
+        outs[name] = [s.float().cpu() for s in steps]
+    scale = float(outs["cpu"][0].abs().max())
+    for t, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        err = float((a - b).abs().max())
+        assert err <= tol * scale, (t, err, scale)

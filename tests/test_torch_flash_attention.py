@@ -44,6 +44,8 @@ def _jax_ref(q, k, v, causal, window):
     (1, 130, 130, 4, 4, 80),     # zamba2's head dim, ragged S
     (1, 130, 130, 2, 2, 160),    # stablelm-12b's head dim (the wide route)
     (1, 96, 96, 2, 1, 256),
+    (1, 80, 80, 8, 2, 64),       # granite-3-2b's GQA 4:1 at hd 64
+    (1, 80, 80, 2, 2, 128),      # olmoe-1b-7b's MHA at hd 128
 ])
 def test_plain_version_matches_jax(B, Sq, Sk, H, KV, hd, causal, window,
                                    dtype):

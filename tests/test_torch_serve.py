@@ -271,6 +271,23 @@ def test_cache_layout_contract(lstm):
         validate_cache_layout(shared, max_slots=4, max_len=16)
 
 
+def test_cache_layout_contract_rejected(lstm):
+    """The reference's test of the same name: a KV model shares a scalar
+    position and leads its cache with the layer axis, so the engine must
+    refuse it with a clear error, not corrupt slots."""
+    model = build(get_config("granite-3-2b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="continuous-batching"):
+        validate_cache_layout(model, max_slots=4, max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="per-row"):
+        ServeEngine(model, params, max_slots=4)
+    # the paper's model passes the same validation the engine runs
+    lstm_model, _ = lstm
+    cache = validate_cache_layout(lstm_model, max_slots=4, max_len=16,
+                                  device="cpu")
+    assert all(leaf.shape[0] == 4 for leaf in cache.values())
+
+
 def test_probe_falls_back_when_length_is_ignored(lstm):
     """A prefill that ignores ``length`` fails the bitwise probe; the engine
     admits at exact length and still matches the reference."""
