@@ -40,7 +40,7 @@ line each (any failure exits non-zero and prints no result):
 8. memorize — the Secret Sharer on the same CIFG-LSTM: 1000 users and the
    paper's 27 canaries (189 synthetic devices) trained 10 rounds at cohort
    128 through ``FederatedTrainer(backend="engine")`` with the canary eval
-   hook every 5 rounds, then Random-Sampling ranks at |R| = 2·10⁶ and
+   hook every 5 rounds, then Random-Sampling ranks at |R| = 5·10⁵ and
    beam-search extraction of every canary; the engine's ``run`` against
    ``run_python`` and against the host trainer on its draws (bitwise), the
    round across cohort chunks (bitwise), the noise's std, launch counts,
@@ -82,7 +82,25 @@ line each (any failure exits non-zero and prints no result):
    phi3-medium's GQA 40/10 at hd 128, stablelm-12b's hd 160 also in bf16
    on the wide route) card against CPU at full width and 2 layers, the
    MoE's top-k sets compared token by token (a difference must be a near
-   tie). Runs after phase 7.
+   tie). Runs after phase 7;
+12. encdec and vlm serve — whisper-small at its published widths and
+   depth (12 + 12 layers, d 768, 12 x hd 64, bf16, random weights from a
+   seed): 4 clips of 1,500 frame embeddings and a 64-token prompt through
+   ``model.prefill`` (exactly 36 flash launches, all on the tensor cores:
+   the encoder's 12 bidirectional ones at Sq = Sk = 1,500, 12 causal, 12
+   cross-attentions at Sq 64, Sk 1,500), 16 greedy ``decode_step``s (none);
+   prefill plus 3 decode steps against forward (f32 and bf16); card against
+   CPU at full depth in f32; timings; then chameleon-34b at full width and
+   1 layer with 1,024 image embeddings, card against CPU in f32;
+13. every family trains — granite-3-2b, olmoe-1b-7b, mamba2-370m,
+   zamba2-2.7b, whisper-small and chameleon-34b at full width (depth cut
+   as ``TRAIN_FAMILIES`` says): one ``user_update`` each in f32, card
+   against CPU (loss, Δ, norm, clip flag), with exactly 2 flash launches
+   per attention and 2 SSD launches per mixer (the forward and the remat
+   recomputation; the backward is the plain version's gradient); a bf16
+   DP-FedAvg round of 4 clients on the card with its noise std; one
+   ``user_update`` of granite-3-2b at full depth (peak memory, step
+   time); the training CLI on granite-3-2b and zamba2-2.7b reduced.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -203,6 +221,24 @@ def graph_time_ms(fn, per_graph: int = 50, replays: int = 20) -> float:
     ms = _events_ms(run, per_graph * replays)
     del graph
     return ms
+
+
+def fwd_bwd_ms(fn, inputs, iters: int = 20) -> tuple:
+    """Eager time of ``fn(*inputs)`` alone and with the gradient of all
+    its outputs against fixed cotangents, each from CUDA events around
+    ``iters`` calls: (forward ms, forward + backward ms)."""
+    import torch
+
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cots = [torch.randn_like(o) for o in outs]
+
+    def step():
+        o = fn(*ins)
+        torch.autograd.grad(o if isinstance(o, tuple) else (o,), ins, cots)
+    return cuda_time_ms(lambda: fn(*ins), iters), cuda_time_ms(step, iters)
 
 
 # ---------------------------------------------------------------- phases
@@ -1611,6 +1647,12 @@ FLASH_WIDE_TIMED = (4, 512, 32, 32, 160)
 # the decoders' main-path shapes (B, S, H, KV, hd), causal, bf16:
 # granite-3-2b's and olmoe-1b-7b's prefill of 4 x 512
 FLASH_DECODER_TIMED = ((4, 512, 32, 8, 64), (4, 512, 16, 16, 128))
+# whisper-small's two bidirectional shapes (B, Sq, Sk, H, hd), held in
+# both dtypes and timed in bf16: the encoder over 1,500 frames (1,500 =
+# 23 x 64 + 28: the last K tile is partial) and the cross-attention of a
+# 64-token prompt against them
+FLASH_WHISPER = (("encoder", 4, 1500, 1500, 12, 64),
+                 ("cross-attention", 4, 64, 1500, 12, 64))
 
 
 def phase_kernel_flash(dev) -> dict:
@@ -1724,6 +1766,63 @@ def phase_kernel_flash(dev) -> dict:
             f"F.scaled_dot_product_attention {d_sdpa * 1e3:.2f} us; bound "
             f"{db_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} "
             f"GFLOP, {db_by})")
+    for what, B, Sq, Sk, H, hd in FLASH_WHISPER:
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            q = torch.randn((B, Sq, H, hd), generator=gen).to(dev, dtype)
+            k, v = (torch.randn((B, Sk, H, hd), generator=gen).to(dev, dtype)
+                    for _ in range(2))
+            out = flash_attention(q, k, v, causal=False)
+            ref = flash_attention_ref(q, k, v, causal=False)
+            tol = TOL_FLASH[dname]
+            err = float((out.float() - ref.float()).abs().max())
+            if not bool(torch.isfinite(out).all()) or not bool(
+                    ((out.float() - ref.float()).abs()
+                     <= tol + tol * ref.float().abs()).all()):
+                fail(f"flash_attention_fwd disagrees with plain at whisper's "
+                     f"{what} ({dname}, Sq={Sq}, Sk={Sk}): {err:.3e}")
+            worst = max(worst, err)
+            if dname == "float32":
+                say(f"kernel: flash_attention_fwd whisper {what} f32 B={B} "
+                    f"Sq={Sq} Sk={Sk} H={H} hd={hd} bidirectional: max abs "
+                    f"err {err:.2e} (tol atol = rtol = {tol:g})")
+                continue
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            w_ms = graph_time_ms(lambda: flash_attention(q, k, v,
+                                                         causal=False),
+                                 per_graph=20)
+            w_plain = graph_time_ms(lambda: flash_attention_ref(
+                q, k, v, causal=False), per_graph=5)
+            w_sdpa = graph_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), per_graph=20)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            ops = 4 * B * H * hd * _attention_pairs(Sq, Sk, False, 0)
+            wb_ms, wb_by = _bound(nbytes, ops, "bfloat16")
+            say(f"kernel: flash_attention_fwd whisper {what} bf16 B={B} "
+                f"Sq={Sq} Sk={Sk} H={H} hd={hd} bidirectional: max abs err "
+                f"{err:.2e} (tol atol = rtol = {tol:g}); device time "
+                f"{w_ms * 1e3:.2f} us/launch; plain {w_plain * 1e3:.2f} us; "
+                f"F.scaled_dot_product_attention {w_sdpa * 1e3:.2f} us; "
+                f"bound {wb_ms * 1e3:.3f} us ({nbytes / 1e6:.2f} MB, "
+                f"{ops / 1e9:.3f} GFLOP, {wb_by})")
+    # training: the kernel forward with the plain version's gradient
+    # recomputed (the backward of a training step), against SDPA's own
+    # forward and backward, at the encoder's shape with B 2 (phase 13's)
+    B, S, H, hd = 2, 1500, 12, 64
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(3))
+    k_f, k_fb = fwd_bwd_ms(lambda q, k, v: flash_attention(q, k, v,
+                                                           causal=False),
+                           (q, k, v))
+    s_f, s_fb = fwd_bwd_ms(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
+        tuple(t.transpose(1, 2) for t in (q, k, v)))
+    say(f"kernel: flash_attention_fwd training at B={B} S={S} H={H} hd={hd} "
+        f"bidirectional bf16, eager: forward {k_f * 1e3:.1f} us, forward + "
+        f"the recomputed plain backward {k_fb * 1e3:.1f} us (backward "
+        f"{(k_fb - k_f) * 1e3:.1f} us); F.scaled_dot_product_attention "
+        f"forward {s_f * 1e3:.1f} us, forward + backward {s_fb * 1e3:.1f} "
+        f"us (backward {(s_fb - s_f) * 1e3:.1f} us)")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_fwd.cu",
@@ -1865,6 +1964,14 @@ def phase_kernel_ssd(dev) -> dict:
         if row is None:
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by}
+    # training: the kernel forward with the plain chunked form's gradient
+    # recomputed, at zamba2-2.7b's training shape in phase 13 (B 2, S 128)
+    x, dt, Bm, Cm, A = _ssd_inputs(2, 128, 80, 64, 64, gen, dev)
+    k_f, k_fb = fwd_bwd_ms(ssd_scan, (x, dt, Bm, Cm, A))
+    say(f"kernel: ssd_scan training at B=2 S=128 H=80 p=64 N=64 f32, eager: "
+        f"forward {k_f * 1e3:.1f} us, forward + the recomputed plain "
+        f"backward {k_fb * 1e3:.1f} us (backward {(k_fb - k_f) * 1e3:.1f} "
+        f"us)")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:71",
@@ -2071,8 +2178,13 @@ class RouteLog:
     call): per routed token, its top-k set (sorted expert ids, from the
     router's own float32 probabilities, in lax.top_k's order), the relative
     gap between its k-th and (k+1)-th probabilities, and how many of its k
-    pairs the capacity dropped. Tokens are those of the flattened groups,
-    padding included (`tokens` cuts it)."""
+    pairs the capacity dropped; with ``keep_combine`` also the call's
+    float32 combine weights (before the bf16 rounding of `moe.moe_ffn`).
+    Tokens are those of the flattened groups, padding included (`tokens`
+    cuts it)."""
+
+    def __init__(self, keep_combine: bool = False):
+        self.keep_combine = keep_combine
 
     def __enter__(self):
         import torch
@@ -2093,6 +2205,8 @@ class RouteLog:
                 "sets": idx[..., :k].sort(-1).values.reshape(-1, k).cpu(),
                 "gap": gap.reshape(-1).cpu(),
                 "dropped": (k - kept).reshape(-1).cpu()})
+            if self.keep_combine:
+                self.calls[-1]["combine"] = combine.detach().cpu()
             return combine, aux
 
         moe.route = spy
@@ -2108,6 +2222,101 @@ class RouteLog:
 
         return {key: torch.stack([c[key][:n] for c in self.calls])
                 for key in ("sets", "gap", "dropped")}
+
+
+# a combine weight that rounds to another bf16 value on the two devices is
+# a rounding near tie when its two float32 values agree within this,
+# relative: above the sound runs' largest gap (2.60e-6 on the H100) and
+# below what a flash output off by its own float32 tolerance reads there
+# (1.34e-4, `PlantedFlash`); phase 13 reads both in every run and fails
+# unless the bound lies between them
+COMBINE_NEAR = 1e-5
+
+
+class RouteReplay:
+    """While active, every `moe.route` call takes the bf16 rounding of the
+    combine weights from another run's calls (``calls``, a `RouteLog` with
+    ``keep_combine``, in the same order): where the two runs' float32
+    weights round to different bf16 values, the weight is moved to the
+    other run's value, straight-through (the gradient stays this run's).
+    Such a weight is a rounding near tie that the order of a float32 sum
+    decided; each must be one (within ``bound`` of the other run's,
+    relative), else `fail`; with ``bound=None`` the gaps are only read.
+    ``flips`` counts them; ``moved`` counts those where one run routed the
+    pair to no expert (another set, or a capacity drop), and ``gap`` is the
+    largest relative difference among the rest."""
+
+    def __init__(self, calls, bound=COMBINE_NEAR):
+        self.replay, self.bound = calls, bound
+        self.flips, self.moved, self.gap = 0, 0, 0.0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._moe, self._route, self._i = moe, moe.route, 0
+
+        def replay(x, p, cfg, capacity=None):
+            combine, aux = self._route(x, p, cfg, capacity)
+            other = self.replay[self._i]["combine"].to(combine.device)
+            self._i += 1
+            flip = combine.to(torch.bfloat16) != other.to(torch.bfloat16)
+            moved = (combine == 0) != (other == 0)
+            n = int(flip.sum())
+            if n:
+                rel = ((combine.detach() - other).abs() / other.abs())[
+                    flip & ~moved]
+                if rel.numel():
+                    self.gap = max(self.gap, float(rel.max()))
+                self.moved += int(moved.sum())
+                if self.bound is not None and (self.gap > self.bound
+                                               or self.moved):
+                    fail(f"combine weights round to another bf16 value with "
+                         f"no near tie: relative gap {self.gap:.2e} (near "
+                         f"tie <= {self.bound:g}), {self.moved} pairs on "
+                         f"another expert")
+                self.flips += n
+            return combine + torch.where(flip, other - combine,
+                                         0.0).detach(), aux
+
+        moe.route = replay
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+class PlantedFlash:
+    """While active, a planted fault: every flash output of the attention
+    families is off by ``tol`` + ``tol`` · |out| (at ``TOL_FLASH``'s float32
+    value, the edge of phase 3's check), with a fixed ±1 sign pattern, so
+    that the recomputation under remat sees the same output. Used only to
+    read what `RouteReplay`'s bound has to catch."""
+
+    def __init__(self, tol: float):
+        self.tol = tol
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import transformer
+
+        self._mod, self._flash = transformer, transformer.flash_attention
+
+        def planted(q, k, v, **kw):
+            out = self._flash(q, k, v, **kw)
+            g = torch.Generator(device=out.device).manual_seed(0)
+            sign = torch.randint(0, 2, out.shape, generator=g,
+                                 device=out.device) * 2 - 1
+            return out + (self.tol * (1 + out.detach().abs()) * sign).to(
+                out.dtype)
+
+        transformer.flash_attention = planted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.flash_attention = self._flash
 
 
 def _moe_capacity(cfg) -> int:
@@ -2501,7 +2710,7 @@ def _pool_scores(model, params, toks, pool, batch: int):
 
 def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
                    vocab: int = 10_000, rounds: int = 10, per_call: int = 5,
-                   rs_samples: int = 2_000_000, pool_n: int = 4096) -> dict:
+                   rs_samples: int = 500_000, pool_n: int = 4096) -> dict:
     """The Secret Sharer at full width of gboard-cifg-lstm: DP-FedAvg on
     1000 users plus the paper's 27 canaries (189 synthetic devices) through
     FederatedTrainer(backend="engine") with the canary eval hook, then
@@ -3473,6 +3682,556 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
             "sample_ms": sample_ms, "bytes_per_user": per_user}
 
 
+# ------------------------------------------------ encdec, vlm, training
+
+# prefill + decode against forward for whisper-small, relative to the
+# largest logit: as the hybrid's (float32 sums in another order; bf16
+# rounds differently on the two paths over 24 layers)
+TOL_ENCDEC_CONSISTENT = TOL_HYBRID_CONSISTENT
+# the card (kernels) against the CPU (plain versions), float32, relative to
+# the largest logit
+TOL_ENCDEC_CPU = 1e-4
+# one user_update card against CPU, float32: the loss relative; ‖Δ_card −
+# Δ_cpu‖ / ‖Δ_cpu‖; the pre-clip norm relative (the kernels and the plain
+# recomputation order their float32 sums differently)
+TOL_TRAIN = {"loss": 1e-5, "delta": 1e-4, "norm": 1e-4}
+# (arch, layers kept, S, image tokens) of phase 13's card-against-CPU
+# user_update: depth cut only as far as the CPU side needs; whisper-small
+# whole; chameleon-34b's 1,024 image tokens do not fit a 64-token batch,
+# so 32 patch embeddings lead it
+TRAIN_FAMILIES = (("granite-3-2b", 2, 64, 0), ("olmoe-1b-7b", 2, 64, 0),
+                  ("mamba2-370m", 2, 128, 0), ("zamba2-2.7b", 6, 128, 0),
+                  ("whisper-small", None, 64, 0),
+                  ("chameleon-34b", 1, 64, 32))
+WHISPER_PARAMS = 238_279_680
+
+
+def _attn_sites(cfg) -> int:
+    """Flash launches of one forward of ``cfg``'s model."""
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+            "hybrid": cfg.n_layers // max(cfg.hybrid_attn_every, 1),
+            "ssm": 0}.get(cfg.family, 0)
+
+
+def _mixers(cfg) -> int:
+    """SSD scan launches of one forward of ``cfg``'s model."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def _reset(*counters) -> None:
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def phase_encdec(dev) -> dict:
+    """whisper-small at its published widths and depth (bf16, random
+    weights from a seed): 4 clips of 1,500 frame embeddings and a 64-token
+    prompt through ``model.prefill`` (36 flash launches: 12 encoder
+    self-attentions at Sq = Sk = 1,500, 12 causal decoder self-attentions,
+    12 cross-attentions at Sq 64, Sk 1,500; all on the tensor cores), then
+    16 greedy ``decode_step``s (no launch); prefill plus 3 decode steps
+    against forward (f32 and bf16); the card against the CPU at full depth
+    in f32; timings. Then chameleon-34b at full width, 1 layer, 1,024 image
+    embeddings and 64 text tokens, card against CPU in f32. Returns the
+    flash launches of the served prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+    from repro_torch.utils.pytree import tree_map, tree_size
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-small")
+    widths = (cfg.n_enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+              cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
+              cfg.n_audio_frames, cfg.act, cfg.norm, cfg.compute_dtype)
+    if widths != (12, 12, 768, 12, 12, 64, 3072, 51865, 1500, "gelu",
+                  "layernorm", "bfloat16"):
+        fail(f"unexpected whisper-small widths: {widths}")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    n_params = tree_size(strip_compute(params))
+    if n_params != WHISPER_PARAMS:
+        fail(f"whisper-small: {n_params} parameters, expected "
+             f"{WHISPER_PARAMS}")
+    B, F, S0, steps = 4, cfg.n_audio_frames, 64, 16
+    rng = np.random.default_rng(21)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, F, cfg.d_model)).astype(np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(4, cfg.vocab, (B, S0))).to(dev)
+    batch = {"frames": frames, "tokens": prompts}
+
+    def serve():
+        last, cache = model.prefill(params, batch, max_len=S0 + steps)
+        pre = dict(fa_ops.LAUNCHES)
+        toks = []
+        for _ in range(steps):
+            tok = last[:, :cfg.vocab].argmax(-1)
+            toks.append(tok)
+            last, cache = model.decode_step(params, tok, cache)
+        return pre, torch.stack(toks, 1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(fa_ops.LAUNCHES)
+    t0 = time.perf_counter()
+    pre, new = serve()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_sites = _attn_sites(cfg)
+    want = {"flash_attention_fwd": n_sites, "flash_attention_fwd_tc": n_sites}
+    if pre != want or dict(fa_ops.LAUNCHES) != want:
+        fail(f"whisper-small: the prefill launched {pre} and the decode "
+             f"steps left {dict(fa_ops.LAUNCHES)}, expected {want} and none "
+             f"in the decode steps")
+    launches = pre["flash_attention_fwd"]
+    if int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+        fail(f"whisper-small: generated ids outside [0, {cfg.vocab})")
+    say(f"encdec: whisper-small {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} x hd {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, bf16: {n_params} parameters; "
+        f"prefill of {B} x {F} frames + {S0} tokens and {steps} greedy "
+        f"decode steps in {serve_s:.2f} s; flash launches {pre} in the "
+        f"prefill ({cfg.n_enc_layers} encoder at Sq = Sk = {F}, "
+        f"{cfg.n_layers} causal self, {cfg.n_layers} cross at Sq {S0}, Sk "
+        f"{F}; all on the tensor cores), none in the decode "
+        f"steps; peak device memory {peak_mb:.0f} MiB; first new tokens "
+        f"{new[:, :4].tolist()}")
+
+    # timings, none claimed
+    pre_fn = lambda: model.prefill(params, batch, max_len=S0 + steps)  # noqa: E731
+    pre_ms = cuda_time_ms(pre_fn, 3, warmup=1)
+    pre_dev, _, kernels = profiled_device_ms(pre_fn, 1, top=6)
+    last, cache = pre_fn()
+    tok = last[:, :cfg.vocab].argmax(-1)
+    dec = lambda: model.decode_step(params, tok, cache)  # noqa: E731
+    dec_ms = cuda_time_ms(dec, 5, warmup=2)
+    dec_dev, _, _ = profiled_device_ms(dec, 3, top=1)
+    all_dev, all_wall, _ = profiled_device_ms(serve, 1, warmup=False, top=1,
+                                              cpu=False)
+    flash_ms = sum(ms for k, ms, _ in kernels if "flash_fwd" in k)
+    say(f"encdec: whisper-small prefill {B} x ({F} frames + {S0} tokens) "
+        f"{pre_ms:.2f} ms eager, {_fmt_ms(pre_dev)} on the device; decode "
+        f"step at B={B} {dec_ms:.2f} ms eager, {_fmt_ms(dec_dev)} on the "
+        f"device; device busy "
+        f"{'not measured' if all_dev is None else f'{100 * all_dev / all_wall:.1f}%'}"
+        f" of a profiled prefill + {steps} steps ({_fmt_ms(all_dev)} of "
+        f"{all_wall:.1f} ms); top kernels of a prefill (flash "
+        f"{flash_ms * 1e3:.1f} us among them): " + "; ".join(
+            f"{k} {ms * 1e3:.1f} us x{n:g}" for k, ms, n in kernels))
+    del cache
+
+    # prefill + 3 decode steps against forward, full depth
+    n_pre = 48
+    toks = prompts[:, :n_pre + 3]
+    m32 = build(cfg.with_(compute_dtype="float32"))
+    p32 = with_compute_copies(strip_compute(params), "float32",
+                              m32.compute_copies)
+    for dname, m, p in (("float32", m32, p32), ("bfloat16", model, params)):
+        full = m.forward(p, {"frames": frames, "tokens": toks})
+        last, cache = m.prefill(p, {"frames": frames,
+                                    "tokens": toks[:, :n_pre]},
+                                max_len=n_pre + 3)
+        outs = [last]
+        for t in range(n_pre, n_pre + 3):
+            lg, cache = m.decode_step(p, toks[:, t], cache)
+            outs.append(lg)
+        scale = float(full.float().abs().max())
+        errs = [float((o.float() - full[:, n_pre - 1 + j].float()).abs()
+                      .max()) / scale for j, o in enumerate(outs)]
+        tol = TOL_ENCDEC_CONSISTENT[dname]
+        if not all(np.isfinite(errs)) or max(errs) > tol:
+            fail(f"whisper-small {dname}: prefill + decode disagree with "
+                 f"forward: {errs} (tol {tol:g})")
+        say(f"encdec: whisper-small {dname}, full depth, prefill of {n_pre} "
+            f"+ 3 decode steps against forward over {n_pre + 3} tokens, "
+            f"B={B}: max abs err / max |logit| "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:g})")
+        del cache
+
+    # the card's kernels against the CPU's plain versions, full depth, f32
+    b1 = {"frames": frames[:1], "tokens": prompts[:1]}
+    _reset(fa_ops.LAUNCHES)
+    lg_dev = m32.forward(p32, b1).cpu()
+    if fa_ops.LAUNCHES["flash_attention_fwd"] != n_sites:
+        fail(f"whisper-small f32 forward launched {dict(fa_ops.LAUNCHES)}")
+    cpu_p = with_compute_copies(tree_map(lambda t: t.cpu(),
+                                         strip_compute(params)), "float32",
+                                m32.compute_copies)
+    t0 = time.perf_counter()
+    lg_cpu = m32.forward(cpu_p, {k: v.cpu() for k, v in b1.items()})
+    cpu_s = time.perf_counter() - t0
+    err = float((lg_dev - lg_cpu).abs().max() / lg_cpu.abs().max())
+    if not err <= TOL_ENCDEC_CPU:
+        fail(f"whisper-small: card and CPU disagree: {err:.3e} (tol "
+             f"{TOL_ENCDEC_CPU:g})")
+    say(f"encdec: whisper-small card (flash, f32) against CPU (plain), full "
+        f"width and depth, B=1, {F} frames + {S0} tokens: max abs err / max "
+        f"|logit| {err:.2e} (tol {TOL_ENCDEC_CPU:g}); the CPU took "
+        f"{cpu_s:.1f} s")
+    del params, p32, cpu_p, m32
+    torch.cuda.empty_cache()
+
+    # chameleon-34b: full width, 1 layer, card against CPU, f32
+    cfg = get_config("chameleon-34b")
+    widths = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+              cfg.d_ff, cfg.vocab, cfg.n_image_tokens, cfg.tie_embeddings)
+    if widths != (8192, 64, 8, 128, 22016, 65536, 1024, False):
+        fail(f"unexpected chameleon-34b widths: {widths}")
+    cfg = cfg.with_(n_layers=1, compute_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    n_img, n_txt = cfg.n_image_tokens, 64
+    img = torch.from_numpy(rng.standard_normal(
+        (1, n_img, cfg.d_model)).astype(np.float32) * 0.02)
+    toks = torch.from_numpy(rng.integers(4, cfg.vocab, (1, n_img + n_txt)))
+    _reset(fa_ops.LAUNCHES)
+    lg_dev = model.forward(params, {"tokens": toks.to(dev),
+                                    "image_embeds": img.to(dev)}).cpu()
+    vlm_launches = dict(fa_ops.LAUNCHES)
+    if vlm_launches["flash_attention_fwd"] != cfg.n_layers:
+        fail(f"chameleon-34b forward launched {vlm_launches}")
+    cpu_p = with_compute_copies(tree_map(lambda t: t.cpu(),
+                                         strip_compute(params)), "float32",
+                                model.compute_copies)
+    n_vlm = tree_size(strip_compute(params))
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lg_cpu = model.forward(cpu_p, {"tokens": toks, "image_embeds": img})
+    cpu_s = time.perf_counter() - t0
+    del cpu_p
+    err = float((lg_dev - lg_cpu).abs().max() / lg_cpu.abs().max())
+    if not err <= TOL_ENCDEC_CPU:
+        fail(f"chameleon-34b: card and CPU disagree at 1 layer: {err:.3e} "
+             f"(tol {TOL_ENCDEC_CPU:g})")
+    say(f"vlm: chameleon-34b full width (d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads x hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, untied), 1 layer ({n_vlm} parameters), f32, B=1: "
+        f"{n_img} image embeddings + {n_txt} tokens, card (flash launches "
+        f"{vlm_launches}) against CPU: max abs err / max |logit| {err:.2e} "
+        f"(tol {TOL_ENCDEC_CPU:g}); the CPU took {cpu_s:.1f} s")
+    say(f"encdec: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": launches}
+
+
+def _family_batches(cfg, B: int, S: int, n_img: int, seed: int) -> dict:
+    """One batch (leading n_batches axis of 1) of ``cfg``'s family on the
+    CPU: tokens and labels, and the stub inputs (frame or patch
+    embeddings)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(4, cfg.vocab, (1, B, S + 1))
+    b = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (1, B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["image_embeds"] = (rng.standard_normal(
+            (1, B, n_img, cfg.d_model)) * 0.02).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def _tree_rel_diff(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over two trees of one structure, leaf by leaf on
+    ``b``'s device (no flat copy of a full-width tree)."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    num = den = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x = x.detach().to(y.device).float()
+        num += float(((x - y.float()) ** 2).sum())
+        den += float((y.float() ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _tree_std(a, b) -> float:
+    """The std of every entry of a − b over two trees of one structure."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    n = s1 = s2 = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.float() - y.float()).double()
+        n += d.numel()
+        s1 += float(d.sum())
+        s2 += float((d * d).sum())
+    return ((s2 - s1 * s1 / n) / (n - 1)) ** 0.5
+
+
+def phase_families(dev) -> dict:
+    """Every family trains on the card at full width (C1): per family one
+    ``user_update`` in f32, card against CPU, on the same weights and
+    batch (B 2, S 128 for the SSM and hybrid families and 64 for the
+    others; depth cut as `TRAIN_FAMILIES` says), with the flash and SSD
+    launches of the client step exact under remat; the MoE's top-k sets
+    compared first, its bf16 combine roundings replayed on the CPU within
+    `COMBINE_NEAR`, a bound that must catch two planted flash faults
+    (`PlantedFlash`); then one DP-FedAvg round of 4 clients on the card in
+    bf16 with its noise std; then granite-3-2b at full depth, one
+    ``user_update`` (peak memory, step time); then the training CLI on
+    granite-3-2b and zamba2-2.7b reduced, 2 rounds each, in process.
+    Returns the launches of the main path (the bf16 rounds, the memory
+    probe and the CLI runs)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.core.dp_fedavg import finalize_round, server_step
+    from repro_torch.core.server_optim import init_state
+    from repro_torch.fl.client import user_update
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_size
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    client = ClientConfig(local_epochs=1, batch_size=2, lr=0.1)
+    dp = DPConfig(clients_per_round=4, noise_multiplier=0.3, clip_norm=0.5)
+    counters = (fa_ops.LAUNCHES, ssd_ops.LAUNCHES, clip_ops.LAUNCHES)
+    main_path = {"flash_attention_fwd": 0, "ssd_scan": 0, "dp_sumsq": 0,
+                 "dp_clip_accumulate": 0}
+    rows = []
+    for name, n_layers, S, n_img in TRAIN_FAMILIES:
+        cfg = get_config(name).with_(compute_dtype="float32")
+        if n_layers is not None:
+            cfg = cfg.with_(n_layers=n_layers)
+        model = build(cfg)
+        cpu_p = strip_compute(model.init(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+        card_p = tree_map(lambda t: t.to(dev), cpu_p)
+        n_params = tree_size(cpu_p)
+        b = _family_batches(cfg, 2, S, n_img, seed=len(rows))
+        moe = cfg.family == "moe"
+        sites, mixers = _attn_sites(cfg), _mixers(cfg)
+        _reset(*counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with RouteLog(keep_combine=moe) as card_log:
+            dc, nc, fc, lc = user_update(
+                model, card_p, {k: v.to(dev) for k, v in b.items()}, client,
+                dp)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        got = (fa_ops.LAUNCHES["flash_attention_fwd"],
+               ssd_ops.LAUNCHES["ssd_scan"])
+        if got != (2 * sites, 2 * mixers):
+            fail(f"{name}: one client step launched flash {got[0]} and the "
+                 f"SSD scan {got[1]} times, expected {2 * sites} and "
+                 f"{2 * mixers} (forward and remat recomputation)")
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(dc)):
+            fail(f"{name}: the card's update holds a non-finite value")
+        del card_p
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with RouteLog() as cpu_log:
+            dh, nh, fh, lh = user_update(model, cpu_p, b, client, dp)
+        cpu_s = time.perf_counter() - t0
+        note, hold = "", True
+        if moe:
+            c_sets = torch.stack([c["sets"] for c in card_log.calls])
+            h_sets = torch.stack([c["sets"] for c in cpu_log.calls])
+            gaps = torch.stack([c["gap"] for c in cpu_log.calls])
+            differ = (c_sets != h_sets).any(-1)
+            near = gaps <= NEAR_TIE
+            if bool((differ & ~near).any()):
+                fail(f"{name}: {int((differ & ~near).sum())} token-calls "
+                     f"routed to another top-k set on the card with no near "
+                     f"tie")
+            hold = not bool(differ.any())
+            # the bf16 combine weights: a weight whose two float32 values
+            # straddle a bf16 rounding boundary moves every gradient; the
+            # CPU runs again with the card's roundings, and Δ is held there
+            raw = _tree_rel_diff(dc, dh)
+            # (a pair on another expert at a near tie leaves Δ unheld)
+            with RouteReplay(card_log.calls,
+                             bound=COMBINE_NEAR if hold else None) as rep:
+                dh, nh, fh, lh = user_update(model, cpu_p, b, client, dp)
+            # planted faults: flash's output off by its own float32
+            # tolerance, then by the card-against-CPU one, the CPU replaying
+            # each run's roundings with the bound off; the bound must catch
+            # both
+            planted = []
+            for tol in (TOL_FLASH["float32"], TOL_ENCDEC_CPU):
+                card_p = tree_map(lambda t: t.to(dev), cpu_p)
+                with PlantedFlash(tol), RouteLog(keep_combine=True) as log:
+                    user_update(model, card_p, {k: v.to(dev) for k, v in
+                                                b.items()}, client, dp)
+                del card_p
+                torch.cuda.empty_cache()
+                with RouteReplay(log.calls, bound=None) as bad:
+                    user_update(model, cpu_p, b, client, dp)
+                planted.append((tol, bad.flips, bad.moved, bad.gap))
+            note = (f"; MoE routing over {len(card_log.calls)} router calls "
+                    f"(forward and recomputation): {int(differ.sum())} "
+                    f"token-calls with another top-k set, "
+                    f"{int(near.sum())} near ties (gap <= {NEAR_TIE:g}) of "
+                    f"{near.numel()}; {rep.flips} bf16 combine weights "
+                    f"rounded the other way (near ties, float32 values "
+                    f"within {rep.gap:.2e}): |dDelta|/|Delta| "
+                    f"{raw:.2e} before the CPU took the card's roundings, "
+                    f"the figures here after; planted faults (flash off by "
+                    f"tol + tol|out|): "
+                    + ", ".join(f"tol {t:g} flips {n} ({m} on another "
+                                f"expert), the others' largest gap {g:.2e}"
+                                for t, n, m, g in planted)
+                    + f" (bound {COMBINE_NEAR:g})")
+            if not all(gap > COMBINE_NEAR or moved
+                       for _, _, moved, gap in planted):
+                fail(f"{name}: the combine near-tie bound {COMBINE_NEAR:g} "
+                     f"does not catch a planted fault{note}")
+        del cpu_p
+        errs = {"loss": abs(float(lc) - float(lh)) / abs(float(lh)),
+                "norm": abs(float(nc) - float(nh)) / float(nh),
+                "delta": _tree_rel_diff(dc, dh)}
+        del dc, dh
+        torch.cuda.empty_cache()
+        bad = {k: v for k, v in errs.items() if not v <= TOL_TRAIN[k]}
+        if float(fc) != float(fh):
+            fail(f"{name}: was_clipped {float(fc)} on the card, {float(fh)} "
+                 f"on the CPU")
+        if bad and (hold or "delta" not in bad or len(bad) > 1):
+            fail(f"{name}: user_update card against CPU out of tolerance: "
+                 f"{bad} (tol {TOL_TRAIN}){note}")
+        say(f"train-family: {name} ({cfg.family}) full width, "
+            f"{cfg.n_layers} layers{'' if n_layers is None else ' (cut)'}, "
+            f"{n_params} parameters, f32, B=2 S={S}"
+            f"{f', {n_img} image embeddings' if n_img else ''}: user_update "
+            f"card against CPU: loss {errs['loss']:.2e}, |dDelta|/|Delta| "
+            f"{errs['delta']:.2e}{'' if hold else ' (not held: routing)'}, "
+            f"norm {errs['norm']:.2e} (tol {TOL_TRAIN}); was_clipped "
+            f"{float(fc):g} both; launches flash {got[0]}, ssd_scan {got[1]}"
+            f" (2 x {sites} sites, 2 x {mixers} mixers under remat); card "
+            f"{card_s:.2f} s, peak {peak_mb:.0f} MiB; CPU {cpu_s:.1f} s"
+            f"{note}")
+
+        # one DP-FedAvg round on the card, bf16, 4 clients
+        cfg16 = cfg.with_(compute_dtype="bfloat16")
+        model = build(cfg16)
+        params = strip_compute(model.init(
+            torch.Generator(device=dev).manual_seed(1), device=dev))
+        opt = init_state(params)
+        _reset(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, losses = None, []
+        for u in range(4):
+            bu = _family_batches(cfg16, 2, S, n_img, seed=100 + u)
+            delta, _, _, loss = user_update(
+                model, params, {k: v.to(dev) for k, v in bu.items()}, client,
+                dp)
+            total = delta if total is None else tree_map(torch.add, total,
+                                                         delta)
+            losses.append(float(loss))
+        mean = tree_map(lambda l: l / 4, total)
+        noised, stats = finalize_round(
+            total, 4, torch.Generator(device=dev).manual_seed(99), dp)
+        params, opt = server_step(params, opt, noised, dp)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        got = (fa_ops.LAUNCHES["flash_attention_fwd"],
+               ssd_ops.LAUNCHES["ssd_scan"])
+        if got != (8 * sites, 8 * mixers):
+            fail(f"{name}: the bf16 round launched flash {got[0]} and the "
+                 f"SSD scan {got[1]} times, expected {8 * sites} and "
+                 f"{8 * mixers}")
+        main_path["flash_attention_fwd"] += got[0]
+        main_path["ssd_scan"] += got[1]
+        sigma = dp.noise_multiplier * dp.clip_norm / 4
+        std = _tree_std(noised, mean)
+        if abs(std / sigma - 1) > 0.02:
+            fail(f"{name}: noise std {std:.4e}, expected {sigma:.4e} within "
+                 f"2%")
+        if not (all(np.isfinite(losses)) and all(
+                bool(torch.isfinite(t).all()) for t in tree_leaves(params))):
+            fail(f"{name}: the bf16 round gave non-finite values")
+        say(f"train-family: {name} bf16 DP-FedAvg round on the card, 4 "
+            f"clients: losses {[round(x, 3) for x in losses]}, noise std "
+            f"{std:.4e} against zS/qN {sigma:.4e}; launches flash {got[0]}, "
+            f"ssd_scan {got[1]}; {round_s:.2f} s")
+        del params, opt, total, mean, noised, delta
+        torch.cuda.empty_cache()
+        rows.append(name)
+
+    # granite-3-2b at full depth: one user_update on the card
+    cfg = get_config("granite-3-2b")
+    model = build(cfg)
+    params = strip_compute(model.init(
+        torch.Generator(device=dev).manual_seed(2), device=dev))
+    n_params = tree_size(params)
+    b = {k: v.to(dev) for k, v in _family_batches(cfg, 2, 64, 0, 7).items()}
+    _reset(*counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    delta, norm, _, loss = user_update(model, params, b, client, dp)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if fa_ops.LAUNCHES["flash_attention_fwd"] != 2 * cfg.n_layers:
+        fail(f"granite-3-2b full depth: {dict(fa_ops.LAUNCHES)} flash "
+             f"launches, expected {2 * cfg.n_layers}")
+    main_path["flash_attention_fwd"] += fa_ops.LAUNCHES["flash_attention_fwd"]
+    if not (np.isfinite(float(loss)) and np.isfinite(float(norm))):
+        fail("granite-3-2b full depth: non-finite loss or norm")
+    del delta
+    step = lambda: user_update(model, params, b, client, dp)  # noqa: E731
+    eager_ms = cuda_time_ms(step, 2, warmup=0)
+    dev_ms, _, top = profiled_device_ms(step, 1, warmup=False, top=4,
+                                        cpu=False)
+    say(f"train-family: granite-3-2b full depth ({cfg.n_layers} layers, "
+        f"{n_params} parameters, bf16 products), one user_update at B=2 "
+        f"S=64: first call {step_s:.2f} s, then {eager_ms:.1f} ms eager, "
+        f"{_fmt_ms(dev_ms)} on the device; peak device memory {peak_mb:.0f} "
+        f"MiB; loss {float(loss):.4f}, norm {float(norm):.3f}; top kernels: "
+        + "; ".join(f"{k} {ms:.2f} ms x{n:g}" for k, ms, n in top))
+    del params, b
+    torch.cuda.empty_cache()
+
+    # the training CLI, reduced, 2 rounds each, on the card
+    for arch in ("granite-3-2b", "zamba2-2.7b"):
+        _reset(*counters)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = train_main(["--arch", arch, "--reduced", "--rounds", "2",
+                             "--n-users", "60", "--clients-per-round", "8",
+                             "--out", tmp, "--device", str(dev)])
+            size = Path(ck).stat().st_size
+        cli_s = time.perf_counter() - t0
+        got = {**fa_ops.LAUNCHES, **ssd_ops.LAUNCHES, **clip_ops.LAUNCHES}
+        if size < 1000 or not got["flash_attention_fwd"] or not got[
+                "dp_sumsq"]:
+            fail(f"training CLI --arch {arch} --reduced: a {size}-byte "
+                 f"checkpoint, launches {got}")
+        for k in main_path:
+            main_path[k] += got[k]
+        say(f"train-family: CLI --arch {arch} --reduced, 2 rounds of 8 "
+            f"clients on the card in {cli_s:.1f} s: a {size}-byte "
+            f"checkpoint; launches {got}")
+    say(f"train-family: launches on the main path (the bf16 rounds, the "
+        f"full-depth step, the CLI runs): {main_path}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return main_path
+
+
 def main() -> None:
     try:
         import torch
@@ -3522,11 +4281,23 @@ def main() -> None:
         row["launches"] = sum(p[row["name"]] for p in paths)
     hybrid = phase_hybrid(dev)
     decoder = phase_decoder(dev)
-    ssd["launches"] = hybrid["ssd_scan"]
-    flash["launches"] = hybrid["flash_attention_fwd"] + decoder
+    encdec = phase_encdec(dev)
+    families = phase_families(dev)
+    ssd["launches"] = hybrid["ssd_scan"] + families["ssd_scan"]
+    flash["launches"] = (hybrid["flash_attention_fwd"] + decoder
+                         + encdec["flash_attention_fwd"]
+                         + families["flash_attention_fwd"])
+    for row in clip_rows:
+        row["launches"] += families[row["name"]]
     say(f"launches of flash_attention_fwd on the main paths: zamba2-2.7b's "
         f"prefill {hybrid['flash_attention_fwd']}, granite-3-2b's and "
-        f"olmoe-1b-7b's {decoder} (the card-against-CPU checks not counted)")
+        f"olmoe-1b-7b's {decoder}, whisper-small's "
+        f"{encdec['flash_attention_fwd']}, training every family "
+        f"{families['flash_attention_fwd']}; of ssd_scan: zamba2-2.7b's "
+        f"prefill {hybrid['ssd_scan']}, training {families['ssd_scan']}; of "
+        f"dp_sumsq and dp_clip_accumulate in training the zoo "
+        f"{families['dp_sumsq']} and {families['dp_clip_accumulate']} (the "
+        f"card-against-CPU checks not counted)")
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     if leaked:

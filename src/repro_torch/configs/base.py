@@ -13,9 +13,9 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture config. ``family`` selects the model implementation;
-    the port builds the ``lstm``, ``ssm``, ``hybrid``, ``dense`` and ``moe``
-    families so far."""
+    """Architecture config. ``family`` selects the model implementation
+    (``dense``, ``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``,
+    ``lstm``)."""
 
     name: str
     family: str

@@ -16,6 +16,13 @@ computes the plain version (`ref.flash_attention_ref`); for CUDA tensors it
 launches the kernel or raises. ``LAUNCHES["flash_attention_fwd"]`` counts
 every kernel launch, ``LAUNCHES["flash_attention_fwd_tc"]`` those of the
 tensor-core (bf16) form.
+
+On CUDA tensors the result is differentiable: the launch runs inside
+`repro_torch.kernels.recompute.RecomputeGrad`, whose backward is the
+gradient of the plain version recomputed from the saved q, k and v (the
+reference trains through the plain attention, which XLA differentiates;
+there is no TPU backward kernel). The backward launches nothing, so the
+counters count forward launches only.
 """
 from __future__ import annotations
 
@@ -23,8 +30,11 @@ import ctypes
 
 import torch
 
+from functools import partial
+
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.recompute import RecomputeGrad
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_fwd_tc": 0}
 
@@ -73,17 +83,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), bfloat16 or float32 →
     (B, Sq, H, hd) in q's dtype. ``causal`` masks keys after the query
     (positions from 0 in both), ``window > 0`` keeps the ``window`` newest
-    keys up to the query."""
+    keys up to the query. On CUDA tensors differentiable in q, k and v
+    through the plain version's gradient."""
     _check(q, k, v, window)
+    plain = partial(flash_attention_ref, causal=causal, window=window)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return plain(q, k, v)
+    return RecomputeGrad.apply(partial(_launch, causal=causal, window=window),
+                               plain, q, k, v)
+
+
+def _launch(q, k, v, *, causal: bool, window: int, out=None):
+    """One launch of the kernel on checked CUDA tensors, counted. ``out``
+    (B, Sq, H, hd) in q's dtype with a contiguous last dim, if given, takes
+    the result (`repro_torch.kernels.sanitize` hands in guarded views)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if out is None:
+        out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    elif out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} "
+                         f"{out.dtype} does not fit q {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name}'s last dim must be "
                              f"contiguous, strides {t.stride()}")
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
     fn = _kernel()

@@ -1,11 +1,15 @@
-"""Race and bounds checks of the CIFG kernels at the shapes their paths
-give them.
+"""Race and bounds checks of the CIFG kernels and of flash attention at the
+shapes their paths give them.
 
 Launches ``cifg_cell_fwd`` (``cell_seq_fwd``) at the serving decode tick
 (B 256, S 1), the training client batch (B 10, S 16), the admission prefill
 (B 1, S 16), the Random-Sampling chunk of the Secret Sharer (B 27,648,
 S 5) and its beam search (B 5, S 2–4), bf16 and f32, and
-``cifg_cell_bwd_seq`` at the training shape, all at H 256. Each output
+``cifg_cell_bwd_seq`` at the training shape, all at H 256; and
+``flash_attention_fwd`` at whisper-small's two shapes that no other path
+gives it, in bf16 (the tensor cores) and f32: the encoder's bidirectional
+self-attention over 1,500 frames (the last K tile holds 28 of 64 rows) and
+the cross-attention of 64 decoder tokens against them (Sq ≪ Sk). Each output
 stack is a view into a larger buffer whose tail is filled with a NaN
 pattern; after every launch the tail must still hold it (a write past the
 output), and every launch must give bitwise the first one's result (a race
@@ -29,6 +33,9 @@ FWD_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16),
               ("rs", 27648, 5), ("beam", 5, 2), ("beam", 5, 3),
               ("beam", 5, 4))
 BWD_SHAPES = (("train", 10, 16),)
+# (what, B, Sq, Sk, heads, hd), bidirectional
+FLASH_SHAPES = (("whisper encoder", 4, 1500, 1500, 12, 64),
+                ("whisper cross-attention", 4, 64, 1500, 12, 64))
 GUARD = 4096                    # float32 words after each output
 _PATTERN = 0x7FC0DEAD           # a NaN no kernel writes
 
@@ -37,15 +44,16 @@ def _randn(gen, dev, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen) * scale).to(dev)
 
 
-def _guarded(shape, dev):
-    """(view of ``shape`` float32, the whole buffer) with a patterned
-    tail."""
+def _guarded(shape, dev, dtype=torch.float32):
+    """(view of ``shape`` in ``dtype``, the whole float32 buffer) with a
+    patterned tail after the view's bytes."""
     n = 1
     for d in shape:
         n *= d
-    buf = torch.full((n + GUARD,), _PATTERN, dtype=torch.int32,
+    nbytes = n * torch.empty((), dtype=dtype).element_size()
+    buf = torch.full((-(-nbytes // 4) + GUARD,), _PATTERN, dtype=torch.int32,
                      device=dev).view(torch.float32)
-    return buf[:n].view(shape), buf
+    return buf.view(torch.uint8)[:nbytes].view(dtype).view(shape), buf
 
 
 def _tail_intact(buf) -> bool:
@@ -96,6 +104,28 @@ def check_bwd(S: int, B: int, H: int, repeats: int, dev) -> str:
     return ""
 
 
+def check_flash(B: int, Sq: int, Sk: int, H: int, hd: int, dtype,
+                repeats: int, dev) -> str:
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator().manual_seed(Sq * 31 + Sk)
+    q = _randn(gen, dev, B, Sq, H, hd).to(dtype)
+    k = _randn(gen, dev, B, Sk, H, hd).to(dtype)
+    v = _randn(gen, dev, B, Sk, H, hd).to(dtype)
+    first = None
+    for i in range(repeats):
+        out, buf = _guarded((B, Sq, H, hd), dev, dtype)
+        ops._launch(q, k, v, causal=False, window=0, out=out)
+        torch.cuda.synchronize()
+        if not _tail_intact(buf):
+            return f"a launch wrote past its output (launch {i})"
+        if first is None:
+            first = out.clone()
+        elif not torch.equal(out, first):
+            return f"launch {i} differs from launch 0"
+    return ""
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeats", type=int, default=2,
@@ -122,6 +152,14 @@ def main(argv=None) -> int:
         print(f"sanitize: cifg_cell_bwd_seq {what} B={B} S={S} H={H}, "
               f"{args.repeats} launches: "
               f"{err or 'bitwise repeatable'}", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, B, Sq, Sk, nh, hd in FLASH_SHAPES:
+            err = check_flash(B, Sq, Sk, nh, hd, dtype, args.repeats, dev)
+            bad += bool(err)
+            print(f"sanitize: flash_attention_fwd {what} B={B} Sq={Sq} "
+                  f"Sk={Sk} H={nh} hd={hd} bidirectional "
+                  f"{str(dtype).split('.')[-1]}, {args.repeats} launches: "
+                  f"{err or 'tail intact, bitwise repeatable'}", flush=True)
     return 1 if bad else 0
 
 

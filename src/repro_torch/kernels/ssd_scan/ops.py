@@ -12,6 +12,14 @@ exact: the result is bitwise that of their float32 casts. Any p and N are
 taken: above 128 the kernel's wide route cuts them into slices. One call
 runs the kernel's three CUDA kernels (chunk states, the pass over the
 chunks, the chunk scan) and counts one in ``LAUNCHES["ssd_scan"]``.
+
+On CUDA tensors both outputs are differentiable: the launch runs inside
+`repro_torch.kernels.recompute.RecomputeGrad`, whose backward is the
+gradient of the plain chunked form (`ssd_scan_plain`) recomputed from the
+saved, padded inputs (the reference trains through ``ssd_chunked``, which
+XLA differentiates; there is no TPU backward kernel). The final state's
+incoming gradient may be ``None``. The backward launches nothing, so the
+counter counts forward launches only.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.recompute import RecomputeGrad
 from repro_torch.kernels.ssd_scan.ref import CHUNK, ssd_chunked
 
 LAUNCHES = {"ssd_scan": 0}
@@ -61,8 +70,10 @@ def _check(x, dt, Bm, Cm, A):
 
 def ssd_scan(x, dt, Bm, Cm, A):
     """x: (B,S,H,p); dt: (B,S,H); Bm, Cm: (B,S,N); A: (H,) negative.
-    Returns (y (B,S,H,p) float32, final state (B,H,p,N) float32)."""
-    Bsz, S, H, p, N = _check(x, dt, Bm, Cm, A)
+    Returns (y (B,S,H,p) float32, final state (B,H,p,N) float32), on CUDA
+    tensors differentiable through the plain version's gradient."""
+    _check(x, dt, Bm, Cm, A)
+    S = x.shape[1]
     pad = (-S) % CHUNK
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
@@ -70,15 +81,33 @@ def ssd_scan(x, dt, Bm, Cm, A):
         Bm = F.pad(Bm, (0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, pad))
     if x.device.type == "cpu":
-        x, dt, Bm, Cm, A = (t.float() for t in (x, dt, Bm, Cm, A))
-        h0 = torch.zeros((Bsz, H, p, N), dtype=torch.float32)
-        y, state = ssd_chunked(x, dt, Bm, Cm, A, h0)
-        return y[:, :S], state
+        y, state = ssd_scan_plain(x, dt, Bm, Cm, A)
+    else:
+        y, state = RecomputeGrad.apply(_launch, ssd_scan_plain, x, dt, Bm,
+                                       Cm, A)
+    return (y[:, :S] if pad else y), state
+
+
+def ssd_scan_plain(x, dt, Bm, Cm, A):
+    """The plain chunked form on float32 casts of inputs padded to a
+    multiple of ``CHUNK``, from a zero state: the CPU path of `ssd_scan`
+    and the gradient of its kernel."""
+    Bsz, _, H, p = x.shape
+    h0 = torch.zeros((Bsz, H, p, Bm.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+    return ssd_chunked(x.float(), dt.float(), Bm.float(), Cm.float(),
+                       A.float(), h0)
+
+
+def _launch(x, dt, Bm, Cm, A):
+    """One call of the kernel (three CUDA kernels) on checked CUDA tensors
+    padded to a multiple of ``CHUNK``, counted once."""
+    Bsz, Sp, H, p = x.shape
+    N = Bm.shape[-1]
     io = (torch.bfloat16 if x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
           else torch.float32)
     x, Bm, Cm = (t.to(io).contiguous() for t in (x, Bm, Cm))
     dt, A = (t.float().contiguous() for t in (dt, A))
-    Sp = x.shape[1]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, p, N), dtype=torch.float32, device=x.device)
     chunk_states = torch.empty((Bsz, Sp // CHUNK, H, p, N),
@@ -98,4 +127,4 @@ def ssd_scan(x, dt, Bm, Cm, A):
                            f"the kernel takes B <= 65535 and S / 128 <= "
                            f"65535)")
     LAUNCHES["ssd_scan"] += 1
-    return (y[:, :S] if pad else y), state
+    return y, state

@@ -23,6 +23,12 @@ sums and where it rounds; in float32 the two agree.
 The decode step writes the new token's K and V into the cache's ``k`` and
 ``v`` in place (the reference returns updated copies): the returned cache
 holds the same two tensors.
+
+Training: ``loss_fn`` recomputes each group (its Mamba-2 layers and the
+shared block after them) in the backward (``remat``, on by default as in
+the reference); both kernels' outputs are differentiable through their
+plain versions' gradients (`repro_torch.kernels.recompute`), and the
+shared block's gradient sums every site's.
 """
 from __future__ import annotations
 
@@ -77,55 +83,51 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
     return with_compute_copies(params, cfg.compute_dtype, compute_copies)
 
 
-def _group_params(params, cfg: ModelConfig):
-    """The stacked (n_layers, …) Mamba parameters as (sites, every, …)
-    views."""
-    g, e = n_attn_sites(cfg), cfg.hybrid_attn_every
-
-    def regroup(t):
-        if isinstance(t, dict):
-            return {k: regroup(v) for k, v in t.items()}
-        return t.reshape((g, e) + tuple(t.shape[1:]))
-    return regroup(params["mamba_layers"])
-
-
 def _groups(params, cfg: ModelConfig):
     """Per attention site, the list of its ``hybrid_attn_every`` Mamba
     layers' parameters (views), in order."""
-    grouped = _group_params(params, cfg)
-    return [[L.layer_params(L.layer_params(grouped, g), j)
-             for j in range(cfg.hybrid_attn_every)]
-            for g in range(n_attn_sites(cfg))]
+    layers = L.unstack_layers(params["mamba_layers"])
+    e = cfg.hybrid_attn_every
+    return [layers[g * e:(g + 1) * e] for g in range(n_attn_sites(cfg))]
+
+
+def _group_fwd(x, group, sp, cfg: ModelConfig, positions):
+    """One site's Mamba-2 layers, then the shared block: → (x, (the
+    mixers' (final SSD state, conv tails), the site's (k, v)))."""
+    mcaches = []
+    for lp in group:
+        x, mc = M.layer_fwd(x, lp, cfg)
+        mcaches.append(mc)
+    x, kv = T._layer_fwd(x, sp, cfg, positions, window=cfg.attn_window)
+    return x, (mcaches, kv)
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
-    del remat   # the port runs no training of this family yet
+    """Logits (B, S, Vpad) float32; with ``collect_cache`` also every
+    mixer's (final SSD state, conv tails) and every site's (k, v).
+    ``remat`` recomputes each group (its Mamba-2 layers and the shared
+    block after them) in the backward, as the reference's checkpoint of
+    its group body."""
     cd = torch_dtype(cfg.compute_dtype)
     cw = compute_view(params)
     x = embed_tokens(cw["embed"], token_ids(cw, batch["tokens"]), cd)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    group_fwd = partial(_group_fwd, cfg=cfg, positions=positions)
     sp = cw["shared_attn"]
     mcaches, kvs = [], []
     for group in _groups(cw, cfg):
-        for lp in group:
-            h = L.norm(x, lp["ln"], "rmsnorm")
-            if collect_cache:
-                out, h_fin, tails = M.mixer_fwd(h, lp["mixer"], cfg,
-                                                return_state=True)
-                mcaches.append((h_fin, tails))
-            else:
-                out = M.mixer_fwd(h, lp["mixer"], cfg)
-            x = x + out
-        x, kv = T._layer_fwd(x, sp, cfg, positions, window=cfg.attn_window)
+        x, (mc, kv) = L.remat_call(group_fwd, x, group, sp,
+                                   remat=remat and not collect_cache)
         if collect_cache:
+            mcaches.extend(mc)
             kvs.append(kv)
     x = L.norm(x, cw["ln_f"], "rmsnorm")
     logits = head_logits(cw["embed"], x)
     return (logits, (mcaches, kvs)) if collect_cache else logits
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     logits = forward(params, batch, cfg, remat=remat)
     return L.lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
 

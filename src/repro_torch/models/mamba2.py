@@ -5,6 +5,10 @@ chunked SSD algorithm through `repro_torch.kernels.ssd_scan.ssd_scan`, which
 launches the hand-written scan kernel for CUDA tensors and computes the
 plain chunked form (`repro_torch.kernels.ssd_scan.ssd_chunked`) on the CPU.
 The decode path is the O(1) recurrence. The state is kept in float32.
+``loss_fn`` recomputes each layer in the backward (``remat``, on by default
+as in the reference); the scan kernel's outputs are differentiable through
+the plain chunked form's gradient (`repro_torch.kernels.recompute`), so
+under remat a training step launches it twice per layer.
 
 Layout: d_inner = expand·d_model; H = ssm_heads, p = head_dim, N =
 ssm_state; a single B/C group. The input projection is stored as separate
@@ -114,8 +118,9 @@ def _proj(x, p):
     return z, x_raw, B_raw, C_raw, dt
 
 
-def mixer_fwd(x, p, cfg: ModelConfig, *, return_state: bool = False):
-    """Full-sequence mixer. x: (B,S,d) in the compute dtype."""
+def mixer_fwd(x, p, cfg: ModelConfig):
+    """Full-sequence mixer. x: (B,S,d) in the compute dtype → (out, final
+    SSD state, conv tails (cx, cB, cC), the last W-1 raw inputs)."""
     di, H = d_inner(cfg), cfg.ssm_heads
     hp = di // H
     Bsz, S, _ = x.shape
@@ -138,12 +143,10 @@ def mixer_fwd(x, p, cfg: ModelConfig, *, return_state: bool = False):
     y = y * F.silu(z)
     y = L.rmsnorm(y, p["norm"]["scale"])
     out = L.matmul(y, p["w_out"])
-    if return_state:
-        W = cfg.ssm_conv_width
-        tails = (x_raw[:, -(W - 1):, :], B_raw[:, -(W - 1):, :],
-                 C_raw[:, -(W - 1):, :])
-        return out, h_fin, tails
-    return out
+    W = cfg.ssm_conv_width
+    tails = (x_raw[:, -(W - 1):, :], B_raw[:, -(W - 1):, :],
+             C_raw[:, -(W - 1):, :])
+    return out, h_fin, tails
 
 
 def mixer_step(x, p, cfg: ModelConfig, h, conv_state):
@@ -199,29 +202,35 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
     return with_compute_copies(params, cfg.compute_dtype, compute_copies)
 
 
+def layer_fwd(x, lp, cfg: ModelConfig):
+    """One Mamba-2 layer with its residual, pre-norm then the mixer:
+    (x, lp) → (x, (final SSD state, conv tails))."""
+    out, h_fin, tails = mixer_fwd(L.norm(x, lp["ln"], "rmsnorm"),
+                                  lp["mixer"], cfg)
+    return x + out, (h_fin, tails)
+
+
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
-    del remat   # the port runs no training of this family yet
+    """Logits (B, S, Vpad) float32; with ``collect_cache`` also every
+    layer's (final SSD state, conv tails). ``remat`` recomputes each layer
+    in the backward."""
     cd = torch_dtype(cfg.compute_dtype)
     cw = compute_view(params)
     x = embed_tokens(cw["embed"], token_ids(params, batch["tokens"]), cd)
+    layer = partial(layer_fwd, cfg=cfg)
     caches = []
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
-        h = L.norm(x, lp["ln"], "rmsnorm")
+    for lp in L.unstack_layers(cw["layers"]):
+        x, cache = L.remat_call(layer, x, lp,
+                                remat=remat and not collect_cache)
         if collect_cache:
-            out, h_fin, tails = mixer_fwd(h, lp["mixer"], cfg,
-                                          return_state=True)
-            caches.append((h_fin, tails))
-        else:
-            out = mixer_fwd(h, lp["mixer"], cfg)
-        x = x + out
+            caches.append(cache)
     x = L.norm(x, cw["ln_f"], "rmsnorm")
     out = head_logits(cw["embed"], x)
     return (out, caches) if collect_cache else out
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     out = forward(params, batch, cfg, remat=remat)
     return L.lm_loss(out, batch["labels"], cfg.vocab, batch.get("mask"))
 
@@ -268,8 +277,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     cw = compute_view(params)
     x = embed_tokens(cw["embed"], token_ids(params, tokens)[:, None], cd)
     new = {"ssm": [], "conv_x": [], "conv_B": [], "conv_C": []}
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
+    for i, lp in enumerate(L.unstack_layers(cw["layers"])):
         hin = L.norm(x, lp["ln"], "rmsnorm")
         out, h_new, conv = mixer_step(
             hin, lp["mixer"], cfg, cache["ssm"][i],

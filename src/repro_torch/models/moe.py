@@ -171,23 +171,29 @@ def moe_ffn(x, p, cfg: ModelConfig, *, dropless: bool = False):
     return y.reshape(B, S, d), aux.mean()
 
 
+def _layer_fwd(x, lp, cfg: ModelConfig, positions, *, dropless: bool):
+    """One MoE layer: (x, lp) → (x, (k, v), aux)."""
+    x, kv = T._attn_block(x, lp, cfg, positions, window=cfg.attn_window)
+    h = L.norm(x, lp["ln2"], cfg.norm)
+    y, aux = moe_ffn(h, lp["moe"], cfg, dropless=dropless)
+    return x + y, kv, aux
+
+
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False, with_aux: bool = False,
             dropless: bool = False):
     """Logits (B, S, Vpad) float32; ``with_aux`` adds the aux loss (the mean
-    over layers); ``collect_cache`` returns (logits, (ks, vs), aux)."""
-    del remat   # the port runs no training of this family yet
+    over layers); ``collect_cache`` returns (logits, (ks, vs), aux).
+    ``remat`` recomputes each layer in the backward."""
     cw = compute_view(params)
     x = T._embed_batch(cw, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = partial(_layer_fwd, cfg=cfg, positions=positions,
+                    dropless=dropless)
     kvs = []
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
-        x, kv = T._attn_block(x, lp, cfg, positions, window=cfg.attn_window)
-        h = L.norm(x, lp["ln2"], cfg.norm)
-        y, aux = moe_ffn(h, lp["moe"], cfg, dropless=dropless)
-        x = x + y
+    for lp in L.unstack_layers(cw["layers"]):
+        x, kv, aux = L.remat_call(layer, x, lp, remat=remat)
         aux_total = aux_total + aux
         if collect_cache:
             kvs.append(kv)
@@ -200,7 +206,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
     return (logits, aux_total) if with_aux else logits
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     logits, aux = forward(params, batch, cfg, remat=remat, with_aux=True)
     nll = L.lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
     return nll + AUX_LOSS_COEF * aux
@@ -224,8 +230,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     pos = cache["pos"]
     x = embed_tokens(cw["embed"], token_ids(cw, tokens)[:, None], cd)
     slot, kv_positions = T.decode_slots(cfg, pos, cache["k"].shape[2])
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
+    for i, lp in enumerate(L.unstack_layers(cw["layers"])):
         x = T._attn_step(x, lp, cfg, cache["k"][i], cache["v"][i], pos, slot,
                          kv_positions)
         h = L.norm(x, lp["ln2"], cfg.norm)

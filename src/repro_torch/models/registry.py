@@ -1,23 +1,23 @@
-"""family string → model builder. The port builds the ``lstm``, ``ssm``,
-``hybrid``, ``dense`` and ``moe`` families; the others arrive with their
-slices."""
+"""family string → model builder: every family of the reference."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, lstm, mamba2, moe, transformer
+from repro_torch.models import (encdec, hybrid, lstm, mamba2, moe,
+                                transformer, vlm)
 from repro_torch.models.api import Model
 
 _BUILDERS = {
-    "ssm": mamba2.build,
-    "hybrid": hybrid.build,
-    "lstm": lstm.build,
     "dense": transformer.build,
     "moe": moe.build,
+    "ssm": mamba2.build,
+    "hybrid": hybrid.build,
+    "encdec": encdec.build,
+    "vlm": vlm.build,
+    "lstm": lstm.build,
 }
 
 
 def build(cfg: ModelConfig) -> Model:
     if cfg.family not in _BUILDERS:
-        raise KeyError(f"unknown family {cfg.family!r}; the port builds "
-                       f"{sorted(_BUILDERS)}")
+        raise KeyError(f"unknown family {cfg.family!r}")
     return _BUILDERS[cfg.family](cfg)

@@ -21,7 +21,15 @@ tensors.
 
 The attention block (`_attn_block`, `_attn_step`) is shared with the MoE
 family (`repro_torch.models.moe`) and the hybrid's shared block
-(`repro_torch.models.hybrid`).
+(`repro_torch.models.hybrid`); `attend`, the choice between the kernel and
+the plain attention, also with the encoder-decoder
+(`repro_torch.models.encdec`).
+
+Training: ``loss_fn`` recomputes each layer in the backward (``remat``, on
+by default as in the reference, `layers.remat_call`). On the card the
+flash kernel's output is differentiable through the plain attention's
+gradient (`repro_torch.kernels.recompute`), so under remat a training step
+launches the kernel twice per layer: the forward, then the recomputation.
 """
 from __future__ import annotations
 
@@ -92,23 +100,31 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
     return with_compute_copies(params, cfg.compute_dtype, compute_copies)
 
 
+def attend(q, k, v, *, causal: bool, window: int = 0):
+    """Attention of whole sequences, queries and keys at positions from 0:
+    the flash kernel for CUDA tensors, the plain `layers.attention` on the
+    CPU. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, window=window)
+    return L.attention(
+        q, k, v, causal=causal, window=window,
+        q_positions=torch.arange(q.shape[1], dtype=torch.int32),
+        kv_positions=torch.arange(k.shape[1], dtype=torch.int32))
+
+
 def _attn_block(x, lp, cfg: ModelConfig, positions, *, window: int):
     """Pre-norm attention over a whole sequence (positions 0..S-1) with its
-    residual: the flash kernel for CUDA tensors, the plain
-    `layers.attention` on the CPU. Returns (x, (k, v))."""
+    residual (`attend`, causal). Returns (x, (k, v))."""
     h = L.norm(x, lp["ln1"], cfg.norm)
     q, k, v = L.gqa_project(h, lp["attn"], cfg.n_heads, cfg.n_kv_heads,
                             cfg.head_dim, positions, cfg.rope_theta)
-    if x.device.type == "cuda":
-        a = flash_attention(q, k, v, causal=True, window=window)
-    else:
-        a = L.attention(q, k, v, q_positions=positions,
-                        kv_positions=positions, causal=True, window=window)
+    a = attend(q, k, v, causal=True, window=window)
     B, S = a.shape[:2]
     return x + L.matmul(a.reshape(B, S, -1), lp["attn"]["wo"]), (k, v)
 
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, *, window: int):
+    """One decoder layer: (x, lp) → (x, (k, v))."""
     x, kv = _attn_block(x, lp, cfg, positions, window=window)
     h = L.norm(x, lp["ln2"], cfg.norm)
     return x + L.mlp(h, lp["mlp"], cfg.act), kv
@@ -128,15 +144,16 @@ def _embed_batch(cw, batch, cfg: ModelConfig):
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
     """Logits (B, S, Vpad) float32; with ``collect_cache`` also every
-    layer's (k, v), stacked to (n_layers, B, S, KV, hd)."""
-    del remat   # the port runs no training of this family yet
+    layer's (k, v), stacked to (n_layers, B, S, KV, hd). ``remat``
+    recomputes each layer in the backward."""
     cw = compute_view(params)
     x = _embed_batch(cw, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    layer = partial(_layer_fwd, cfg=cfg, positions=positions,
+                    window=cfg.attn_window)
     kvs = []
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
-        x, kv = _layer_fwd(x, lp, cfg, positions, window=cfg.attn_window)
+    for lp in L.unstack_layers(cw["layers"]):
+        x, kv = L.remat_call(layer, x, lp, remat=remat)
         if collect_cache:
             kvs.append(kv)
     x = L.norm(x, cw["ln_f"], cfg.norm)
@@ -147,7 +164,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
                     torch.stack([v for _, v in kvs]))
 
 
-def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     logits = forward(params, batch, cfg, remat=remat)
     return L.lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
 
@@ -240,8 +257,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     pos = cache["pos"]
     x = embed_tokens(cw["embed"], token_ids(cw, tokens)[:, None], cd)
     slot, kv_positions = decode_slots(cfg, pos, cache["k"].shape[2])
-    for i in range(cfg.n_layers):
-        lp = L.layer_params(cw["layers"], i)
+    for i, lp in enumerate(L.unstack_layers(cw["layers"])):
         x = _attn_step(x, lp, cfg, cache["k"][i], cache["v"][i], pos, slot,
                        kv_positions)
         h = L.norm(x, lp["ln2"], cfg.norm)

@@ -1121,3 +1121,144 @@ def test_decoder_serving_on_card_matches_cpu(cuda_device, arch, dtype):
     for t, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
         err = float((a - b).abs().max())
         assert err <= tol * scale, (t, err, scale)
+
+
+# ------------------------------------ training through the kernels (C1)
+
+
+def _grads_of(out, inputs, cot):
+    outs = out if isinstance(out, tuple) else (out,)
+    pairs = [(o, c) for o, c in zip(outs, cot) if c is not None]
+    return torch.autograd.grad([o for o, _ in pairs], inputs,
+                               [c for _, c in pairs], allow_unused=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (2, 128, 128, 4, 2, 64, True, 0), (2, 64, 300, 4, 4, 64, False, 0),
+    (1, 200, 200, 4, 1, 80, True, 64), (1, 130, 130, 2, 2, 160, True, 0)])
+def test_flash_is_differentiable_on_card(cuda_device, B, Sq, Sk, H, KV, hd,
+                                         causal, window, dtype):
+    """The kernel's output carries a grad_fn; its gradients are those of
+    the plain version's autograd on the same inputs (the backward is that
+    recomputation: within 1e-6 of the largest in float32, the same bf16
+    values in bfloat16, where both run one rounding), and the backward
+    launches no kernel."""
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    ins = [t.requires_grad_(True) for t in _flash_inputs(
+        B, Sq, Sk, H, KV, hd, dtype, cuda_device, Sk)]
+    cot = (torch.randn((B, Sq, H, hd), device=cuda_device).to(ins[0].dtype),)
+    before = FA["flash_attention_fwd"]
+    out = flash_attention(*ins, causal=causal, window=window)
+    assert out.grad_fn is not None
+    got = _grads_of(out, ins, cot)
+    torch.cuda.synchronize()
+    assert FA["flash_attention_fwd"] == before + 1
+    want = _grads_of(flash_attention_ref(*ins, causal=causal, window=window),
+                     ins, cot)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 1e-6 * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("S,state_cot", [(256, True), (200, False),
+                                         (64, True)])
+def test_ssd_scan_is_differentiable_on_card(cuda_device, S, state_cot):
+    """Both outputs carry a grad_fn; the gradients of x, dt, B, C and A are
+    those of the plain chunked form's autograd (within 1e-6 of the largest:
+    the same recomputation), the final state's cotangent also None; one
+    counted launch, none in the backward."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    ins = [t.requires_grad_(True) for t in _ssd_inputs(
+        2, S, 4, 64, 32, cuda_device, S)]
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    cot = (torch.randn((2, S, 4, 64), device=cuda_device, generator=gen),
+           torch.randn((2, 4, 64, 32), device=cuda_device, generator=gen)
+           if state_cot else None)
+    before = SSD["ssd_scan"]
+    y, state = ssd_scan(*ins)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    got = _grads_of((y, state), ins, cot)
+    torch.cuda.synchronize()
+    assert SSD["ssd_scan"] == before + 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    want = _grads_of(ssd_scan(*cpu), cpu,
+                     tuple(None if c is None else c.cpu() for c in cot))
+    for g, w in zip(got, want):
+        g = g.cpu()
+        err = float((g - w).abs().max())
+        assert torch.isfinite(g).all()
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+FAMILY_ARCHS = ("granite-3-2b", "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b",
+                "whisper-small", "chameleon-34b")
+
+
+def _family_batches(cfg, nb, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(4, cfg.vocab, (nb, B, S + 1))
+    b = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (nb, B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["image_embeds"] = rng.standard_normal(
+            (nb, B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_trains_on_card(cuda_device, arch):
+    """A reduced model of each family in float32: every leaf gets a finite
+    gradient through the kernels (two flash launches per attention and two
+    SSD launches per mixer a step under remat: the forward and the
+    recomputation), and one `user_update` on the card matches the CPU's on
+    the same weights and batches (Δ within 1e-4 of ‖Δ‖, the norm and loss
+    1e-5 relative, the clip flag equal)."""
+    from repro_torch.configs import ClientConfig, DPConfig
+    from repro_torch.fl.client import user_update
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.utils.params import strip_compute
+    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config(arch).reduced().with_(compute_dtype="float32")
+    model = build(cfg)
+    cpu_p = strip_compute(model.init(torch.Generator().manual_seed(0),
+                                     device="cpu"))
+    card_p = tree_map(lambda t: t.to(cuda_device), cpu_p)
+    b = _family_batches(cfg, 2, 2, 16)
+    one = {k: v[0].to(cuda_device) for k, v in b.items()}
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(card_p)]
+    before = (FA["flash_attention_fwd"], SSD["ssd_scan"])
+    grads = torch.autograd.grad(model.loss_fn(tree_unflatten(card_p, leaves),
+                                              one), leaves)
+    torch.cuda.synchronize()
+    sites = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+             "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+             "hybrid": cfg.n_layers // cfg.hybrid_attn_every, "ssm": 0}
+    mixers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert (FA["flash_attention_fwd"] - before[0],
+            SSD["ssd_scan"] - before[1]) == (2 * sites[cfg.family],
+                                              2 * mixers)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    client = ClientConfig(local_epochs=1, batch_size=2, lr=0.1)
+    dp = DPConfig(clients_per_round=4, noise_multiplier=0.3, clip_norm=0.5)
+    dc, nc, fc, lc = user_update(model, card_p,
+                                 {k: v.to(cuda_device) for k, v in b.items()},
+                                 client, dp)
+    dh, nh, fh, lh = user_update(model, cpu_p, b, client, dp)
+    a = torch.cat([t.cpu().ravel() for t in tree_leaves(dc)])
+    h = torch.cat([t.ravel() for t in tree_leaves(dh)])
+    assert bool(torch.isfinite(a).all())
+    assert float((a - h).norm()) <= 1e-4 * float(h.norm())
+    assert abs(float(nc) - float(nh)) <= 1e-5 * float(nh)
+    assert abs(float(lc) - float(lh)) <= 1e-5 * float(lh)
+    assert float(fc) == float(fh)

@@ -158,7 +158,7 @@ def test_config_matches_reference():
     assert dataclasses.asdict(ours.reduced()) == \
         dataclasses.asdict(theirs.reduced())
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-small")
+        get_config("no-such-arch")
 
 
 def test_init_shapes_and_statistics():

@@ -193,7 +193,7 @@ def test_attention_block_matches_jax(dtype, window):
     jx, (jk, jv) = JT._attn_block(jnp.asarray(x, jcfg.compute_dtype), jlp,
                                   jcfg, jnp.asarray(pos), window=window)
     tx, (tk, tv) = T._attn_block(torch.from_numpy(x).to(cd),
-                                 L.layer_params(pp["compute"]["layers"], 1),
+                                 L.unstack_layers(pp["compute"]["layers"])[1],
                                  pm.cfg.with_(attn_window=window),
                                  torch.from_numpy(pos), window=window)
     assert tx.dtype == cd
