@@ -100,7 +100,23 @@ line each (any failure exits non-zero and prints no result):
    recomputation; the backward is the plain version's gradient); a bf16
    DP-FedAvg round of 4 clients on the card with its noise std; one
    ``user_update`` of granite-3-2b at full depth (peak memory, step
-   time); the training CLI on granite-3-2b and zamba2-2.7b reduced.
+   time); the training CLI on granite-3-2b and zamba2-2.7b reduced;
+14. shards — the cohort sharded over ranks on one card: the paper's model
+   at full width, cohort 128, z 0.3, S 0.8, 3 rounds, through
+   ``SimEngine(num_shards=S, num_pods=P)`` on ranks that share the card
+   on gloo (NCCL refuses two ranks on one device), started by
+   ``launch.mesh.spawn_ranks`` after the kernels are built: the device
+   backend at N = 1000 (global sampler, fixed rounds) at (P, S) = (1, 2),
+   (1, 4) and (2, 2), Poisson rounds with the fault model at (1, 4), and
+   the fleet (N = 4·10⁶, streamed backend, sharded sampler) at (2, 2),
+   each bitwise the one-rank run (params, momentum, population vectors,
+   history, the cohort ids of every round) with every kernel's launches
+   summed over the ranks equal to the one rank's; rounds/s, the gathers'
+   bytes and time a round, the card's busy share and the population bytes
+   a rank; then the training CLI under ``python -m torch.distributed.run
+   --nproc-per-node 4 ... --num-shards 4 --dist-backend gloo``,
+   uninterrupted and crashed after round 2 then resumed, sha256-equal to
+   one rank. Runs after phase 10.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +124,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2963,9 +2980,10 @@ def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
         f"({train_peak - base_mb:.0f} above what was allocated before)")
 
     round_dev, round_wall, top = profiled_device_ms(lambda: main.train(1), 1,
-                                                    warmup=False)
+                                                    warmup=False, cpu=False)
     busy = None if round_dev is None else 100 * round_dev / round_wall
-    say(f"memorize: one engine round under the profiler: "
+    say(f"memorize: one engine round under the profiler (device activity "
+        f"only): "
         f"{_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, device "
         f"busy {'not measured' if busy is None else f'{busy:.1f}%'}; by "
         f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
@@ -3202,9 +3220,10 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
 
     t0 = time.perf_counter()
     round_dev, round_wall, top = profiled_device_ms(lambda: main.train(1), 1,
-                                                    warmup=False)
+                                                    warmup=False, cpu=False)
     busy = None if round_dev is None else 100 * round_dev / round_wall
-    say(f"faults: one fault-on engine round under the profiler: "
+    say(f"faults: one fault-on engine round under the profiler (device "
+        f"activity only): "
         f"{_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, device "
         f"busy {'not measured' if busy is None else f'{busy:.1f}%'}; by "
         f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
@@ -3285,7 +3304,7 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
 
     # ------------------------------- the CLI: crash, resume, sha256
     t0 = time.perf_counter()
-    cli = ["--vocab", str(vocab), "--rounds", "4", "--n-users", "300",
+    cli = ["--vocab", str(vocab), "--rounds", "3", "--n-users", "300",
            "--clients-per-round", "40", "--rounds-per-call", "2",
            "--device", str(dev),
            "--fault-dropout", "0.1", "--fault-straggler", "0.2",
@@ -3303,24 +3322,24 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
     with tempfile.TemporaryDirectory() as tmp:
         full_dir, cut_dir = Path(tmp) / "full", Path(tmp) / "cut"
         procs = [run([], full_dir),
-                 run(["--checkpoint-every", "2", "--crash-after", "2"],
+                 run(["--checkpoint-every", "1", "--crash-after", "2"],
                      cut_dir)]
         logs = [p.communicate(timeout=300)[0] for p in procs]
         if any(p.returncode for p in procs) or \
                 "simulated crash after round 2" not in logs[1]:
             fail("faults: the training CLI failed:\n" + "\n".join(
                 l[-2000:] for l in logs))
-        resume = run(["--checkpoint-every", "2", "--resume"], cut_dir)
+        resume = run(["--checkpoint-every", "1", "--resume"], cut_dir)
         log = resume.communicate(timeout=300)[0]
         if resume.returncode or "resumed from" not in log:
             fail(f"faults: the resumed CLI run failed:\n{log[-2000:]}")
-        name = "gboard-cifg-lstm_r4.msgpack"
+        name = "gboard-cifg-lstm_r3.msgpack"
         digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
     if digests[0] != digests[1]:
         fail(f"faults: CLI checkpoints differ: uninterrupted {digests[0]}, "
              f"crashed then resumed {digests[1]}")
     say(f"faults: the training CLI at vocab {vocab} (300 users, 40 a round, "
-        f"faults on), 4 rounds uninterrupted and crashed after round 2 then "
+        f"faults on), 3 rounds uninterrupted and crashed after round 2 then "
         f"resumed, in subprocesses with msgpack made unimportable: final "
         f"checkpoints sha256 {digests[0][:16]}... equal; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3432,10 +3451,10 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
         f"{time.perf_counter() - t0:.1f} s")
 
     # the training CLI over the store, uninterrupted and crashed after
-    # round 2, in subprocesses while the parity runs; resumed after them
+    # round 1, in subprocesses while the parity runs; resumed after them
     t_cli = time.perf_counter()
     cli = ["--population-store", str(path), "--sampler", "sharded",
-           "--rounds", "3", "--clients-per-round", str(cohort), "--vocab",
+           "--rounds", "2", "--clients-per-round", str(cohort), "--vocab",
            str(cfg.vocab), "--device", str(dev)]
     code = ("import sys; sys.modules['msgpack'] = None; "
             "from repro_torch.launch.train import main; main(sys.argv[1:])")
@@ -3452,7 +3471,7 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
         return p
 
     run([], full_dir)
-    run(["--checkpoint-every", "1", "--crash-after", "2"], cut_dir)
+    run(["--checkpoint-every", "1", "--crash-after", "1"], cut_dir)
 
     def engine(data, backend, sampler, sampling="fixed", faults=None,
                d=dev, **kw):
@@ -3501,7 +3520,7 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
 
     logs = [p.communicate(timeout=300)[0] for p in procs]
     if any(p.returncode for p in procs) or \
-            "simulated crash after round 2" not in logs[1] or \
+            "simulated crash after round 1" not in logs[1] or \
             "population store:" not in logs[0]:
         fail("fleet: the training CLI failed:\n" + "\n".join(
             l[-2000:] for l in logs))
@@ -3551,14 +3570,14 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
     log = resume.communicate(timeout=300)[0]
     if resume.returncode or "resumed from" not in log:
         fail(f"fleet: the resumed CLI run failed:\n{log[-2000:]}")
-    name = "gboard-cifg-lstm_r3.msgpack"
+    name = "gboard-cifg-lstm_r2.msgpack"
     digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
     if digests[0] != digests[1]:
         fail(f"fleet: CLI checkpoints differ: uninterrupted {digests[0]}, "
              f"crashed then resumed {digests[1]}")
     say(f"fleet: the training CLI over the store (--population-store, "
-        f"--sampler sharded, cohort {cohort}, vocab {cfg.vocab}), 3 rounds "
-        f"uninterrupted and crashed after round 2 then resumed, in "
+        f"--sampler sharded, cohort {cohort}, vocab {cfg.vocab}), 2 rounds "
+        f"uninterrupted and crashed after round 1 then resumed, in "
         f"subprocesses with msgpack made unimportable, beside the parity "
         f"and sampler checks: final checkpoints sha256 {digests[0][:16]}... "
         f"equal; {time.perf_counter() - t_cli:.1f} s from launch to the "
@@ -4232,6 +4251,334 @@ def phase_families(dev) -> dict:
     return main_path
 
 
+# (pods, shards) of phase 14's device-backend runs
+SHARD_TOPOLOGIES = ((1, 2), (1, 4), (2, 2))
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _shard_rank(dev, runs, store: str, vocab: int, cohort: int) -> dict:
+    """What one rank of phase 14 runs (and, at (pods, shards) = (1, 1), the
+    one-rank runs in the parent): for each ``(pods, shards, spec)`` of
+    ``runs`` (every run of a world takes all its ranks) the spec's engine
+    at full width from the same seeds, timed, with this rank's launches,
+    gathers and population bytes on the device, keyed by ``(pods, shards,
+    name)``. Results come back on the host."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ClientConfig, DPConfig, get_config
+    from repro_torch.data.population_store import (MmapPopulationStore,
+                                                   ReplicatedPopulationStore)
+    from repro_torch.fl.engine import SimEngine
+    from repro_torch.fl.faults import FaultConfig
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.dp_clip import ops as clip_ops
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import tree_map
+
+    if torch.distributed.is_initialized():
+        torch.set_num_threads(max(1, (os.cpu_count() or 8)
+                                  // torch.distributed.get_world_size()))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build(get_config("gboard-cifg-lstm").with_(vocab=vocab))
+    params0 = model.init(torch.Generator().manual_seed(1), device="cpu")
+    base = MmapPopulationStore(store)
+    dp = DPConfig(clients_per_round=cohort, noise_multiplier=0.3,
+                  clip_norm=0.8, server_opt="momentum", server_lr=0.5,
+                  server_momentum=0.9)
+    cl = ClientConfig(local_epochs=1, batch_size=10, lr=0.3)
+    counters = (cell_ops.LAUNCHES, clip_ops.LAUNCHES)
+    host = lambda t: tree_map(lambda l: l.detach().cpu(), t)  # noqa: E731
+    out = {}
+    for pods, shards, spec in runs:
+        pop = (base if spec["n_users"] == base.n_users
+               else ReplicatedPopulationStore(base, spec["n_users"]))
+        data = pop.device_arrays() if spec["backend"] == "device" else pop
+        e = SimEngine(model, data,
+                      dataclasses.replace(dp, sampling=spec["sampling"]),
+                      cl, n_local_batches=3,
+                      availability=spec["availability"],
+                      rounds_per_call=spec["rounds"], num_shards=shards,
+                      num_pods=pods, sampler=spec["sampler"],
+                      population_backend=spec["backend"],
+                      fault_config=(FaultConfig(**FAULT_CFG)
+                                    if spec["faults"] else None),
+                      device=dev)
+        ids = []
+        sample = e._sample_phase
+
+        def recorded(*args, sample=sample, ids=ids):
+            lr, part, cohort_ = sample(*args)
+            ids.append(cohort_.ids.clone())
+            return lr, part, cohort_
+
+        e._sample_phase = recorded
+        state = e.init_state(params0, seed=11)
+        pop_bytes = sum(t.numel() * t.element_size() for t in (
+            e.counts, e.synthetic, state.last_round, state.participation)
+            + ((e._valid, e._synth_pad) if e.sampler == "sharded" else ()))
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        _sync(dev)
+        t0 = time.time()
+        state, hist = e.run(state, spec["rounds"])
+        _sync(dev)
+        t1 = time.time()
+        launches = {k: v for c in counters for k, v in c.items()}
+        out[(pods, shards, spec["name"])] = dict(
+            params=host(state.params), momentum=host(state.opt_state.momentum),
+            participation=e.population(state.participation).cpu(),
+            last_round=e.population(state.last_round).cpu(), hist=hist,
+            ids=[i.cpu() for i in ids], launches=launches, t0=t0, t1=t1,
+            gather=dict(e.gather_log), pop_bytes=pop_bytes,
+            staged=e.corpus_device_bytes)
+    return out
+
+
+def _busy_sampler(dev):
+    """Start sampling the card's utilization (nvidia-smi's
+    ``utilization.gpu``, every 200 ms) in a thread; ``stop()`` returns the
+    (host time, percent) samples. On the CPU: nothing."""
+    import threading
+
+    samples = []
+    if dev.type != "cuda":
+        return lambda: samples
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-i", "0", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def read():
+        for line in proc.stdout:
+            try:
+                samples.append((time.time(), float(line.strip())))
+            except ValueError:
+                pass
+
+    th = threading.Thread(target=read, daemon=True)
+    th.start()
+
+    def stop():
+        proc.kill()
+        proc.wait()
+        th.join(5)
+        return samples
+
+    return stop
+
+
+def phase_shards(dev, n_users: int = 1000, fleet_users: int = 4_000_000,
+                 cohort: int = 128, vocab: int = 10_000, rounds: int = 3,
+                 cli_users: int = 300, cli_cohort: int = 40) -> dict:
+    """:func:`_phase_shards` in a temporary directory; the subprocesses it
+    starts are stopped however it ends."""
+    import tempfile
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return _phase_shards(dev, tmp, procs, n_users, fleet_users,
+                                 cohort, vocab, rounds, cli_users,
+                                 cli_cohort)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def _phase_shards(dev, tmp, procs, n_users, fleet_users, cohort, vocab,
+                  rounds, cli_users, cli_cohort) -> dict:
+    """The cohort sharded over ranks on one card: ranks are processes that
+    all share the card on gloo (NCCL refuses two ranks on one device),
+    started by `launch.mesh.spawn_ranks` after the kernels are built. Each
+    run is held bitwise against the one-rank engine (params, momentum,
+    population vectors, history; the fleet's cohort ids round by round),
+    with every kernel's launches summed over the ranks equal to the one
+    rank's; then the training CLI under torch.distributed.run, 4 ranks
+    against 1, uninterrupted and crashed then resumed, sha256-equal."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import build_corpus
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    store = str(build_corpus.main(["--out", os.path.join(tmp, "pop"),
+                                   "--n-users", str(n_users), "--vocab",
+                                   str(vocab), "--seq-len", "16"]))
+    # the CLI runs: 1 rank, 4 ranks, 4 ranks crashed after round 2; they
+    # start after the timed runs, and the resume after them
+    def spec(name, **kw):
+        s = dict(name=name, backend="device", sampler="global",
+                 sampling="fixed", faults=False, availability=0.3,
+                 n_users=n_users, rounds=rounds)
+        s.update(kw)
+        return s
+
+    fixed = spec("device/global/fixed")
+    pf = spec("device/global/poisson+faults", sampling="poisson",
+              faults=True, availability=1.0)
+    fleet = spec("fleet/streamed/sharded", backend="streamed",
+                 sampler="sharded", n_users=fleet_users)
+    # one spawn a world size: the 4-rank topologies share one
+    plan = {2: [(1, 2, fixed)],
+            4: [(1, 4, fixed), (1, 4, pf), (2, 2, fixed), (2, 2, fleet)]}
+    args = (store, vocab, cohort)
+    t0 = time.perf_counter()
+    one = {k[2]: v for k, v in _shard_rank(
+        dev, [(1, 1, s) for s in (fixed, pf, fleet)], *args).items()}
+    say(f"shards: one-rank runs in this process (the reference of every "
+        f"check): " + "; ".join(
+            f"{k} {rounds} rounds in {v['t1'] - v['t0']:.2f} s = "
+            f"{rounds / (v['t1'] - v['t0']):.3f} rounds/s, clients "
+            f"{v['hist']['n_clients'].tolist()}" for k, v in one.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    kernels = ("cifg_cell_fwd", "cifg_cell_bwd_seq", "dp_sumsq",
+               "dp_clip_accumulate")
+    total = {k: 0 for k in kernels}
+    rates, busy = {}, {}
+    for n, runs in plan.items():
+        t0 = time.perf_counter()
+        stop = _busy_sampler(dev)
+        try:
+            out = spawn_ranks(_shard_rank, n, (runs, *args), backend="gloo",
+                              device=None if dev.type == "cuda" else "cpu",
+                              timeout=600)
+        finally:
+            samples = stop()
+        say(f"shards: {n} ranks spawned on gloo, sharing {dev}, for "
+            f"{len(runs)} run(s): {time.perf_counter() - t0:.1f} s")
+        for pods, shards, s in runs:
+            name, want, key = s["name"], one[s["name"]], (pods, shards,
+                                                          s["name"])
+            for r, res in enumerate(out):
+                got = res[key]
+                diff = [k for k in ("participation", "last_round")
+                        if not torch.equal(got[k], want[k])]
+                diff += [k for k in ("params", "momentum")
+                         if not _same_tree(got[k], want[k])]
+                diff += [] if _same_hist(got["hist"], want["hist"]) \
+                    else ["history"]
+                diff += [] if all(torch.equal(a, b) for a, b in zip(
+                    got["ids"], want["ids"])) else ["cohort ids"]
+                if diff:
+                    fail(f"shards: {name} at (pods {pods}, shards {shards})"
+                         f", rank {r}: {', '.join(diff)} differ from the "
+                         f"one-rank run")
+            # a rank whose slots are all empty launches nothing (a Poisson
+            # round packs its clients into the first slots)
+            summed = {k: sum(res[key]["launches"][k] for res in out)
+                      for k in kernels}
+            missing = [k for k in kernels if summed[k] == 0]
+            if missing:
+                fail(f"shards: no rank of {name} at ({pods}, {shards}) "
+                     f"launched {', '.join(missing)}")
+            if summed != {k: want["launches"][k] for k in kernels}:
+                fail(f"shards: {name} at ({pods}, {shards}): launches summed "
+                     f"over the ranks {summed}, one rank "
+                     f"{ {k: want['launches'][k] for k in kernels} }")
+            for k in kernels:
+                total[k] += summed[k]
+            start = min(res[key]["t0"] for res in out)
+            end = max(res[key]["t1"] for res in out)
+            rates[(pods, shards, name)] = rounds / (end - start)
+            window = [u for t, u in samples if start <= t <= end]
+            busy[(pods, shards, name)] = (float(np.mean(window)) if window
+                                          else None)
+            g = [res[key]["gather"] for res in out]
+            say(f"shards: {name} at (pods {pods}, shards {shards}), {n} ranks "
+                f"on gloo sharing {dev}: bitwise the one-rank run (params, "
+                f"momentum, participation, last_round, history, cohort ids "
+                f"every round); launches summed over the ranks {summed} = "
+                f"the one rank's (cifg_cell_fwd by rank "
+                f"{[res[key]['launches']['cifg_cell_fwd'] for res in out]})"
+                f"; {rounds} rounds in {end - start:.2f} s = "
+                f"{rates[(pods, shards, name)]:.3f} rounds/s (one rank "
+                f"{rounds / (want['t1'] - want['t0']):.3f}; the ranks "
+                f"time-share one card: no rate here says anything about "
+                f"{n} cards); gathers a round a rank {g[0]['bytes'] / rounds:.0f} "
+                f"bytes in {1e3 * np.mean([x['seconds'] for x in g]) / rounds:.1f}"
+                f" ms (mean over ranks, from this rank's queued work done to "
+                f"the gathered copy, waiting on the slowest rank included); "
+                f"card busy "
+                + (f"{busy[(pods, shards, name)]:.1f}%"
+                   if busy[(pods, shards, name)] is not None
+                   else "not measured")
+                + " (nvidia-smi utilization.gpu, 200 ms samples over the "
+                f"run); population on the card a rank {out[0][key]['pop_bytes']} "
+                f"bytes (one rank {want['pop_bytes']}), staged corpus a rank "
+                f"{out[0][key]['staged']} bytes (one rank {want['staged']})")
+
+    # ----------------------------------------------------------- the CLI
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = ["-m", "repro_torch.launch.train", "--vocab", str(vocab),
+           "--n-users", str(cli_users), "--clients-per-round",
+           str(cli_cohort), "--rounds", "3", "--rounds-per-call", "2",
+           "--device", str(dev), "--checkpoint-every", "1"]
+    ranks4 = ["-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", "4"]
+    four = ["--num-shards", "4", "--dist-backend", "gloo"]
+    dirs = {k: Path(tmp) / k for k in ("one", "four", "cut")}
+
+    def run(argv):
+        p = subprocess.Popen([sys.executable, *argv], env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        procs.append(p)
+        return p
+
+    runs = {"one": run(cli + ["--out", str(dirs["one"])]),
+            "four": run(ranks4 + cli + four + ["--out", str(dirs["four"])]),
+            "cut": run(ranks4 + cli + four + ["--crash-after", "2", "--out",
+                                              str(dirs["cut"])])}
+    logs = {k: p.communicate(timeout=600)[0] for k, p in runs.items()}
+    if any(p.returncode for p in runs.values()) or \
+            "simulated crash after round 2" not in logs["cut"]:
+        fail("shards: the training CLI failed:\n" + "\n".join(
+            f"{k}: {v[-2000:]}" for k, v in logs.items()))
+    resume = run(ranks4 + cli + four + ["--resume", "--out",
+                                        str(dirs["cut"])])
+    log = resume.communicate(timeout=600)[0]
+    if resume.returncode or "resumed from" not in log:
+        fail(f"shards: the resumed CLI run failed:\n{log[-2000:]}")
+    if logs["four"].count("checkpoint: ") != 1:
+        fail("shards: the 4-rank CLI did not print one checkpoint line")
+    digests = {}
+    for name in ("gboard-cifg-lstm_r3.msgpack",
+                 "gboard-cifg-lstm_r3_history.json"):
+        got = {k: _sha256(d / name) for k, d in dirs.items()}
+        if len(set(got.values())) != 1:
+            fail(f"shards: CLI {name} differs across ranks: {got}")
+        digests[name] = got["one"][:16]
+    say(f"shards: the training CLI at vocab {vocab} ({cli_users} users, "
+        f"{cli_cohort} a round, 3 rounds) under python -m "
+        f"torch.distributed.run --standalone --nproc-per-node 4 "
+        f"--num-shards 4 --dist-backend gloo, uninterrupted and crashed "
+        f"after round 2 then resumed on 4 ranks, against 1 rank: checkpoint "
+        f"and history JSON sha256-equal ({digests}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"shards: launches on the main path (every rank of every sharded "
+        f"run): {total}; phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": total}
+
+
 def main() -> None:
     try:
         import torch
@@ -4264,8 +4611,11 @@ def main() -> None:
     memo = phase_memorize(dev)
     faults = phase_faults(dev)
     fleet = phase_fleet(dev)
+    # phase 14 runs here, beside the other engine paths and before the
+    # serving phases fill this process's memory
+    shards = phase_shards(dev)
     paths = (train["launches"], memo["launches"], faults["launches"],
-             fleet["launches"])
+             fleet["launches"], shards["launches"])
     bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths)
     fwd["launches"] = serve["launches"] + sum(p["cifg_cell_fwd"]
                                               for p in paths)
@@ -4273,9 +4623,10 @@ def main() -> None:
         f"{train['launches']['cifg_cell_fwd']}, memorize "
         f"{memo['launches']['cifg_cell_fwd']}, faults "
         f"{faults['launches']['cifg_cell_fwd']}, fleet "
-        f"{fleet['launches']['cifg_cell_fwd']}; of cifg_cell_bwd: the "
-        f"sequence form {bwd['launches']} in training, memorize, faults and "
-        f"fleet, "
+        f"{fleet['launches']['cifg_cell_fwd']}, shards "
+        f"{shards['launches']['cifg_cell_fwd']} (summed over the ranks); of "
+        f"cifg_cell_bwd: the sequence form {bwd['launches']} in training, "
+        f"memorize, faults, fleet and shards, "
         f"the per-step form {step_launches} through decode steps")
     for row in clip_rows:
         row["launches"] = sum(p[row["name"]] for p in paths)

@@ -1,5 +1,5 @@
 """Configuration: the port's own copies of the reference's ``ModelConfig``,
-``DPConfig`` and ``ClientConfig``.
+``DPConfig``, ``ClientConfig`` and ``MeshConfig``.
 
 Field names, defaults and the ``with_`` / ``reduced`` helpers are those of the
 JAX package's config, so a configuration means the same model in both
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -129,3 +130,24 @@ class ClientConfig:
     batch_size: int = 50        # B
     lr: float = 0.5             # η_c
     max_examples_per_user: int = 200  # paper §I: per-user data caps
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the reference's
+    ``MeshConfig``): ``data`` and ``model`` on one pod, ``pod`` in front
+    across pods."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))

@@ -1,5 +1,6 @@
-"""Multi-round DP-FedAvg simulation engine on one device (the reference's
-``fl/engine.py`` on one device: both population backends, both samplers).
+"""Multi-round DP-FedAvg simulation engine (the reference's
+``fl/engine.py``: both population backends, both samplers, and the cohort
+sharded over ``num_pods × num_shards`` ranks).
 
 The host trainer (`repro_torch.fl.round.FederatedTrainer`,
 ``backend="host"``) samples cohorts and stacks client tensors with numpy
@@ -71,6 +72,29 @@ is known on the host and a round reads nothing back; a Poisson round's
 mask is made on the device and is read once per round by the streaming sum
 (which skips chunks that are entirely masked).
 
+**Cohort sharding** — ``num_shards`` / ``num_pods`` > 1 (or
+``mesh_config``) run the engine on T = num_pods · num_shards ranks, one
+process each (`repro_torch.launch.mesh`: ``torchrun`` or ``spawn_ranks``),
+laid out pod-major on a ``(data,)`` or ``(pod, data)`` ``DeviceMesh``.
+Every rank seeds the same generator and draws the whole round —
+availability, the cohort, every slot's example indices, the noise — and
+the fault fates, so the stream does not depend on the topology; each rank
+then takes its own contiguous group of canonical blocks
+(`sharding.specs.owned_rows`): it trains and folds only its slots
+(`stream_block_sums` over its blocks), and under the streamed backend
+stages only their rows. The round sum crosses ranks only as copies: the
+raw block partials of every leaf and the (blocks, 4) stats, one float32
+buffer, are all-gathered over ``data`` and folded pod by pod by
+`reduction.fold_blocks`; across pods only the pod partials are gathered
+and folded again (the `reduction.fold_pods` association). No collective
+adds anything, so params, momentum, population vectors and history are
+bitwise those of one rank for every T dividing `CANON_BLOCKS`. Under
+``sampler="sharded"`` each rank holds only its population rows, draws its
+blocks, selects candidates from them, gathers every rank's candidates
+(`pop_sampler.gather_shards`) and merges them as every other rank does;
+the global sampler runs replicated. The noise, the server step, the
+verdict and the eval hook run replicated on every rank.
+
 The streamed backend reads the cohort's ids once a round (a Poisson round's
 mask rides in the same transfer). Its order of draws is the device
 backend's — round k's availability, cohort, example indices and noise are
@@ -81,19 +105,17 @@ staging copy run in order on the compute stream in :meth:`SimEngine.run`
 and :meth:`SimEngine.run_python` alike: the ids read waits for the previous
 round's compute, and the store's rows go through one of two pinned host
 buffers into one of two device buffers.
-
-Not ported (it raises): cohort sharding over several devices
-(``num_shards`` / ``num_pods`` > 1; ROADMAP.md, queue A, item 5).
 """
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ClientConfig, DPConfig
+from repro_torch.configs.base import ClientConfig, DPConfig, MeshConfig
 from repro_torch.core.clipping import CLIP_PATHS
 from repro_torch.core.dp_fedavg import finalize_round, server_step
 from repro_torch.core.server_optim import ServerOptState, init_state
@@ -101,14 +123,18 @@ from repro_torch.data.population_store import (PopulationStore,
                                                as_population_store)
 from repro_torch.data.tokenizer import PAD
 from repro_torch.fl import pop_sampler
-from repro_torch.fl.client import (fold_round, local_deltas,
-                                   round_compute, stream_block_sums)
+from repro_torch.fl.client import (client_updates, fold_round,
+                                   local_deltas, stream_block_sums)
 from repro_torch.fl.faults import FaultConfig, fault_fates, fault_generator
-from repro_torch.fl.reduction import CANON_BLOCKS, canon_pad, resolve_chunk
+from repro_torch.fl.reduction import (block_sums, canon_pad, fold_blocks,
+                                      n_canon_blocks, resolve_chunk)
+from repro_torch.launch.mesh import all_gather_copies, make_cohort_mesh
 from repro_torch.models.api import Model
+from repro_torch.sharding.specs import owned_rows, sim_mesh_config
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.params import strip_compute
-from repro_torch.utils.pytree import tree_map, tree_noise
+from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_noise,
+                                      tree_unflatten)
 
 __all__ = ["EngineDraws", "EngineState", "POPULATION_BACKENDS", "SAMPLERS",
            "SimEngine", "example_indices", "gather_client_batches",
@@ -281,13 +307,14 @@ class EngineState(NamedTuple):
     donated state, a state is consumed by the run it is given to. Under
     ``sampler="sharded"`` the population vectors are padded to whole
     population blocks (``SimEngine.n_pad`` rows; padding never
-    participates)."""
+    participates), and over several ranks each rank holds its own rows
+    (`SimEngine.population` gathers them whole)."""
 
     params: object
     opt_state: ServerOptState
     draws: EngineDraws
-    last_round: torch.Tensor     # (n_pad,) int32 — last participation
-    participation: torch.Tensor  # (n_pad,) int32 — participation counts
+    last_round: torch.Tensor     # (rows,) int32 — last participation
+    participation: torch.Tensor  # (rows,) int32 — participation counts
     round_idx: int
 
 
@@ -299,11 +326,12 @@ class _Cohort(NamedTuple):
     report_mask: torch.Tensor    # (padded,) bool — reports the sum folds
     corrupt: Optional[torch.Tensor]  # (padded,) bool, fault model only
     idx: torch.Tensor            # (padded, need) per-slot example indices
-    live: Optional[List]         # host list of live chunks, or None
+    live: Optional[List]         # this rank's live chunks, or None
 
 
 class SimEngine:
-    """Multi-round DP-FedAvg simulator on one device.
+    """Multi-round DP-FedAvg simulator on one device, or over the ranks of
+    a cohort mesh.
 
     ``data`` is the dict from ``FederatedDataset.to_device_arrays()``, or a
     `data.population_store.PopulationStore` (a ``FederatedDataset`` or a
@@ -329,6 +357,12 @@ class SimEngine:
     the clip→accumulate: ``"fused"`` (the CUDA dp_clip kernels) or
     ``"tree"`` (plain tensor ops).
 
+    ``num_shards`` / ``num_pods`` (or ``mesh_config``, a ``("data",)`` or
+    ``("pod", "data")`` `configs.base.MeshConfig`) shard the cohort over
+    that many ranks; the process group must be running with exactly that
+    many (see the module docstring). On one card the ranks share it on
+    ``gloo``.
+
     ``device`` (default ``cuda``; raises without a GPU) holds the corpus
     (or the staged cohorts), the population vectors and the generator."""
 
@@ -341,6 +375,7 @@ class SimEngine:
                  sampling: Optional[str] = None,
                  poisson_buffer: Optional[int] = None,
                  num_shards: int = 1, num_pods: int = 1,
+                 mesh_config: Optional[MeshConfig] = None,
                  cohort_chunk: Optional[int] = None,
                  clip_path: str = "fused",
                  population_backend: str = "device",
@@ -348,11 +383,27 @@ class SimEngine:
                  fault_config=None,
                  eval_fn: Optional[Callable] = None, eval_every: int = 1,
                  device=None):
-        if num_shards != 1 or num_pods != 1:
-            raise NotImplementedError(
-                f"num_shards={num_shards}, num_pods={num_pods}: cohort "
-                "sharding over several GPUs is not ported yet (ROADMAP.md, "
-                "queue A, item 5); the port's engine runs on one device")
+        if mesh_config is not None:
+            axes = tuple(mesh_config.axes)
+            if axes not in (("data",), ("pod", "data")):
+                raise ValueError(
+                    "SimEngine shards the cohort over its batch axes only "
+                    f"— a ('data',) or ('pod', 'data') mesh; got "
+                    f"{mesh_config}. Model-parallel axes are the launch "
+                    "layer's job — pass sim_mesh_config(num_shards, "
+                    "num_pods) or just num_shards/num_pods.")
+            sizes = dict(zip(axes, mesh_config.shape))
+            from_mesh, from_mesh_pods = sizes["data"], sizes.get("pod", 1)
+            if num_shards not in (1, from_mesh):
+                raise ValueError(
+                    f"num_shards={num_shards} disagrees with mesh_config's "
+                    f"data axis ({from_mesh} devices); pass one or the "
+                    "other")
+            if num_pods not in (1, from_mesh_pods):
+                raise ValueError(
+                    f"num_pods={num_pods} disagrees with mesh_config's pod "
+                    f"axis ({from_mesh_pods} pods); pass one or the other")
+            num_shards, num_pods = from_mesh, from_mesh_pods
         if population_backend not in POPULATION_BACKENDS:
             raise ValueError(f"population_backend must be one of "
                              f"{POPULATION_BACKENDS}, got "
@@ -364,6 +415,17 @@ class SimEngine:
             raise ValueError(f"clip_path must be one of {CLIP_PATHS}, "
                              f"got {clip_path!r}")
         self.device = resolve_device(device)
+        self.num_shards, self.num_pods = int(num_shards), int(num_pods)
+        # ranks the cohort shards over, pod-major
+        self.total_shards = self.num_pods * self.num_shards
+        self.mesh = (make_cohort_mesh(sim_mesh_config(self.num_shards,
+                                                      self.num_pods),
+                                      self.device.type)
+                     if self.total_shards > 1 else None)
+        self.rank = (pop_sampler.shard_rank(self.mesh)
+                     if self.mesh is not None else 0)
+        # bytes received and seconds spent by this rank's gathers
+        self.gather_log = {"bytes": 0, "seconds": 0.0}
         self.model = model
         self.dp = dp
         self.client = client
@@ -403,13 +465,20 @@ class SimEngine:
         self.q = self.cohort / self.n_users
         if sampler == "sharded":
             # the population axis in whole canonical blocks; the vectors,
-            # the synthetic mask and the validity mask are padded to it
-            self.pop_blocks = pop_sampler.n_pop_blocks()
-            self.n_pad = pop_sampler.pop_pad(self.n_users)
-            valid = torch.arange(self.n_pad) < self.n_users
-            self._valid = valid.to(self.device)
+            # the synthetic mask and the validity mask are padded to it,
+            # and this rank holds its own rows of each
+            self.pop_blocks = pop_sampler.n_pop_blocks(self.num_shards,
+                                                       self.num_pods)
+            self.n_pad = pop_sampler.pop_pad(self.n_users, self.num_shards,
+                                             self.num_pods)
+            lo, hi = owned_rows(self.n_pad, self.rank, self.total_shards)
+            self._pop_rows = (lo, hi)
+            nb = self.pop_blocks // self.total_shards
+            self._pop_block_ids = range(self.rank * nb, (self.rank + 1) * nb)
+            self._valid = (torch.arange(lo, hi) < self.n_users).to(
+                self.device)
             self._synth_pad = torch.nn.functional.pad(
-                self.synthetic, (0, self.n_pad - self.n_users))
+                self.synthetic, (0, self.n_pad - self.n_users))[lo:hi]
         else:
             self.pop_blocks = None
             self.n_pad = self.n_users
@@ -436,7 +505,8 @@ class SimEngine:
             buf = poisson_buffer or int(np.ceil(
                 exp_sel + 4.0 * np.sqrt(exp_sel) + 4))
             # pad, never truncate: the buffer grows to whole blocks
-            self.buffer = canon_pad(min(self.n_users, buf))
+            self.buffer = canon_pad(min(self.n_users, buf), self.num_shards,
+                                    self.num_pods)
             if self.buffer < self.cohort + 2 * np.sqrt(self.cohort) \
                     and self.buffer < self.n_users:
                 warnings.warn(
@@ -448,9 +518,15 @@ class SimEngine:
             self.padded = self.buffer
         else:
             self.buffer = self.sel_cohort
-            self.padded = canon_pad(self.sel_cohort)
+            self.padded = canon_pad(self.sel_cohort, self.num_shards,
+                                    self.num_pods)
+        self.n_blocks = n_canon_blocks(self.num_shards, self.num_pods)
+        # this rank's cohort slots: a contiguous group of whole blocks
+        self._slots = slice(*owned_rows(self.padded, self.rank,
+                                        self.total_shards))
+        self._n_slots = self.padded // self.total_shards
         self.cohort_chunk = resolve_chunk(cohort_chunk,
-                                          self.padded // CANON_BLOCKS)
+                                          self.padded // self.n_blocks)
         if fault_config is not None:
             if self.cohort_chunk == 0:
                 raise ValueError(
@@ -493,19 +569,21 @@ class SimEngine:
         # on the host, so a round reads nothing back
         self._fixed_host = torch.arange(self.padded) < self.sel_cohort
         self._fixed_mask = self._fixed_host.to(self.device)
-        self._fixed_live = self._live(self._fixed_host)
+        self._fixed_live = self._live(self._fixed_host[self._slots])
         self._staging = None
 
     def _live(self, host_mask: torch.Tensor):
-        """Which chunks of the streaming sum hold an unmasked slot, from a
-        mask on the host (None on the materializing path)."""
+        """Which chunks of this rank's streaming sum hold an unmasked slot,
+        from its slots' mask on the host (None on the materializing
+        path)."""
         if self.cohort_chunk == 0:
             return None
         return host_mask.reshape(self._shape3()).any(-1).tolist()
 
     def _shape3(self) -> Tuple[int, int, int]:
-        chunk = self.cohort_chunk
-        return (CANON_BLOCKS, self.padded // (CANON_BLOCKS * chunk), chunk)
+        """(blocks, chunks per block, chunk) of this rank's slots."""
+        chunk, nb = self.cohort_chunk, self.n_blocks // self.total_shards
+        return (nb, self._n_slots // (nb * chunk), chunk)
 
     @property
     def corpus_device_bytes(self) -> int:
@@ -527,13 +605,14 @@ class SimEngine:
         """Initial state: ``params`` on the engine's device, a fresh
         optimizer state (or ``opt_state``), and ``draws`` — by default an
         :class:`EngineDraws` over a generator on the device seeded with
-        ``seed``."""
+        ``seed``. Over several ranks every rank passes the same."""
         params = tree_map(lambda l: l.detach().to(self.device),
                           strip_compute(params))
         if draws is None:
             draws = EngineDraws(torch.Generator(device=self.device)
                                 .manual_seed(seed))
-        n = self.n_pad
+        n = (self._pop_rows[1] - self._pop_rows[0]
+             if self.sampler == "sharded" else self.n_users)
         return EngineState(
             params=params,
             opt_state=opt_state if opt_state is not None
@@ -545,52 +624,90 @@ class SimEngine:
                                       device=self.device),
             round_idx=0)
 
+    # ----------------------------------------------------------------- ranks
+
+    def _gather(self, x: torch.Tensor, axis: Optional[str] = None
+                ) -> torch.Tensor:
+        """``x`` of every rank, pod-major (``axis`` None: over both axes,
+        `pop_sampler.gather_shards`), or over one mesh axis; identity on
+        one rank. The time (after this rank's queued work is done) and the
+        bytes received go to ``gather_log``."""
+        if self.mesh is None:
+            return x
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = (pop_sampler.gather_shards(x, self.mesh) if axis is None
+               else all_gather_copies(x, self.mesh.get_group(axis)))
+        self.gather_log["seconds"] += time.perf_counter() - t0
+        self.gather_log["bytes"] += out.numel() * out.element_size()
+        return out
+
+    def population(self, vec: torch.Tensor) -> torch.Tensor:
+        """A whole population vector from this rank's rows of it (gathered
+        from every rank under the sharded sampler over several ranks; every
+        rank must call it), else ``vec`` itself."""
+        if self.mesh is None or self.sampler != "sharded":
+            return vec
+        return pop_sampler.gather_shards(vec, self.mesh)
+
+    def local_rows(self, vec: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole population vector."""
+        if self.sampler != "sharded":
+            return vec
+        return vec[self._pop_rows[0]:self._pop_rows[1]]
+
     # ------------------------------------------------------------- round body
 
     def _sharded_avail(self, d, r: int) -> torch.Tensor:
-        """(n_pad,) check-ins from the ``available`` stream's block
-        uniforms; padding rows never check in."""
+        """(rows,) check-ins of this rank's population rows, from the
+        ``available`` stream's block uniforms; padding rows never check
+        in."""
         blk = self.n_pad // self.pop_blocks
-        u = d.block_uniforms("available", r, range(self.pop_blocks), blk)
+        u = d.block_uniforms("available", r, self._pop_block_ids, blk)
         return ((u.to(self.device).reshape(-1) < self.availability)
                 | self._synth_pad) & self._valid
 
     def _sharded_score(self, d, r: int, last_round,
                        avail=None) -> torch.Tensor:
-        """(n_pad,) Gumbel scores log(weight) + g of a fixed round (weight
-        1e-30 for devices that did not check in). The block draws never
-        advance the training generator, so a round's scores can be drawn
-        again."""
+        """(rows,) Gumbel scores log(weight) + g of a fixed round on this
+        rank's rows (weight 1e-30 for devices that did not check in). The
+        block draws never advance the training generator, so a round's
+        scores can be drawn again."""
         if avail is None:
             avail = self._sharded_avail(d, r)
         blk = self.n_pad // self.pop_blocks
         w = self.weight_fn(last_round, self._synth_pad, r)
-        g = d.block_gumbels(r, range(self.pop_blocks), blk)
+        g = d.block_gumbels(r, self._pop_block_ids, blk)
         return torch.log(torch.where(avail, w.to(torch.float32),
                                      _UNAVAILABLE_W)) \
             + g.to(self.device).reshape(-1)
 
     def _select_sharded(self, d, r: int, last_round):
-        """The block-keyed selection of `fl.pop_sampler` on one device (the
-        reference's ``_pop_shard_body`` at rank 0 of 1): availability, then
-        the Gumbel top-k of fixed rounds or the index-order packing of
-        Poisson rounds. Returns ``(ids (padded,), slot_mask (padded,))``."""
+        """The block-keyed selection of `fl.pop_sampler` (the reference's
+        ``_pop_shard_body``): this rank's availability, then the top
+        candidates of its rows (fixed rounds) or its packed selected rows
+        (Poisson rounds), every rank's candidates gathered and merged.
+        Returns ``(ids (padded,), slot_mask (padded,))``, the same on every
+        rank."""
         avail = self._sharded_avail(d, r)
+        offset = self._pop_rows[0]
         if self.sampling == "poisson":
             blk = self.n_pad // self.pop_blocks
-            u = d.block_uniforms("sample", r, range(self.pop_blocks), blk)
+            u = d.block_uniforms("sample", r, self._pop_block_ids, blk)
             sel = (u.to(self.device).reshape(-1) < self.sel_q) & avail
-            # one packed list is already in index order: nothing to merge
-            gids, cnt = pop_sampler.pack_selected(sel, self.padded)
-            slot_mask = torch.arange(self.padded, device=self.device) < cnt
-            return torch.where(slot_mask, gids, 0), slot_mask
+            gids, cnt = pop_sampler.pack_selected(sel, self.padded, offset)
+            return pop_sampler.merge_poisson(self._gather(gids),
+                                             self._gather(cnt.reshape(1)),
+                                             self.padded)
         score = self._sharded_score(d, r, last_round, avail)
         skey = torch.where(self._valid, pop_sampler.sortable_f32(score),
                            pop_sampler.INT32_MIN)
-        # one shard: one top-k of the (score, id) keys over the population
-        ids = pop_sampler.merge_topk(
-            skey, torch.arange(self.n_pad, device=self.device),
-            self.sel_cohort)
+        vals, lidx = pop_sampler.blocked_topk(
+            skey, min(self.sel_cohort, skey.shape[0]))
+        ids = pop_sampler.merge_topk(self._gather(vals),
+                                     self._gather(lidx + offset),
+                                     self.sel_cohort)
         return (torch.nn.functional.pad(ids, (0, self.padded
                                               - self.sel_cohort)),
                 self._fixed_mask)
@@ -600,8 +717,9 @@ class SimEngine:
         population vectors' update, then the per-slot example indices.
         Returns ``(last_round, participation, cohort)``: without faults the
         cohort's ``report_mask`` is its ``slot_mask`` and ``corrupt`` None;
-        ``live`` is the host list of live chunks (fixed rounds) or None
-        (read from the mask)."""
+        ``live`` is the host list of this rank's live chunks (fixed
+        rounds) or None (read from the mask). Every draw covers the whole
+        padded cohort, on every rank."""
         d.begin_round(r)
         took = None
         if self.sampler == "sharded":
@@ -632,15 +750,16 @@ class SimEngine:
             report_mask = slot_mask & reported.to(self.device)
             corrupt = report_mask & fates.corrupt.to(self.device)
             if live is not None:
-                live = self._live(self._fixed_host & reported)
+                live = self._live((self._fixed_host & reported)[self._slots])
         part_mask = slot_mask if self.faults is None else report_mask
         if self.sampler == "sharded":
-            # O(cohort) masked scatters: last_round reacts to selection,
-            # participation to the reports that arrived
+            # O(cohort) masked scatters into this rank's rows: last_round
+            # reacts to selection, participation to the reports that arrived
+            offset = self._pop_rows[0]
             last_round = pop_sampler.scatter_max(last_round, ids, slot_mask,
-                                                 r)
+                                                 r, offset)
             participation = pop_sampler.scatter_add(participation, ids,
-                                                    part_mask)
+                                                    part_mask, offset)
         elif self.sampling == "poisson":
             last_round = torch.where(took, r, last_round).to(torch.int32)
             if self.faults is None:
@@ -662,24 +781,33 @@ class SimEngine:
                                                   report_mask, corrupt, idx,
                                                   live)
 
-    def _cohort_sums(self, params, examples, ids, idx, mask, live,
-                     corrupt=None):
-        """The masked clipped sum over the padded cohort and its stats
-        (mean norm, clipped fraction, mean loss over the unmasked slots).
-        Client ``c`` takes rows ``examples[ids[c], idx[c]]``: the corpus
-        and the user ids (device backend), or a staged cohort and the slot
-        numbers (streamed backend). ``corrupt`` (fault model) marks the
-        slots whose reports are non-finite garbage: their deltas and losses
-        are multiplied by NaN (clean slots by 1, which changes no bit) and
-        the fold rejects them (``guard_nonfinite``). Returns the folded
-        sum, the three stats and the count of accepted slots (a device
-        scalar)."""
+    def _block_sums(self, params, examples, ids, idx, mask, live,
+                    corrupt=None):
+        """This rank's canonical block partials of the masked clipped sum
+        and of its stats ([Σ norms, Σ clipped flags, Σ losses, Σ mask] a
+        block), over its slots. Client ``c`` takes rows ``examples[ids[c],
+        idx[c]]``: the corpus and the user ids (device backend), or a
+        staged cohort and the slot numbers (streamed backend). ``corrupt``
+        (fault model) marks the slots whose reports are non-finite garbage:
+        their deltas and losses are multiplied by NaN (clean slots by 1,
+        which changes no bit) and the fold rejects them
+        (``guard_nonfinite``). Returns ``(partials with a leading (blocks,)
+        axis, (blocks, 4) stats)``."""
         nb, B = self.n_local_batches, self.client.batch_size
         if self.cohort_chunk == 0:
+            # every clipped update at once, then one sum a block
+            n_blocks = self.n_blocks // self.total_shards
             batches = gather_client_batches(examples, ids, idx, nb, B)
-            return round_compute(self.model, params, batches, self.client,
-                                 self.dp, mask, cohort_chunk=0) + (
-                                     mask.to(torch.float32).sum(),)
+            clipped, norms, flags, losses = client_updates(
+                self.model, params, batches, self.client, self.dp)
+            m = mask.to(torch.float32)
+            partials = tree_map(
+                lambda *ls: block_sums(torch.stack(ls).to(torch.float32)
+                                       * m.reshape((-1,) + (1,) * ls[0].dim()),
+                                       n_blocks), *clipped)
+            stats = block_sums(torch.stack([norms * m, flags * m, losses * m,
+                                            m], dim=-1), n_blocks)
+            return partials, stats
         shape3 = self._shape3()
         inputs = {"ids": ids.reshape(shape3),
                   "idx": idx.reshape(shape3 + (idx.shape[-1],))}
@@ -698,19 +826,45 @@ class SimEngine:
                       for d, p in zip(deltas, poison)]
             return deltas, losses * poison
 
-        partials, stats = stream_block_sums(
+        return stream_block_sums(
             compute_chunk, inputs, mask.to(torch.float32).reshape(shape3),
             params, self.dp.clip_norm, clip_path=self.clip_path,
             guard_nonfinite=corrupt is not None, live=live)
-        return fold_round(partials, stats)
+
+    def _fold_ranks(self, partials, stats):
+        """Every rank's block partials → the round's sum, mean norm,
+        clipped fraction, mean loss and accepted count (`fold_round`). Over
+        several ranks the partials and stats travel as one float32 buffer
+        a block: gathered over ``data``, folded pod by pod, and only the
+        pod partials gathered over ``pod`` and folded again — copies and
+        the canonical tree, never a sum inside a collective."""
+        if self.mesh is None:
+            return fold_round(partials, stats)
+        leaves = tree_leaves(partials)
+        nb = stats.shape[0]
+        flat = torch.cat([l.reshape(nb, -1) for l in leaves] + [stats], 1)
+        folded = fold_blocks(self._gather(flat, "data"))
+        if self.num_pods > 1:
+            folded = fold_blocks(self._gather(folded[None], "pod"))
+        sizes = [l[0].numel() for l in leaves] + [4]
+        parts = torch.split(folded, sizes)
+        total = tree_unflatten(partials, [p.reshape(l.shape[1:]) for p, l
+                                          in zip(parts, leaves)])
+        s = parts[-1]
+        denom = torch.clamp(s[3], min=1.0)
+        return total, s[0] / denom, s[1] / denom, s[2] / denom, s[3]
 
     def _compute_phase(self, params, opt_state, draws, r: int,
                        cohort: _Cohort, examples, slot_ids):
         """The round's clipped sum, noise, server step and record, from a
-        cohort and the rows it gathers from (``examples[slot_ids[c]]``)."""
-        total, mean_norm, frac, loss, accepted = self._cohort_sums(
-            params, examples, slot_ids, cohort.idx, cohort.report_mask,
-            cohort.live, cohort.corrupt)
+        cohort and the rows this rank's slots gather from
+        (``examples[slot_ids[c]]``, ``slot_ids`` of this rank's slots)."""
+        sl = self._slots
+        total, mean_norm, frac, loss, accepted = self._fold_ranks(
+            *self._block_sums(
+                params, examples, slot_ids, cohort.idx[sl],
+                cohort.report_mask[sl], cohort.live,
+                None if cohort.corrupt is None else cohort.corrupt[sl]))
         std = self.dp.noise_multiplier * self.dp.clip_norm \
             / float(self._round_denom)
         # the noise is drawn whether or not the round commits, so that no
@@ -746,29 +900,29 @@ class SimEngine:
             state.draws, state.last_round, state.participation, r)
         params, opt_state, rec = self._compute_phase(
             state.params, state.opt_state, state.draws, r, cohort,
-            self.examples, cohort.ids)
+            self.examples, cohort.ids[self._slots])
         return EngineState(params, opt_state, state.draws, last_round,
                            participation, r + 1), rec
 
     # ------------------------------------------------------------- streaming
 
     def _ensure_staging(self) -> Dict:
-        """Two device cohort buffers of (padded, E_max, seq_len+1) int32;
-        on a CUDA engine also two pinned host buffers of that shape, a
-        pinned buffer for the ids read, and per buffer the events that
-        order its reuse."""
+        """Two device cohort buffers of (this rank's slots, E_max,
+        seq_len+1) int32; on a CUDA engine also two pinned host buffers of
+        that shape, a pinned buffer for the ids read, and per buffer the
+        events that order its reuse."""
         if self._staging is None:
-            shape = (self.padded, self.store.emax, self.store.row_len)
+            shape = (self._n_slots, self.store.emax, self.store.row_len)
             st = {"device": [torch.empty(shape, dtype=torch.int32,
                                          device=self.device)
                              for _ in range(2)],
-                  "slots": torch.arange(self.padded, device=self.device)}
+                  "slots": torch.arange(self._n_slots, device=self.device)}
             if self.device.type == "cuda":
                 st.update(
                     host=[torch.empty(shape, dtype=torch.int32,
                                       pin_memory=True) for _ in range(2)],
-                    ids=torch.empty((2 * self.padded,), dtype=torch.int64,
-                                    pin_memory=True),
+                    ids=torch.empty((2 * self._n_slots,),
+                                    dtype=torch.int64, pin_memory=True),
                     # copied[i]: the copy out of host[i] is done;
                     # consumed[i]: the compute that read device[i] is done
                     copied=[torch.cuda.Event() for _ in range(2)],
@@ -777,13 +931,15 @@ class SimEngine:
         return self._staging
 
     def _read_cohort(self, cohort: _Cohort) -> torch.Tensor:
-        """The round's one host read: the ids, and under Poisson rounds the
-        report mask in the same transfer. On a CUDA engine it goes through
-        a pinned buffer and waits for the current stream alone."""
-        payload = cohort.ids
+        """The round's one host read: this rank's slots' ids, and under
+        Poisson rounds their report mask in the same transfer. On a CUDA
+        engine it goes through a pinned buffer and waits for the current
+        stream alone."""
+        sl = self._slots
+        payload = cohort.ids[sl]
         if self.sampling == "poisson":
-            payload = torch.cat([cohort.ids,
-                                 cohort.report_mask.to(torch.int64)])
+            payload = torch.cat([payload,
+                                 cohort.report_mask[sl].to(torch.int64)])
         if self.device.type != "cuda":
             return payload
         host = self._ensure_staging()["ids"][:payload.numel()]
@@ -795,8 +951,8 @@ class SimEngine:
 
     def _sample_and_stage(self, d, last_round, participation, r: int,
                           slot: int):
-        """Round ``r``'s sample phase, its host read, the gather of its
-        cohort's rows from the store and their copy into device buffer
+        """Round ``r``'s sample phase, its host read, the gather of this
+        rank's slots' rows from the store and their copy into device buffer
         ``slot``, in order on the current stream. On a CUDA engine the
         compute that reads device buffer ``slot`` must then record
         ``staging["consumed"][slot]``."""
@@ -804,9 +960,10 @@ class SimEngine:
         last_round, participation, cohort = self._sample_phase(
             d, last_round, participation, r)
         host = self._read_cohort(cohort)
-        ids = host[:self.padded].numpy()
+        n = self._n_slots
+        ids = host[:n].numpy()
         if self.sampling == "poisson":
-            cohort = cohort._replace(live=self._live(host[self.padded:] > 0))
+            cohort = cohort._replace(live=self._live(host[n:2 * n] > 0))
         rows = self.store.gather(ids)
         if self.device.type != "cuda":
             st["device"][slot].copy_(torch.from_numpy(rows))

@@ -29,15 +29,16 @@ rules fix its result, as in the reference:
 Population-vector updates (``last_round`` / ``participation``) are
 O(cohort) masked scatters (:func:`scatter_max`, :func:`scatter_add`).
 
-On one device the engine takes one ``torch.topk`` of the :func:`lex_key`
-keys over the whole population (:func:`merge_topk` of every row) and one
-packed Poisson list, which is already in index order. The per-group
-forms — :func:`blocked_topk` of a population slice, :func:`merge_topk` of
-the groups' candidates and :func:`merge_poisson` of packed lists — are the
-pieces a population split over several devices merges, held against the
-reference here for that layout.
-Sharding the population over several GPUs (``shard_rank``,
-``gather_shards``) is not ported yet (ROADMAP.md, queue A, item 5).
+Over T ranks (`repro_torch.launch.mesh`), rank :func:`shard_rank` owns a
+contiguous group of whole population blocks. It draws its blocks'
+uniforms, takes the top candidates of its rows (:func:`blocked_topk`) or
+packs its selected rows (:func:`pack_selected`), and
+:func:`gather_shards` gives every rank the pod-major concatenation of all
+ranks' candidates, which each merges the same way (:func:`merge_topk`,
+:func:`merge_poisson`). The K best under a total order are contained in
+the union of each rank's K best, and a rank's packed list is in index
+order, so the merged cohort is bitwise the one-rank cohort, on every
+topology. One rank takes the same steps, with nothing to gather.
 """
 from __future__ import annotations
 
@@ -45,11 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch.fl.reduction import canon_pad, n_canon_blocks
+from repro_torch.launch.mesh import all_gather_copies
 
 __all__ = ["INT32_MAX", "INT32_MIN", "STREAMS", "block_gumbels",
-           "block_seed", "block_uniforms", "blocked_topk", "lex_key",
-           "merge_poisson", "merge_topk", "n_pop_blocks", "pack_selected",
-           "pop_pad", "scatter_add", "scatter_max", "sortable_f32"]
+           "block_seed", "block_uniforms", "blocked_topk", "gather_shards",
+           "lex_key", "merge_poisson", "merge_topk", "n_pop_blocks",
+           "pack_selected", "pop_pad", "scatter_add", "scatter_max",
+           "shard_rank", "sortable_f32"]
 
 # Sort key of padded (beyond n_users) rows: below every real score's key
 # (even -inf maps above it), so padding is never selected while
@@ -73,6 +76,27 @@ def n_pop_blocks(num_shards: int = 1, num_pods: int = 1) -> int:
     """Population block count — `reduction.n_canon_blocks` on the user
     axis."""
     return n_canon_blocks(num_shards, num_pods)
+
+
+def shard_rank(mesh) -> int:
+    """Pod-major linear rank on a cohort ``DeviceMesh``
+    (`launch.mesh.make_cohort_mesh`), from its mesh coordinates: rank ``r``
+    owns population rows ``[r·n_loc, (r+1)·n_loc)``."""
+    coord = mesh.get_coordinate()
+    if len(coord) == 1:
+        return int(coord[0])
+    return int(coord[0]) * mesh.size(1) + int(coord[1])
+
+
+def gather_shards(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's candidate array, gathered over the ``data`` group and
+    then the ``pod`` group into the pod-major concatenation: (k, ...)
+    local → (T·k, ...), rank ``r``'s slice at ``[r·k, (r+1)·k)``. Carries
+    raw candidates only, so every rank merges the identical list."""
+    g = all_gather_copies(x, mesh.get_group("data"))
+    if mesh.ndim == 2:
+        g = all_gather_copies(g, mesh.get_group("pod"))
+    return g
 
 
 def block_seed(seed: int, round_idx: int, stream: int, block: int) -> int:

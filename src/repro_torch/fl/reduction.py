@@ -8,6 +8,12 @@ canonical order has two levels:
 * across blocks — the padded cohort buffer is split into
   :data:`CANON_BLOCKS` contiguous blocks whose partials are combined by a
   fixed pairwise tree (:func:`fold_blocks`);
+* across pods — on a ``(pod, data)`` layout each pod owns a contiguous
+  group of blocks, folds it by the same tree, and only the pod partials
+  are combined across pods (:func:`fold_pods`). :data:`CANON_BLOCKS` is a
+  power of two, so a pod partial is an inner node of :func:`fold_blocks`'
+  balanced tree and the two-level fold is bit-identical to the flat one
+  for every pod count dividing the block count;
 * within a block — slots are folded strictly left to right, one at a time
   (:func:`slot_fold`). A streaming accumulator that takes the block in
   contiguous chunks of any size reproduces that order exactly, so the sum
@@ -45,6 +51,25 @@ def fold_blocks(a: torch.Tensor) -> torch.Tensor:
             c = torch.cat([c, a[-1:]], dim=0)
         a = c
     return a[0]
+
+
+def fold_pods(blocks: torch.Tensor, num_pods: int = 1) -> torch.Tensor:
+    """Two-level fold over a ``(pod, data)`` layout: each pod's contiguous
+    group of ``blocks.shape[0] / num_pods`` block partials by
+    :func:`fold_blocks`' tree, then the pod partials by the same tree.
+    Bit-identical to ``fold_blocks(blocks)`` for every power-of-two
+    ``num_pods`` dividing a power-of-two block count."""
+    if num_pods == 1:
+        return fold_blocks(blocks)
+    if num_pods < 1 or blocks.shape[0] % num_pods:
+        raise ValueError(
+            f"fold_pods: num_pods={num_pods} must divide the block count "
+            f"{blocks.shape[0]} — each pod owns a contiguous group of whole "
+            "canonical blocks (size the grid with n_canon_blocks(num_shards,"
+            " num_pods))")
+    per = blocks.shape[0] // num_pods
+    return fold_blocks(torch.stack([fold_blocks(blocks[p * per:(p + 1) * per])
+                                    for p in range(num_pods)]))
 
 
 def slot_fold(acc, stacked):
@@ -103,3 +128,21 @@ def resolve_chunk(cohort_chunk, blk: int, strict: bool = True) -> int:
         f"boundaries stay inside block boundaries; valid values: "
         f"{divisors} (or None to auto-select, 0 for the materializing "
         "path)")
+
+
+def cohort_sum(tree, mask, n_blocks: int = CANON_BLOCKS, num_pods: int = 1):
+    """Masked sum over a stacked cohort tree (leading cohort axis; ``mask``
+    the (C,) 0/1 slot mask) in the canonical order: block sums of the
+    masked slots (the cohort zero-padded to whole blocks), then
+    :func:`fold_pods`. Masked slots add exactly ±0."""
+    m = torch.as_tensor(mask).to(torch.float32)
+    pad = -(-m.shape[0] // n_blocks) * n_blocks - m.shape[0]
+
+    def one(l):
+        lm = l.to(torch.float32) * m.to(l.device).reshape(
+            (-1,) + (1,) * (l.dim() - 1))
+        if pad:
+            lm = torch.cat([lm, lm.new_zeros((pad,) + tuple(lm.shape[1:]))])
+        return fold_pods(block_sums(lm, n_blocks), num_pods)
+
+    return tree_map(one, tree)

@@ -36,8 +36,15 @@ or ``"streamed"``: the corpus on the host, one cohort staged a round),
 ``population_store`` (a `data.population_store.PopulationStore`, which may
 replace the dataset: ``dataset=None``) and ``sampler`` (``"global"`` or the
 block-keyed ``"sharded"``). The host backend refuses them, as the
-reference's does. Cohort sharding over several GPUs is not ported
-(ROADMAP.md, queue A, item 5): asking for it raises.
+reference's does.
+
+Engine backends take ``num_shards`` / ``num_pods``: the cohort sharded over
+that many ranks, one process each (`repro_torch.launch.mesh`), every rank
+building the same trainer. The trajectory is bitwise the one-rank one.
+The population vectors the trainer mirrors and snapshots are whole on
+every rank (`fl.engine.SimEngine.population`), and only rank 0 writes a
+snapshot, so a snapshot does not depend on the topology and restores on
+any.
 """
 from __future__ import annotations
 
@@ -105,12 +112,16 @@ class FederatedTrainer:
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
+        if (num_shards != 1 or num_pods != 1) and backend == "host":
+            raise ValueError("num_shards/num_pods are engine-backend "
+                             "features (the host loop stacks clients on one "
+                             "host); use backend='engine'")
         if backend == "host" and (
-                num_shards != 1 or num_pods != 1 or sampler != "global"
+                sampler != "global"
                 or population_backend != "device"
                 or population_store is not None
                 or fault_config is not None):
-            raise ValueError("num_shards/num_pods, sampler, "
+            raise ValueError("sampler, "
                              "population_backend/population_store and "
                              "fault_config are engine-backend features; use "
                              "backend='engine'")
@@ -308,10 +319,11 @@ class FederatedTrainer:
         PopulationSim so post-hoc analyses see it (the sharded sampler's
         vectors carry padding rows past ``n_users``, which never
         participate)."""
-        n = self.n_users
-        self.participation = self._estate.participation[:n].cpu().numpy(
-        ).astype(np.int64)
-        self.pop.absorb_last_round(self._estate.last_round[:n].cpu().numpy())
+        n, whole = self.n_users, self.engine.population
+        self.participation = whole(self._estate.participation)[:n].cpu(
+        ).numpy().astype(np.int64)
+        self.pop.absorb_last_round(
+            whole(self._estate.last_round)[:n].cpu().numpy())
 
     # ------------------------------------------------------- crash resilience
 
@@ -332,17 +344,23 @@ class FederatedTrainer:
         history. The fault stream needs no state of its own: its position
         is the round index (`fl.faults`). Written atomically through
         `train.checkpoint.save` (temp file, then rename), so a crash during
-        a save never destroys the previous state."""
+        a save never destroys the previous state. Over several ranks every
+        rank calls it (the population vectors are gathered whole) and rank
+        0 alone writes."""
         self._check_run_state()
         est = self._estate
+        last_round = self.engine.population(est.last_round)
+        participation = self.engine.population(est.participation)
+        if self.engine.rank != 0:
+            return
         tree = {"estate": {
             "params": est.params,
             "opt_state": (est.opt_state.momentum, est.opt_state.nu,
                           np.asarray(torch.as_tensor(est.opt_state.count)
                                      .cpu())),
             "generator": est.draws.generator.get_state(),
-            "last_round": est.last_round,
-            "participation": est.participation,
+            "last_round": last_round,
+            "participation": participation,
             "round_idx": np.asarray(est.round_idx, np.int32)}}
         checkpoint.save(Path(path), tree, meta={
             "kind": "trainer-run-state", "version": "1",
@@ -376,8 +394,9 @@ class FederatedTrainer:
             opt_state=ServerOptState(tree_map(on_dev, momentum),
                                      tree_map(on_dev, nu), count),
             draws=draws,
-            last_round=on_dev(est["last_round"]),
-            participation=on_dev(est["participation"]),
+            last_round=self.engine.local_rows(on_dev(est["last_round"])),
+            participation=self.engine.local_rows(
+                on_dev(est["participation"])),
             round_idx=int(est["round_idx"]))
         self.state.params = self._estate.params
         self.state.opt_state = self._estate.opt_state

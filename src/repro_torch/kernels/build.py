@@ -7,6 +7,13 @@ is needed, and loaded with ``ctypes``. The library's file name carries a
 hash of the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing here runs at import time.
 
+Several processes may build at once (the ranks of a sharded run, test
+workers): a build holds an exclusive ``flock`` on ``build/kernels/.lock``
+(the kernel drops it when the process ends, however it ends) and looks
+again for each library once it has the lock, and each library is written
+under a temporary name and moved into place with ``os.replace``, so no
+process ever loads a half-written library.
+
     from repro_torch.kernels import build
     build.build()                 # every library, one nvcc per source, in parallel
     lib = build.load("dp_clip")   # lib.dp_sumsq, lib.dp_clip_accumulate
@@ -14,6 +21,7 @@ stale library is never loaded. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -82,6 +90,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name in names:
         if name not in SOURCES:
             raise KeyError(f"unknown kernel {name!r}; known: {sorted(SOURCES)}")
+    if all(library_path(name).is_file() for name in names):
+        return {name: {"path": str(library_path(name)), "seconds": 0.0,
+                       "log": ""} for name in names}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, dict]:
     out: Dict[str, dict] = {}
     running = {}
     for name in names:
@@ -89,7 +107,6 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if path.is_file():
             out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

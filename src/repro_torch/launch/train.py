@@ -21,14 +21,24 @@ final checkpoint is byte for byte the uninterrupted run's:
         --fault-dropout 0.1 --fault-straggler 0.2 --fault-corrupt 0.05 \\
         --checkpoint-every 2 --resume --out /tmp/run
 
-The flags are the reference's. Its flags for cohort sharding, the streamed
-population and the sharded sampler are accepted and refused with the queue
-item that ports them.
+The cohort sharded over ranks, one process each, under ``torchrun``; the
+world size must be ``--num-pods × --num-shards``, and the checkpoint and
+the history JSON are byte for byte the one-rank run's (rank 0 writes
+them). Ranks that share one card, or run on the CPU, use gloo:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --num-shards 4 --dist-backend gloo \
+        --rounds 3 --vocab 10000 --n-users 1000 --clients-per-round 128
+
+The flags are the reference's, with ``--dist-backend`` added.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -42,12 +52,9 @@ from repro_torch.data.population_store import MmapPopulationStore
 from repro_torch.fl.faults import FaultConfig
 from repro_torch.fl.population import PopulationSim
 from repro_torch.fl.round import FederatedTrainer
+from repro_torch.launch.mesh import BACKENDS, init_distributed
 from repro_torch.models import build
 from repro_torch.train import checkpoint
-
-
-# the reference's flags that the port refuses: (flag, type, queue A item)
-_UNPORTED = (("--num-shards", int, "item 5"), ("--num-pods", int, "item 5"))
 
 
 def main(argv=None):
@@ -82,6 +89,21 @@ def main(argv=None):
                          "sampling and batching, round body on the device")
     ap.add_argument("--rounds-per-call", type=int, default=10,
                     help="rounds between host reads (engine backend)")
+    ap.add_argument("--num-shards", type=int, default=1,
+                    help="shard the per-round cohort axis across this many "
+                         "ranks per pod (engine backend; one process a "
+                         "rank, started by torchrun --nproc-per-node "
+                         "num_pods x num_shards)")
+    ap.add_argument("--num-pods", type=int, default=1,
+                    help="lay the cohort shards out over this many pods — "
+                         "the 2-D (pod, data) batch slice of the production "
+                         "mesh; needs num_pods x num_shards ranks (engine "
+                         "backend)")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="torch.distributed backend of the ranks: nccl "
+                         "(one card a rank) or gloo (ranks that share a "
+                         "card, or run on the CPU); never switched "
+                         "quietly")
     ap.add_argument("--cohort-chunk", type=int, default=None,
                     help="stream the round sum this many clients at a time "
                          "(default: auto — largest divisor of the canonical "
@@ -154,16 +176,18 @@ def main(argv=None):
                     help="simulate a crash: exit (skipping the final "
                          "checkpoint) once this many rounds are done — for "
                          "exercising --resume")
-    # the reference's flags for what the port does not have yet: refused
-    for flag, kind, item in _UNPORTED:
-        ap.add_argument(flag, type=kind, default=None,
-                        help=f"not ported yet (ROADMAP.md, queue A, {item})")
     args = ap.parse_args(argv)
-    given = [f for f, _, _ in _UNPORTED
-             if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        ap.error(f"{', '.join(given)}: not ported yet — cohort sharding over "
-                 "several GPUs is ROADMAP.md queue A, item 5")
+    ranks = args.num_pods * args.num_shards
+    if ranks > 1 and args.backend == "host":
+        ap.error("--num-shards/--num-pods need an engine backend (the host "
+                 "loop stacks clients on one host)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != ranks:
+        ap.error(f"--num-pods {args.num_pods} x --num-shards "
+                 f"{args.num_shards} = {ranks} rank(s), but {world} "
+                 f"running: launch with python -m torch.distributed.run "
+                 f"(torchrun) --nproc-per-node {ranks} -m "
+                 "repro_torch.launch.train ...")
     population_backend = args.population_backend or (
         "streamed" if args.population_store is not None else "device")
     if args.population_store is not None and args.inject_canaries:
@@ -194,6 +218,20 @@ def main(argv=None):
                  "--crash-after need the engine backend (the fault protocol "
                  "and the run state live in the engine)")
 
+    if ranks == 1:
+        return _train(args, args.device, population_backend, faults, True)
+    # every rank trains; rank 0 alone prints and writes
+    device = init_distributed(args.dist_backend, args.device)
+    lead = torch.distributed.get_rank() == 0
+    try:
+        with (contextlib.nullcontext() if lead
+              else contextlib.redirect_stdout(io.StringIO())):
+            return _train(args, device, population_backend, faults, lead)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args, device, population_backend, faults, lead: bool):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -239,7 +277,9 @@ def main(argv=None):
                                clip_path=args.clip_path,
                                population_backend=population_backend,
                                population_store=store, sampler=args.sampler,
-                               fault_config=faults, device=args.device)
+                               num_shards=args.num_shards,
+                               num_pods=args.num_pods,
+                               fault_config=faults, device=device)
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -273,6 +313,8 @@ def main(argv=None):
           f"(q={trainer.accountant.q:.4f})")
 
     ck = out / f"{args.arch}_r{args.rounds}.msgpack"
+    if not lead:
+        return ck
     checkpoint.save(ck, trainer.state.params,
                     meta={"arch": args.arch, "rounds": str(args.rounds),
                           "eps@1e-6": f"{eps:.3f}"})

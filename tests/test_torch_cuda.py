@@ -1262,3 +1262,34 @@ def test_every_family_trains_on_card(cuda_device, arch):
     assert abs(float(nc) - float(nh)) <= 1e-5 * float(nh)
     assert abs(float(lc) - float(lh)) <= 1e-5 * float(lh)
     assert float(fc) == float(fh)
+
+
+# ------------------------------------------------ the cohort over ranks
+
+
+def test_sharded_rounds_on_card_are_bitwise_one_rank(cuda_device):
+    """Two ranks on gloo sharing the card (NCCL refuses two ranks on one
+    device), through the kernels: params, momentum, population vectors and
+    history bitwise the one-rank engine's, and the launches of every
+    kernel, summed over the ranks, the one rank's."""
+    import torch_sharded_ranks as tr
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    build.build()           # before any rank starts
+    specs = [tr.run_spec("fixed", sigma=0.3, rounds=2),
+             tr.run_spec("poisson faults", "poisson", faults=True,
+                         rounds=2),
+             tr.run_spec("sharded streamed", sampler="sharded",
+                         backend="streamed", sigma=0.3, rounds=2)]
+    one = tr.runs(cuda_device, specs, cell_path="fused")
+    out = spawn_ranks(tr.runs, 2, (specs, 2, 1, "fused"), backend="gloo")
+    for spec in specs:
+        name = spec["name"]
+        for res in out:
+            assert not tr.same_run(res[name], one[name]), name
+        assert one[name]["launches"]["cifg_cell_fwd"] > 0
+        assert one[name]["launches"]["dp_sumsq"] > 0
+        summed = {k: sum(res[name]["launches"][k] for res in out)
+                  for k in one[name]["launches"]}
+        assert summed == one[name]["launches"], name

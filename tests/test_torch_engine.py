@@ -374,10 +374,23 @@ def test_noise_std_is_zS_over_qN(tiny_ds):
 
 
 def test_unported_options_raise(tiny_ds):
-    for kw, item in ((dict(num_shards=2), "item 5"),
-                     (dict(num_pods=2), "item 5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    # cohort sharding is ported (tests/test_torch_engine_sharded.py): in a
+    # process that is not one of num_pods x num_shards ranks it raises,
+    # naming the launch command
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.sharding.specs import sim_mesh_config
+
+    for kw in (dict(num_shards=2), dict(num_pods=2)):
+        with pytest.raises(ValueError, match="needs 2 ranks but only 1 are "
+                           "running.*--nproc-per-node 2"):
             _tiny_engine(tiny_ds, **kw)
+    with pytest.raises(ValueError, match="batch axes only"):
+        _tiny_engine(tiny_ds, mesh_config=MeshConfig((1, 2),
+                                                     ("data", "model")))
+    with pytest.raises(ValueError, match="disagrees with mesh_config"):
+        _tiny_engine(tiny_ds, num_shards=4, mesh_config=sim_mesh_config(2))
+    e, _ = _tiny_engine(tiny_ds, mesh_config=sim_mesh_config(1))
+    assert (e.total_shards, e.mesh, e.rank) == (1, None, 0)
     # the streamed backend and the sharded sampler are ported
     for kw in (dict(population_backend="streamed"), dict(sampler="sharded")):
         e, _ = _tiny_engine(tiny_ds, **kw)
@@ -436,9 +449,14 @@ def test_trainer_engine_steps_the_accountant_and_mirrors_participation(
         FederatedTrainer(model, tiny_ds, DPConfig(**dpkw),
                          ClientConfig(**clkw), backend="engine",
                          pop=PopulationSim(len(tiny_ds.users)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # shards need as many ranks; the host backend refuses them
+    with pytest.raises(ValueError, match="--nproc-per-node 2"):
         FederatedTrainer(model, tiny_ds, DPConfig(**dpkw),
                          ClientConfig(**clkw), backend="engine",
+                         num_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="engine-backend"):
+        FederatedTrainer(model, tiny_ds, DPConfig(**dpkw),
+                         ClientConfig(**clkw), backend="host",
                          num_shards=2, device="cpu")
 
 
@@ -455,10 +473,12 @@ def test_training_cli_engine_with_canaries_on_cpu(tmp_path, capsys):
     assert "round    3" in out and "eps=" in out and f"checkpoint: {ck}" in out
     tree, meta = checkpoint.load(ck)
     assert meta["rounds"] == "3" and tree["w_h"].shape == (256, 768)
+    # shards are ported: outside torchrun (one process) they are refused
+    # with the launch command
     for flag in (["--num-shards", "2"], ["--num-pods", "2"]):
         with pytest.raises(SystemExit):
             train.main(["--device", "cpu"] + flag)
-        assert "ROADMAP" in capsys.readouterr().err
+        assert "--nproc-per-node 2" in capsys.readouterr().err
     # the streamed backend and the sharded sampler are ported: the host
     # backend refuses them, as the reference's CLI does
     for flag in (["--sampler", "sharded"],

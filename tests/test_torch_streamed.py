@@ -300,7 +300,8 @@ def test_trainer_refuses_what_the_reference_refuses(stores):
         _trainer(None, None)
     with pytest.raises(ValueError, match="matching"):
         _trainer(ReplicatedPopulationStore(mem, 61), ds)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+    # cohort sharding is ported: one process is not two ranks
+    with pytest.raises(ValueError, match="--nproc-per-node 2"):
         _trainer(mem, num_shards=2)
 
 

@@ -371,10 +371,14 @@ def test_trainer_noise_has_the_calibrated_std_and_engines_raise():
     flat = torch.cat([l.reshape(-1) for l in tree_leaves(noised)])
     assert stats.noise_std == pytest.approx(0.3 * 0.05 / 8)
     assert float(flat.std()) == pytest.approx(stats.noise_std, rel=0.02)
-    # the engine backends are ported; their unported options raise
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the engine backends are ported; shards need as many ranks, and the
+    # host backend refuses them
+    with pytest.raises(ValueError, match="--nproc-per-node 2"):
         FederatedTrainer(pt.model, pt.dataset, pt.dp, pt.client,
                          backend="engine", num_shards=2, device="cpu")
+    with pytest.raises(ValueError, match="engine-backend"):
+        FederatedTrainer(pt.model, pt.dataset, pt.dp, pt.client,
+                         backend="host", num_shards=2)
 
 
 def test_data_and_sampling_are_the_references_bits():
