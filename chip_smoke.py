@@ -40,7 +40,7 @@ line each (any failure exits non-zero and prints no result):
 8. memorize — the Secret Sharer on the same CIFG-LSTM: 1000 users and the
    paper's 27 canaries (189 synthetic devices) trained 10 rounds at cohort
    128 through ``FederatedTrainer(backend="engine")`` with the canary eval
-   hook every 5 rounds, then Random-Sampling ranks at |R| = 5·10⁵ and
+   hook every 5 rounds, then Random-Sampling ranks at |R| = 2.5·10⁵ and
    beam-search extraction of every canary; the engine's ``run`` against
    ``run_python`` and against the host trainer on its draws (bitwise), the
    round across cohort chunks (bitwise), the noise's std, launch counts,
@@ -58,7 +58,7 @@ line each (any failure exits non-zero and prints no result):
    save and restore bitwise against the uninterrupted run; the training
    CLI's ``--crash-after`` then ``--resume`` at full width in subprocesses
    with no ``msgpack`` importable, sha256-equal final checkpoints; rounds/s
-   and the device busy share;
+   (its profiled round was cut to make room for phase 15);
 10. fleet — the paper's fleet on the card: the same CIFG-LSTM at full width
    trained over N = 4·10⁶ users through the streamed population backend
    (the Train corpus written by ``repro_torch.launch.build_corpus``, opened
@@ -66,8 +66,8 @@ line each (any failure exits non-zero and prints no result):
    the streamed backend bitwise the device backend at N = 1000 (both
    samplers; fixed, Poisson and faulty rounds; in-memory and mmap stores;
    ``run`` and ``run_python``), the sharded cohorts on the card equal to
-   the CPU's at N, the corpus bytes on the card equal at both N, 10
-   rounds through ``FederatedTrainer`` with a read every 5 rounds and 10
+   the CPU's at N, the corpus bytes on the card equal at both N, 5
+   rounds through ``FederatedTrainer`` with a read every 5 rounds and 5
    with a read every round (bitwise equal; launches exact), the sample phase per
    sampler, the busy share of one round, the training CLI over the store
    crashed and resumed (sha256-equal);
@@ -102,7 +102,7 @@ line each (any failure exits non-zero and prints no result):
    ``user_update`` of granite-3-2b at full depth (peak memory, step
    time); the training CLI on granite-3-2b and zamba2-2.7b reduced;
 14. shards — the cohort sharded over ranks on one card: the paper's model
-   at full width, cohort 128, z 0.3, S 0.8, 3 rounds, through
+   at full width, cohort 128, z 0.3, S 0.8, 2 rounds, through
    ``SimEngine(num_shards=S, num_pods=P)`` on ranks that share the card
    on gloo (NCCL refuses two ranks on one device), started by
    ``launch.mesh.spawn_ranks`` after the kernels are built: the device
@@ -116,13 +116,33 @@ line each (any failure exits non-zero and prints no result):
    a rank; then the training CLI under ``python -m torch.distributed.run
    --nproc-per-node 4 ... --num-shards 4 --dist-backend gloo``,
    uninterrupted and crashed after round 2 then resumed, sha256-equal to
-   one rank. Runs after phase 10.
+   one rank. Runs after phase 10;
+15. production — the production step (``repro_torch.launch.steps``) on
+   DTensor over the (data, model) mesh, one gloo rank at (1, 1):
+   ``make_fed_train_step`` of granite-3-2b (40 layers) and mamba2-370m (48)
+   uncut, 4 clients, and the CIFG-LSTM at its published widths, 16
+   clients, each × 4,096 tokens, z 0.3, S 0.8, with exactly 2 flash
+   launches per attention layer per client (320), 2 ``ssd_scan`` per mixer
+   per client (384) and one ``cifg_cell_fwd`` and one
+   ``cifg_cell_bwd_seq`` per client, step time and peak memory; at 2
+   layers and 512 tokens (the LSTM whole) bitwise the mesh-free
+   computation (``steps.fed_train_step_plain``); the noise's std within 2%
+   of zS/C, params moved, count 1; the card against the CPU at 2 layers, 2
+   clients × 256; granite-3-2b's prefill step at B 1 × 32,768 (one flash
+   launch a layer) and 3 decode steps at B 4 against a 32,768-slot cache,
+   timed, after the (1, 1) serving steps bitwise the unsharded ones at
+   2,048 tokens; then 4 gloo ranks sharing the card at (2, 2) and
+   (2, 1, 2) against (1, 1) (granite-3-2b at full width, 1 layer, 2
+   clients × 64, z 0), and a planted fault (batch row 1's clients dropped
+   at (2, 2)) that the same comparison must catch.
+   Runs after phase 14.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3218,17 +3238,10 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
         f"tol 2%), the history's {hist[0]['noise_std']:.5e}")
     del noise, flat, resumed
 
-    t0 = time.perf_counter()
-    round_dev, round_wall, top = profiled_device_ms(lambda: main.train(1), 1,
-                                                    warmup=False, cpu=False)
-    busy = None if round_dev is None else 100 * round_dev / round_wall
-    say(f"faults: one fault-on engine round under the profiler (device "
-        f"activity only): "
-        f"{_fmt_ms(round_dev)} on the device of {round_wall:.1f} ms, device "
-        f"busy {'not measured' if busy is None else f'{busy:.1f}%'}; by "
-        f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
-                                for n, ms, c in top)
-        + f"; {time.perf_counter() - t0:.1f} s with the trace's processing")
+    # the profiled fault-on round (~60 s of trace processing) was cut to
+    # make room for phase 15: phase 8's and 10's profiled rounds keep the
+    # engine's busy share
+    busy = None
 
     # ------------------------------------ aborts: report goal 150 of 152
     t0 = time.perf_counter()
@@ -4579,6 +4592,699 @@ def _phase_shards(dev, tmp, procs, n_users, fleet_users, cohort, vocab,
     return {"launches": total}
 
 
+# ------------------------------------------------ 15. the production step
+
+# the models phase 15 trains through the (1, 1) step: clients a step
+# (cut from train_4k's 256)
+PROD_MODELS = (("granite-3-2b", 4), ("mamba2-370m", 4),
+               ("gboard-cifg-lstm", 16))
+PROD_S = 4096                     # train_4k's sequence
+PROD_Z, PROD_CLIP = 0.3, 0.8
+# the card against the CPU, at full width, 2 layers: clients × tokens
+PROD_CPU = (2, 256)
+# the checks of the (1, 1) step against the mesh-free computation and of
+# the noise run at 2 layers and this many tokens (the LSTM whole)
+PROD_S_BITWISE = 512
+# the card against the CPU, and the ranks sharing the card against one
+# rank, both at z 0 (so that Δ is the clipped gradients' sum alone): per
+# leaf, |Δ − Δ_ref| within this share of the leaf's largest update
+# (bfloat16 products rounded at other places: the CPU's are float32
+# products rounded once, the model axis splits the contractions)
+TOL_PROD = 5e-2
+# the loss and the mean update norm, relative: the card against the CPU,
+# and the ranks against one rank
+TOL_PROD_METRICS = {"cpu": 1e-2, "ranks": 1e-3}
+# the noise's std against zS/C, relative
+TOL_PROD_NOISE = 2e-2
+# the ranks' granite-3-2b: full width at this depth
+PROD_RANK_LAYERS = 1
+PROD_TOPOLOGIES = {"2x2": ((2, 2), ("data", "model")),
+                   "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+# the planted fault the ranks' comparison must catch: at (2, 2), the ranks
+# of batch row 1 give their clients weight 0 (half the clients lost)
+PROD_FAULT = "2x2, row 1 dropped"
+# the serving steps: granite-3-2b's prefill at B 1 × 32,768 and decode at
+# B 4 against a 32,768-slot cache (prefill_32k and decode_32k cut in batch)
+PROD_PREFILL = (1, 32_768)
+PROD_DECODE = (4, 32_768, 3)
+
+
+def _prod_config(name: str, n_layers=None):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    return cfg if n_layers is None else cfg.with_(n_layers=n_layers)
+
+
+def _prod_batch(cfg, C: int, S: int, seed: int, dev) -> dict:
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (C, S + 1), generator=gen).to(dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _dt_zeros(dparams):
+    """float32 zeros in the layout of a DTensor tree, made in place on
+    each rank (no full copy)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(lambda d: DTensor.from_local(
+        torch.zeros_like(d.to_local(), dtype=torch.float32), d.device_mesh,
+        d.placements, run_check=False, shape=d.shape, stride=d.stride()),
+        dparams)
+
+
+def _prod_step(dev, cfg, C: int, S: int, z: float, shape=(1, 1),
+               axes=("data", "model"), seed: int = 0, gather: bool = True,
+               init_dev=None):
+    """One production train step of ``cfg`` over a mesh of the running
+    ranks: params from ``seed`` drawn on ``init_dev`` (default the rank's
+    device) and moved to the rank's, C clients of S tokens, noise z.
+    Returns the metrics, the count, the launches, the step's seconds and
+    peak memory, and (``gather``) the new params and momentum whole on the
+    rank's device."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import DPConfig, InputShape, MeshConfig
+    from repro_torch.core.server_optim import ServerOptState
+    from repro_torch.kernels.cifg_cell import ops as cell_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build
+    from repro_torch.sharding import specs as SP
+    from repro_torch.utils.params import strip_compute
+
+    model = build(cfg)
+    mcfg = MeshConfig(tuple(shape), tuple(axes))
+    mesh = make_production_mesh(multi_pod="pod" in axes, shape=shape,
+                                device_type=dev.type)
+    pspecs = SP.param_specs(ST.params_shape(model), cfg, mcfg)
+    gen = torch.Generator(init_dev or dev).manual_seed(seed)
+    p0 = strip_compute(model.init(gen, device=dev))
+    params = SP.distribute_params(p0, pspecs, mesh)
+    del p0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mom = _dt_zeros(params)
+    state = ServerOptState(momentum=mom, nu=_dt_zeros(params), count=0)
+    step = ST.make_fed_train_step(
+        model, DPConfig(clients_per_round=C, noise_multiplier=z,
+                        clip_norm=PROD_CLIP), mesh, mcfg, pspecs,
+        InputShape("train_4k_cut", S, C, "train"))
+    batch = _prod_batch(cfg, C, S, seed + 1, dev)
+    counters = (fa_ops.LAUNCHES, ssd_ops.LAUNCHES, cell_ops.LAUNCHES)
+    _reset(*counters)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, state, batch,
+                                  torch.Generator(dev).manual_seed(seed + 2))
+    _sync(dev)
+    out = {"seconds": time.perf_counter() - t0,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev.type == "cuda" else None),
+           "launches": {k: v for c in counters for k, v in c.items()},
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "count": int(state.count)}
+    if gather:
+        out["params"] = SP.gather_params(params)
+        out["momentum"] = SP.gather_params(state.momentum)
+    del params, state, mom
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_to(tree, dev):
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _prod_rank(dev, plan: dict, ref_path: str) -> dict:
+    """What one rank sharing the card runs in phase 15: each topology of
+    ``plan`` ({name: (shape, axes, (model, layers, C, S, z))}); rank 0
+    holds the params and momentum against the one-rank run saved at
+    ``ref_path`` and returns the largest per-leaf errors. Under
+    `PROD_FAULT` the ranks of batch row 1 weigh their clients 0."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch import steps as ST
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // 4))
+    rank0 = torch.distributed.get_rank() == 0
+    ref = torch.load(ref_path, map_location=dev) if rank0 else None
+    starts = {}
+    clip = ST._clip
+
+    def dropped(ss, clip_S, lr):
+        norm, clipped, w = clip(ss, clip_S, lr)
+        return norm, clipped, 0 * w
+
+    out = {}
+    for name, (shape, axes, (model, layers, C, S, z)) in plan.items():
+        t0 = time.perf_counter()
+        cfg = _prod_config(model, layers)
+        # the mesh is rank-major and ``model`` its last axis
+        row = torch.distributed.get_rank() // shape[-1]
+        with mock.patch.object(ST, "_clip", dropped if name == PROD_FAULT
+                               and row == 1 else clip):
+            r = _prod_step(dev, cfg, C, S, z, shape, axes)
+        got = {k: r.pop(k) for k in ("params", "momentum")}
+        r["run_s"] = time.perf_counter() - t0
+        if rank0:
+            if (model, layers) not in starts:
+                starts[model, layers] = _prod_start(cfg, dev)
+            r["worst"] = max(
+                _prod_worst(got["params"], ref["params"],
+                            starts[model, layers]),
+                _prod_worst(got["momentum"], ref["momentum"], None))
+        del got
+        out[name] = r
+    return out
+
+
+def _prod_close(got, want, start, what: str) -> float:
+    """The largest per-leaf |Δ_got − Δ_want| / max|Δ_want|; fails above
+    `TOL_PROD`."""
+    worst = _prod_worst(got, want, start)
+    if worst > TOL_PROD:
+        fail(f"production: {what}: per-leaf update error {worst:.3e} above "
+             f"{TOL_PROD}")
+    return worst
+
+
+def _prod_worst(got, want, start) -> float:
+    """The largest per-leaf |Δ_got − Δ_want| / max|Δ_want|, Δ the change
+    from ``start`` (None: the leaves themselves), in float64 on ``want``'s
+    device."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    worst = 0.0
+    for g, w, s in zip(tree_leaves(got), tree_leaves(want),
+                       tree_leaves(start) if start is not None
+                       else [None] * len(tree_leaves(want))):
+        g, w = g.to(w.device).double(), w.double()
+        if s is not None:
+            s = s.to(w.device).double()
+            g, w = g - s, w - s
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    return worst
+
+
+def _prod_plain(dev, cfg, C, S, z, seed: int = 0) -> dict:
+    """The same step written without a mesh (`steps.fed_train_step_plain`)
+    from the same seeds, on one device."""
+    import torch
+
+    from repro_torch.configs import DPConfig
+    from repro_torch.core.server_optim import init_state
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute
+
+    model = build(cfg)
+    p0 = strip_compute(model.init(torch.Generator(dev).manual_seed(seed),
+                                  device=dev))
+    p, st, m = ST.fed_train_step_plain(
+        model, DPConfig(clients_per_round=C, noise_multiplier=z,
+                        clip_norm=PROD_CLIP), p0, init_state(p0),
+        _prod_batch(cfg, C, S, seed + 1, dev),
+        torch.Generator(dev).manual_seed(seed + 2))
+    return {"params": p, "momentum": st.momentum,
+            "metrics": {k: float(v) for k, v in m.items()}}
+
+
+def _prod_cut(name: str):
+    """The depth of phase 15's checks: 2 layers, the LSTM whole."""
+    return None if name == "gboard-cifg-lstm" else 2
+
+
+def _prod_cpu_side(out_path: str) -> None:
+    """The CPU half of phase 15's card-against-CPU check, run in a process
+    of its own beside the card's steps: each model at `_prod_cut`'s depth,
+    `PROD_CPU` clients × tokens, z 0, from params drawn on the card from
+    the same seed as the card's; the new params and the metrics saved to
+    ``out_path``."""
+    import torch
+
+    from repro_torch.launch.mesh import one_rank
+
+    # the card's steps keep a core for their host dispatch
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) - 2))
+    Cc, Sc = PROD_CPU
+    out = {}
+    with one_rank(device="cpu") as cdev:
+        for name, _ in PROD_MODELS:
+            t0 = time.perf_counter()
+            r = _prod_step(cdev, _prod_config(name, _prod_cut(name)), Cc,
+                           Sc, 0.0, init_dev=torch.device("cuda"))
+            out[name] = {"params": r["params"], "metrics": r["metrics"],
+                         "seconds": time.perf_counter() - t0}
+    torch.save(out, out_path)
+
+
+@contextlib.contextmanager
+def _in_background(fn, *args):
+    """``fn(*args)`` in a spawned process for the span of the block;
+    yields the process, stopped on the way out if it still runs."""
+    import torch.multiprocessing as mp
+
+    proc = mp.get_context("spawn").Process(target=fn, args=args)
+    proc.start()
+    try:
+        yield proc
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(30)
+
+
+def phase_production(dev, layers_full=None, S: int = PROD_S,
+                     S_small: int = 64, prefill=PROD_PREFILL,
+                     decode=PROD_DECODE) -> dict:
+    """15: the production step (`launch.steps`) on DTensor over the
+    (data, model) mesh: the (1, 1) train step of granite-3-2b and
+    mamba2-370m uncut and the CIFG-LSTM at its published widths, with the
+    exact launches of their kernels; bitwise the mesh-free computation; the
+    card against the CPU (whose steps run in a process of their own beside
+    the card's); the noise's std; the serving steps of granite-3-2b at
+    32,768 tokens; and ranks sharing the card on gloo at (2, 2) and
+    (2, 1, 2) against one rank at z 0, with a planted fault that the
+    comparison must catch. ``layers_full`` cuts the "uncut" models' depth
+    for a rehearsal on the CPU. Returns the launches of the main path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import one_rank
+
+    t_phase = t_part = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {"flash_attention_fwd": 0, "ssd_scan": 0,
+                "cifg_cell_fwd": 0, "cifg_cell_bwd_seq": 0}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
+        cpu_path = os.path.join(tmp, "cpu.pt")
+        cpu_side = (stack.enter_context(_in_background(_prod_cpu_side,
+                                                       cpu_path))
+                    if dev.type == "cuda" else None)
+        with one_rank(device=dev.type) as rdev:
+            _prod_full_depth(rdev, layers_full, S, launches)
+            part("full depth")
+            _prod_bitwise(rdev, S)
+            part("bitwise and noise")
+            card = ({name: _prod_step(rdev, _prod_config(name,
+                                                         _prod_cut(name)),
+                                      *PROD_CPU, 0.0)
+                     for name, _ in PROD_MODELS}
+                    if cpu_side is not None else None)
+        if cpu_side is not None:
+            cpu_side.join(900)
+            if cpu_side.exitcode != 0:
+                fail(f"production: the CPU side of the card-against-CPU "
+                     f"check ended with {cpu_side.exitcode}")
+            _prod_card_vs_cpu(dev, card, torch.load(cpu_path))
+            del card
+        part("card against CPU (the CPU's steps beside the card's)")
+
+    serve = _prod_serve(dev, layers_full, prefill, decode)
+    launches["flash_attention_fwd"] += serve["flash_attention_fwd"]
+    part("serving")
+
+    launches["flash_attention_fwd"] += _prod_ranks(dev, S_small)
+    part("ranks")
+    say(f"production: phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return launches
+
+
+def _prod_full_depth(rdev, layers_full, S: int, launches: dict) -> None:
+    """The (1, 1) step of each model at full depth (``layers_full`` for a
+    rehearsal), with its kernels' exact launches, added to ``launches``."""
+    for name, C in PROD_MODELS:
+        cfg = _prod_config(name, None if name == "gboard-cifg-lstm"
+                           else layers_full)
+        r = _prod_step(rdev, cfg, C, S, PROD_Z, gather=False)
+        got = r["launches"]
+        sites, mixers = _attn_sites(cfg), _mixers(cfg)
+        want = {"flash_attention_fwd": 2 * sites * C,
+                "ssd_scan": 2 * mixers * C,
+                "cifg_cell_fwd": C if cfg.family == "lstm" else 0,
+                "cifg_cell_bwd_seq": C if cfg.family == "lstm" else 0}
+        if rdev.type == "cuda" and {k: got[k] for k in want} != want:
+            fail(f"production: {name}'s step launched "
+                 f"{ {k: got[k] for k in want} }, expected {want} "
+                 f"(flash and the SSD scan: forward and remat "
+                 f"recomputation per site per client; the CIFG "
+                 f"sequence kernels once each per client)")
+        for k in want:
+            launches[k] += got[k]
+        m = r["metrics"]
+        if not all(map(lambda v: v == v and abs(v) < float("inf"),
+                       m.values())) or r["count"] != 1:
+            fail(f"production: {name}'s step gave {m}, count "
+                 f"{r['count']}")
+        peak = ("not measured" if r["peak_gb"] is None
+                else f"{r['peak_gb']:.1f} GB")
+        say(f"production: {name} ({cfg.n_layers} layers, {C} clients "
+            f"x {S} tokens, (1, 1) mesh, z {PROD_Z}): step "
+            f"{r['seconds']:.2f} s, peak {peak}, "
+            f"loss {m['loss']:.4f}, mean update norm "
+            f"{m['mean_update_norm']:.4f}, clipped {m['frac_clipped']}, "
+            f"launches {want}")
+
+
+def _prod_bitwise(rdev, S: int) -> None:
+    """At `_prod_cut`'s depth: the (1, 1) step bitwise the mesh-free
+    computation; granite-3-2b's noise std against zS/C, its params moved
+    and its count 1."""
+    import torch
+
+    from repro_torch.utils.pytree import tree_leaves
+
+    Sb = min(S, PROD_S_BITWISE)
+    for name, C in PROD_MODELS:
+        cfg = _prod_config(name, _prod_cut(name))
+        r = _prod_step(rdev, cfg, C, Sb, PROD_Z)
+        p = _prod_plain(rdev, cfg, C, Sb, PROD_Z)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(r["params"]) + tree_leaves(r["momentum"]),
+            tree_leaves(p["params"]) + tree_leaves(p["momentum"])))
+        if not same or r["metrics"] != p["metrics"]:
+            fail(f"production: {name}'s (1, 1) step is not bitwise the "
+                 "mesh-free computation")
+        say(f"production: {name} ({cfg.n_layers} layers, {C} clients x "
+            f"{Sb}): the (1, 1) step bitwise the mesh-free computation "
+            f"(params, momentum, metrics)")
+        del p
+        if name == "granite-3-2b":
+            r0 = _prod_step(rdev, cfg, C, Sb, 0.0)
+            diff = torch.cat([(a - b).flatten() for a, b in zip(
+                tree_leaves(r["momentum"]), tree_leaves(r0["momentum"]))])
+            std, sigma = float(diff.std()), PROD_Z * PROD_CLIP / C
+            if abs(std / sigma - 1) > TOL_PROD_NOISE:
+                fail(f"production: noise std {std:.5e} vs zS/C "
+                     f"{sigma:.5e}")
+            moved = max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(r["params"]),
+                tree_leaves(_prod_start(cfg, rdev))))
+            if moved == 0 or r["count"] != 1:
+                fail(f"production: the params did not move ({moved}) "
+                     f"or the count is {r['count']}")
+            say(f"production: noise std {std:.5e} over {diff.numel()} "
+                f"entries vs zS/C {sigma:.5e} "
+                f"({100 * (std / sigma - 1):+.2f}%, tol 2%); params "
+                f"moved (max |Δ| {moved:.3e}), momentum moved from 0, "
+                f"count 1")
+            del diff, r0
+        del r
+
+
+def _prod_card_vs_cpu(dev, card: dict, cpu: dict) -> None:
+    """The card's steps (``card``) against `_prod_cpu_side`'s (``cpu``):
+    per leaf within `TOL_PROD` of the largest update, the metrics within
+    ``TOL_PROD_METRICS["cpu"]``; compared on ``dev``."""
+    Cc, Sc = PROD_CPU
+    for name, _ in PROD_MODELS:
+        cfg = _prod_config(name, _prod_cut(name))
+        worst = _prod_close(card[name]["params"],
+                            _tree_to(cpu[name]["params"], dev),
+                            _prod_start(cfg, dev), f"{name} card vs CPU")
+        mc, mh = card[name]["metrics"], cpu[name]["metrics"]
+        rel = _prod_metrics_close(mc, mh, "cpu", f"{name} card vs CPU")
+        say(f"production: {name} ({cfg.n_layers} layers, {Cc} clients x "
+            f"{Sc}, z 0) card against CPU: per-leaf update error "
+            f"{worst:.2e} (tol {TOL_PROD}), loss {mc['loss']:.5f} vs "
+            f"{mh['loss']:.5f}, mean update norm "
+            f"{mc['mean_update_norm']:.5f} vs {mh['mean_update_norm']:.5f} "
+            f"(relative {rel:.1e}, tol {TOL_PROD_METRICS['cpu']}), clipped "
+            f"{mc['frac_clipped']} both; CPU step "
+            f"{cpu[name]['seconds']:.1f} s")
+
+
+def _prod_ranks(dev, S_small: int) -> int:
+    """granite-3-2b at full width, `PROD_RANK_LAYERS` deep, 2 clients ×
+    ``S_small``, z 0, on 4 gloo ranks sharing the card at each of
+    `PROD_TOPOLOGIES` against one rank, and `PROD_FAULT`, which the same
+    comparison must catch. Returns the flash launches of the topologies'
+    runs, summed over the ranks (the planted fault's not counted)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.mesh import one_rank, spawn_ranks
+
+    layers = PROD_RANK_LAYERS
+    run = ("granite-3-2b", layers, 2, S_small, 0.0)
+    plan = {k: (shape, axes, run)
+            for k, (shape, axes) in PROD_TOPOLOGIES.items()}
+    plan[PROD_FAULT] = plan["2x2"]
+    t0 = time.perf_counter()
+    with one_rank(device=dev.type) as rdev:
+        one = _prod_step(rdev, _prod_config("granite-3-2b", layers), 2,
+                         S_small, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "one_rank.pt")
+        torch.save({k: one.pop(k) for k in ("params", "momentum")}, ref)
+        t_ref = time.perf_counter() - t0
+        per_rank = spawn_ranks(_prod_rank, 4, (plan, ref), backend="gloo",
+                               device=dev.type)
+    flash = 0
+    for topo in plan:
+        got = per_rank[0][topo]
+        worst = got["worst"]
+        if topo == PROD_FAULT:
+            if worst <= TOL_PROD:
+                fail(f"production: the planted fault ({topo}) reads "
+                     f"{worst:.3e}, within {TOL_PROD}: the ranks' "
+                     f"comparison cannot see half the clients lost")
+            say(f"production: planted fault ({topo}): per-leaf update "
+                f"error against (1, 1) {worst:.2e}, above {TOL_PROD} as "
+                f"it must be; {got['run_s']:.1f} s on rank 0")
+            continue
+        n = sum(r[topo]["launches"]["flash_attention_fwd"]
+                for r in per_rank)
+        flash += n
+        if worst > TOL_PROD:
+            fail(f"production: {topo} against (1, 1): per-leaf update "
+                 f"error {worst:.3e} above {TOL_PROD}")
+        m, m1 = got["metrics"], one["metrics"]
+        rel = _prod_metrics_close(m, m1, "ranks", f"{topo} against (1, 1)")
+        say(f"production: granite-3-2b ({layers} layer, 2 clients x "
+            f"{S_small}, z 0) on 4 gloo ranks sharing the card at {topo}: "
+            f"per-leaf update error against (1, 1) {worst:.2e} (tol "
+            f"{TOL_PROD}), loss {m['loss']:.5f} vs {m1['loss']:.5f}, mean "
+            f"update norm {m['mean_update_norm']:.5f} vs "
+            f"{m1['mean_update_norm']:.5f} (relative {rel:.1e}, tol "
+            f"{TOL_PROD_METRICS['ranks']}); step {got['seconds']:.2f} s, "
+            f"the topology's run {got['run_s']:.1f} s on rank 0; flash "
+            f"launches summed over the ranks {n}")
+    say(f"production: the ranks' one-rank reference {t_ref:.1f} s, the "
+        f"4-rank spawn {time.perf_counter() - t0 - t_ref:.1f} s")
+    return flash
+
+
+def _prod_metrics_close(got: dict, want: dict, which: str, what: str
+                        ) -> float:
+    """``frac_clipped`` equal, the loss and the mean update norm within
+    ``TOL_PROD_METRICS[which]`` relative; returns the larger relative
+    error."""
+    rel = max(abs(got[k] / want[k] - 1)
+              for k in ("loss", "mean_update_norm"))
+    if got["frac_clipped"] != want["frac_clipped"] or \
+            rel > TOL_PROD_METRICS[which]:
+        fail(f"production: {what}: {got} vs {want}")
+    return rel
+
+
+def _prod_start(cfg, dev):
+    """The starting params `_prod_step` draws (seed 0, on the card where
+    there is one), on ``dev``."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute
+
+    at = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    p = strip_compute(build(cfg).init(torch.Generator(at).manual_seed(0),
+                                      device=at))
+    return _tree_to(p, dev)
+
+
+def _prod_serve(dev, layers_full, prefill, decode) -> dict:
+    """granite-3-2b's prefill and decode steps on the (1, 1) mesh: bitwise
+    the unsharded ``prefill`` / ``decode_step`` on a 2,048-token prompt,
+    then the prefill at ``prefill`` (B, S) and ``decode`` (B, cache, steps)
+    against a cache of random K/V, timed. Returns the prefill's flash
+    launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import InputShape, MeshConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_production_mesh, one_rank
+    from repro_torch.models import build
+    from repro_torch.models.layers import pad_vocab
+    from repro_torch.sharding import specs as SP
+    from repro_torch.utils.params import strip_compute, with_compute_copies
+
+    cfg = _prod_config("granite-3-2b", layers_full)
+    model = build(cfg)
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    out = {}
+    with one_rank(device=dev.type) as rdev:
+        mesh = make_production_mesh(shape=(1, 1), device_type=dev.type)
+        pspecs = SP.param_specs(ST.params_shape(model), cfg, mcfg)
+        p0 = strip_compute(model.init(torch.Generator(rdev).manual_seed(3),
+                                      device=rdev))
+        params = SP.distribute_params(p0, pspecs, mesh)
+        # bitwise the unsharded steps at 2,048 tokens
+        S0 = min(2048, prefill[1])
+        toks = torch.randint(0, cfg.vocab, (1, S0 + 1),
+                             generator=torch.Generator().manual_seed(4)
+                             ).to(rdev)
+        pre = ST.make_prefill_step(model, mesh, mcfg, pspecs,
+                                   InputShape("p", S0, 1, "prefill"),
+                                   max_len=S0 + 1)
+        dec = ST.make_decode_step(model, mesh, mcfg, pspecs,
+                                  InputShape("d", S0 + 1, 1, "decode"))
+        lg, cache = pre(params, {"tokens": toks[:, :S0]})
+        lg2, _ = dec(params, toks[:, S0], cache)
+        pc = with_compute_copies(p0, cfg.compute_dtype, model.compute_copies)
+        ref, rc = model.prefill(pc, {"tokens": toks[:, :S0]},
+                                max_len=S0 + 1)
+        ref2, _ = model.decode_step(pc, toks[:, S0], rc)
+        if not (torch.equal(lg.full_tensor(), ref)
+                and torch.equal(lg2.full_tensor(), ref2)):
+            fail("production: the (1, 1) prefill / decode steps are not "
+                 "bitwise the unsharded prefill / decode_step")
+        say(f"production: granite-3-2b's (1, 1) prefill and decode steps "
+            f"bitwise the unsharded ones ({S0}-token prompt)")
+        del p0, pc, rc, cache, lg, lg2, ref, ref2
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        B, S = prefill
+        toks = torch.randint(0, cfg.vocab, (B, S),
+                             generator=torch.Generator().manual_seed(5)
+                             ).to(rdev)
+        pre = ST.make_prefill_step(model, mesh, mcfg, pspecs,
+                                   InputShape("prefill_32k_cut", S, B,
+                                              "prefill"))
+        pre(params, {"tokens": toks[:, :256]})        # warm
+        _reset(fa_ops.LAUNCHES)
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = pre(params, {"tokens": toks})
+        _sync(dev)
+        pre_s = time.perf_counter() - t0
+        out["flash_attention_fwd"] = fa_ops.LAUNCHES["flash_attention_fwd"]
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        if out["flash_attention_fwd"] != cfg.n_layers and dev.type == "cuda":
+            fail(f"production: the prefill step launched flash "
+                 f"{out['flash_attention_fwd']} times, expected one a layer "
+                 f"({cfg.n_layers})")
+        lg = logits.full_tensor()
+        if tuple(lg.shape) != (B, pad_vocab(cfg.vocab)) or not bool(
+                torch.isfinite(lg).all()):
+            fail(f"production: prefill logits {tuple(lg.shape)} not finite")
+        say(f"production: granite-3-2b prefill step B {B} x {S}: "
+            f"{pre_s:.3f} s = {B * S / pre_s:,.0f} tokens/s, flash "
+            f"{out['flash_attention_fwd']} launches (one a layer), peak "
+            f"{'not measured' if peak is None else f'{peak:.1f} GB'}")
+        del logits, cache, lg
+        gc.collect()
+
+        Bd, T, steps = decode
+        c0 = model.init_cache(Bd, T, device=rdev)
+        g = torch.Generator(rdev).manual_seed(6)
+        for k in ("k", "v"):
+            c0[k].copy_(torch.randn(c0[k].shape, generator=g,
+                                    device=rdev).to(c0[k].dtype))
+        c0["pos"].fill_(T - steps)
+        shape = InputShape("decode_32k_cut", T, Bd, "decode")
+        cache = SP.distribute_params(
+            c0, SP.cache_specs(c0, cfg, shape, mcfg), mesh)
+        del c0
+        dec = ST.make_decode_step(model, mesh, mcfg, pspecs, shape)
+        tok = torch.randint(0, cfg.vocab, (Bd,),
+                            generator=torch.Generator().manual_seed(7)
+                            ).to(rdev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset(fa_ops.LAUNCHES)
+        times = []
+        for _ in range(steps - 1):
+            _sync(dev)
+            t0 = time.perf_counter()
+            lg, cache = dec(params, tok, cache)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        dev_ms = None
+        if dev.type == "cuda":
+            holder = {}
+
+            def one_step():
+                holder["out"] = dec(params, tok, cache)
+
+            dev_ms, wall_ms, _ = profiled_device_ms(one_step, 1,
+                                                    warmup=False, cpu=False)
+            lg = holder["out"][0]
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        if fa_ops.LAUNCHES["flash_attention_fwd"]:
+            fail("production: a decode step launched flash")
+        lg = lg.full_tensor()
+        if tuple(lg.shape) != (Bd, pad_vocab(cfg.vocab)) or not bool(
+                torch.isfinite(lg).all()):
+            fail(f"production: decode logits {tuple(lg.shape)} not finite")
+        say(f"production: granite-3-2b decode step B {Bd} against a "
+            f"{T:,}-slot cache: eager {1e3 * min(times):.1f} ms "
+            f"(best of {len(times)}), on the device "
+            f"{_fmt_ms(dev_ms)} (profiler), peak "
+            f"{'not measured' if peak is None else f'{peak:.1f} GB'}")
+        del params, cache, lg
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4608,25 +5314,31 @@ def main() -> None:
     serve = phase_serve(dev, fwd)
     train = phase_train(dev)
     step_launches = phase_decode_grad(dev)
-    memo = phase_memorize(dev)
+    # depths cut to fit phase 15 in the time limit: |R| 2.5·10⁵ (was
+    # 5·10⁵), 5 fleet rounds (were 10), 2 rounds a shard run (were 3)
+    memo = phase_memorize(dev, rs_samples=250_000)
     faults = phase_faults(dev)
-    fleet = phase_fleet(dev)
+    fleet = phase_fleet(dev, rounds=5)
     # phase 14 runs here, beside the other engine paths and before the
     # serving phases fill this process's memory
-    shards = phase_shards(dev)
+    shards = phase_shards(dev, rounds=2)
+    # phase 15 runs here too, while the serving phases have not yet filled
+    # this process's memory: its granite-3-2b step holds ~50 GB of state
+    prod = phase_production(dev)
     paths = (train["launches"], memo["launches"], faults["launches"],
              fleet["launches"], shards["launches"])
-    bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths)
+    bwd["launches"] = sum(p["cifg_cell_bwd_seq"] for p in paths + (prod,))
     fwd["launches"] = serve["launches"] + sum(p["cifg_cell_fwd"]
-                                              for p in paths)
+                                              for p in paths + (prod,))
     say(f"launches of cifg_cell_fwd: serve {serve['launches']}, train "
         f"{train['launches']['cifg_cell_fwd']}, memorize "
         f"{memo['launches']['cifg_cell_fwd']}, faults "
         f"{faults['launches']['cifg_cell_fwd']}, fleet "
         f"{fleet['launches']['cifg_cell_fwd']}, shards "
-        f"{shards['launches']['cifg_cell_fwd']} (summed over the ranks); of "
+        f"{shards['launches']['cifg_cell_fwd']} (summed over the ranks), "
+        f"production {prod['cifg_cell_fwd']}; of "
         f"cifg_cell_bwd: the sequence form {bwd['launches']} in training, "
-        f"memorize, faults, fleet and shards, "
+        f"memorize, faults, fleet, shards and production, "
         f"the per-step form {step_launches} through decode steps")
     for row in clip_rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
@@ -4634,18 +5346,22 @@ def main() -> None:
     decoder = phase_decoder(dev)
     encdec = phase_encdec(dev)
     families = phase_families(dev)
-    ssd["launches"] = hybrid["ssd_scan"] + families["ssd_scan"]
+    ssd["launches"] = (hybrid["ssd_scan"] + families["ssd_scan"]
+                       + prod["ssd_scan"])
     flash["launches"] = (hybrid["flash_attention_fwd"] + decoder
                          + encdec["flash_attention_fwd"]
-                         + families["flash_attention_fwd"])
+                         + families["flash_attention_fwd"]
+                         + prod["flash_attention_fwd"])
     for row in clip_rows:
         row["launches"] += families[row["name"]]
     say(f"launches of flash_attention_fwd on the main paths: zamba2-2.7b's "
         f"prefill {hybrid['flash_attention_fwd']}, granite-3-2b's and "
         f"olmoe-1b-7b's {decoder}, whisper-small's "
         f"{encdec['flash_attention_fwd']}, training every family "
-        f"{families['flash_attention_fwd']}; of ssd_scan: zamba2-2.7b's "
-        f"prefill {hybrid['ssd_scan']}, training {families['ssd_scan']}; of "
+        f"{families['flash_attention_fwd']}, the production step "
+        f"{prod['flash_attention_fwd']}; of ssd_scan: zamba2-2.7b's "
+        f"prefill {hybrid['ssd_scan']}, training {families['ssd_scan']}, "
+        f"the production step {prod['ssd_scan']}; of "
         f"dp_sumsq and dp_clip_accumulate in training the zoo "
         f"{families['dp_sumsq']} and {families['dp_clip_accumulate']} (the "
         f"card-against-CPU checks not counted)")

@@ -1,5 +1,6 @@
 """Configuration: the port's own copies of the reference's ``ModelConfig``,
-``DPConfig``, ``ClientConfig`` and ``MeshConfig``.
+``InputShape`` (and its four shapes), ``DPConfig``, ``ClientConfig`` and
+``MeshConfig``.
 
 Field names, defaults and the ``with_`` / ``reduced`` helpers are those of the
 JAX package's config, so a configuration means the same model in both
@@ -94,6 +95,27 @@ class ModelConfig:
         if self.family == "vlm":
             kw.update(n_image_tokens=8)
         return self.with_(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned global input shapes (the reference's
+    ``InputShape``): a train step's clients, a prefill's prompts or a
+    decode step's rows (``global_batch``) at ``seq_len`` tokens."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
 
 
 @dataclass(frozen=True)

@@ -19,10 +19,13 @@ in a ``torch.distributed.device_mesh.DeviceMesh``:
 The backend is the caller's choice, ``nccl`` or ``gloo``, and is never
 swapped for another when one fails. NCCL refuses two ranks on one device,
 so ranks that share a card run on ``gloo``; gloo gathers host tensors, and
-its CUDA tensors go through host memory (:func:`all_gather_copies`).
+its CUDA tensors go through host memory (:func:`all_gather_copies`, and
+for DTensor's own collectives :func:`host_routed_collectives`).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 import tempfile
 import time
@@ -36,9 +39,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import MULTI_POD, SINGLE_POD, MeshConfig
 from repro_torch.utils.device import resolve_device
 
-__all__ = ["BACKENDS", "COHORT_AXES", "all_gather_copies", "init_distributed",
-           "make_cohort_mesh", "make_production_mesh", "mesh_config",
-           "spawn_ranks"]
+__all__ = ["BACKENDS", "COHORT_AXES", "all_gather_copies",
+           "host_routed_collectives", "init_distributed", "make_cohort_mesh",
+           "make_production_mesh", "mesh_config", "one_rank", "spawn_ranks"]
 
 # Axis layouts make_cohort_mesh accepts: the cohort's batch axes only (the
 # 1-D sim layout, or the multi-pod batch slice of the production mesh).
@@ -117,6 +120,85 @@ def all_gather_copies(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
+# DTensor's functional collectives (each takes the tensor first) and the
+# position of their group argument
+_ROUTED = {"all_reduce": 2, "all_gather_tensor": 2, "all_gather_single": 2,
+           "reduce_scatter_tensor": 3, "reduce_scatter_single": 3,
+           "all_to_all_single": 3}
+
+
+def _group_size(group) -> int:
+    """The rank count of a functional collective's ``group`` argument."""
+    if isinstance(group, tuple):                  # (mesh, mesh dim)
+        return group[0].size(group[1])
+    if hasattr(group, "mesh_dim_names"):          # a 1-D DeviceMesh
+        return group.size()
+    if isinstance(group, str):                    # a group's name
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        return _resolve_process_group(group).size()
+    if isinstance(group, list):                   # the ranks
+        return len(group)
+    return dist.get_world_size(group)
+
+
+def _via_host(fn, group_at: int):
+    @functools.wraps(fn)
+    def routed(x, *args, **kw):
+        if not x.is_cuda:
+            return fn(x, *args, **kw)
+        group = kw["group"] if "group" in kw else args[group_at - 1]
+        if _group_size(group) == 1:      # the identity: stays on the card
+            return x.clone()
+        out = fn(x.cpu(), *args, **kw)
+        return (out.wait() if hasattr(out, "wait") else out).to(x.device)
+    return routed
+
+
+def _alltoall_via_host(x, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's shard-to-shard move as gloo runs it on the CPU: gather on
+    the host, keep this rank's chunk."""
+    import torch.distributed._functional_collectives as funcol
+    if mesh.size(mesh_dim) == 1:
+        return x.contiguous().clone()
+    full = funcol.all_gather_tensor(x.cpu().contiguous(), gather_dim,
+                                    (mesh, mesh_dim))
+    full = full.wait() if hasattr(full, "wait") else full
+    part = torch.chunk(full, mesh.size(mesh_dim), dim=shard_dim)
+    return part[mesh.get_local_rank(mesh_dim)].contiguous().to(x.device)
+
+
+@contextlib.contextmanager
+def host_routed_collectives(mesh):
+    """Inside: DTensor's collectives over ``mesh`` carry CUDA tensors
+    through host memory when the ranks run on gloo, as
+    :func:`all_gather_copies` does (a probe of gloo's own collectives on
+    CUDA tensors crashed the ranks on an H100; its host ones are sound). The compute stays on the
+    card; only the collective's payload is copied. A collective over one
+    rank is the identity and stays on the card. A no-op for a CPU mesh and
+    for any backend but gloo."""
+    if mesh.device_type != "cuda" or dist.get_backend() != "gloo":
+        yield
+        return
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import _collective_utils, placement_types
+    saved = [(funcol, n, getattr(funcol, n)) for n in _ROUTED
+             if hasattr(funcol, n)]
+    at = dict(_ROUTED)
+    saved += [(m, "shard_dim_alltoall", m.shard_dim_alltoall)
+              for m in (_collective_utils, placement_types)
+              if hasattr(m, "shard_dim_alltoall")]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, _alltoall_via_host
+                    if name == "shard_dim_alltoall"
+                    else _via_host(fn, at[name]))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def init_distributed(backend: str = "nccl", device=None,
                      init_method: str = "env://") -> torch.device:
     """Join the process group of a launched rank and return its device.
@@ -156,6 +238,21 @@ def init_distributed(backend: str = "nccl", device=None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
     return dev
+
+
+@contextlib.contextmanager
+def one_rank(device=None):
+    """This process alone as a gloo process group (world size 1, a file
+    rendezvous in a temporary directory), for a (1, 1) mesh without a
+    launcher; yields the rank's device and destroys the group on exit."""
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            yield dev
+        finally:
+            dist.destroy_process_group()
 
 
 def _rank_main(fn: Callable, rank: int, world: int, backend: str, device,

@@ -119,10 +119,9 @@ def encode(params, frames, cfg: ModelConfig, *, remat: bool = False):
 
 def _memory_kv(memory, lp, cfg: ModelConfig):
     """The memory's cross-attention K and V, each (B, F, KV, hd)."""
-    B, F, _ = memory.shape
-    shape = (B, F, cfg.n_kv_heads, cfg.head_dim)
-    return (L.matmul(memory, lp["cross_attn"]["wk"]).reshape(shape),
-            L.matmul(memory, lp["cross_attn"]["wv"]).reshape(shape))
+    return tuple(L.split_heads(L.matmul(memory, lp["cross_attn"][w]),
+                               cfg.n_kv_heads, cfg.head_dim)
+                 for w in ("wk", "wv"))
 
 
 def _cross_attend(x, memory_kv, lp, cfg: ModelConfig, *, kernel: bool):
@@ -132,8 +131,8 @@ def _cross_attend(x, memory_kv, lp, cfg: ModelConfig, *, kernel: bool):
     mk, mv = memory_kv
     B, Sq, _ = x.shape
     h = L.norm(x, lp["ln_x"], cfg.norm)
-    q = L.matmul(h, lp["cross_attn"]["wq"]).reshape(B, Sq, cfg.n_heads,
-                                                     cfg.head_dim)
+    q = L.split_heads(L.matmul(h, lp["cross_attn"]["wq"]), cfg.n_heads,
+                      cfg.head_dim)
     if kernel:
         a = T.attend(q, mk, mv, causal=False)
     else:

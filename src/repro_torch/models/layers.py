@@ -178,6 +178,37 @@ def remat_call(fn, *args, remat: bool):
     return fn(*args)
 
 
+# ------------------------------------------------------ sharding hints
+
+
+def shard_hint(x, *spec):
+    """The reference's ``shard_hint``: a no-op outside a mesh (a plain
+    tensor); for a DTensor, a redistribute to ``spec`` over its mesh, each
+    entry keeping only the axes the mesh has and, of those, the longest
+    tail whose product divides the dim. A spec of another rank than ``x``
+    is ignored."""
+    from repro_torch.sharding.kernel_map import is_dtensor
+    if not is_dtensor(x) or len(spec) != x.dim():
+        return x
+    from repro_torch.sharding.specs import Spec, placements
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def fit(entry, dim):
+        if entry is None:
+            return None
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = tuple(a for a in axes if a in sizes)
+        while axes:
+            if dim % math.prod(sizes[a] for a in axes) == 0:
+                return axes if len(axes) > 1 else axes[0]
+            axes = axes[1:]
+        return None
+
+    fitted = Spec(*(fit(e, d) for e, d in zip(spec, x.shape)))
+    return x.redistribute(mesh, placements(fitted, mesh))
+
+
 # ------------------------------------------------ attention (plain, GQA)
 
 NEG_INF = -1e30
@@ -214,7 +245,16 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_len=None,
     """GQA attention in plain PyTorch, chunked over queries to bound the
     score transient. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd);
     q_positions (Sq,), kv_positions (Skv,) absolute positions; kv_len a
-    count of valid cache entries (``None`` = all valid)."""
+    count of valid cache entries (``None`` = all valid). DTensors over the
+    model axis attend each rank's local heads, as the kernel does
+    (`sharding.kernel_map.attention_heads`)."""
+    from repro_torch.sharding.kernel_map import attention_heads, is_dtensor
+    if is_dtensor(q):
+        return attention_heads(
+            lambda q, k, v, qp, kp, n: attention(
+                q, k, v, q_positions=qp, kv_positions=kp, kv_len=n,
+                causal=causal, window=window, q_chunk=q_chunk),
+            q, k, v, q_positions, kv_positions, kv_len)
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return _attend_block(q, k, v, q_positions, kv_positions, kv_len,
@@ -259,13 +299,24 @@ def gqa_init(generator: torch.Generator, d_model: int, n_heads: int,
     }
 
 
+def split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """(..., n·hd) → (..., n, hd). A DTensor whose flat dim is sharded
+    over a mesh axis that ``n`` does not divide is replicated first: the
+    reference reshards at this reshape (granite's 8 KV heads at model 16)."""
+    from repro_torch.sharding.kernel_map import is_dtensor
+    if is_dtensor(t) and n % t.device_mesh.size():
+        from torch.distributed.tensor import Replicate
+        t = t.redistribute(t.device_mesh,
+                           [Replicate()] * t.device_mesh.ndim)
+    return t.reshape(tuple(t.shape[:-1]) + (n, head_dim))
+
+
 def gqa_project(x, p, n_heads: int, n_kv: int, head_dim: int, positions,
                 theta: float):
     """x: (B,S,d) → q (B,S,H,hd), k, v (B,S,KV,hd), RoPE applied."""
-    B, S, _ = x.shape
-    q = matmul(x, p["wq"]).reshape(B, S, n_heads, head_dim)
-    k = matmul(x, p["wk"]).reshape(B, S, n_kv, head_dim)
-    v = matmul(x, p["wv"]).reshape(B, S, n_kv, head_dim)
+    q = split_heads(matmul(x, p["wq"]), n_heads, head_dim)
+    k = split_heads(matmul(x, p["wk"]), n_kv, head_dim)
+    v = split_heads(matmul(x, p["wv"]), n_kv, head_dim)
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 

@@ -41,6 +41,7 @@ from repro_torch.kernels.cifg_cell import (cifg_cell_ref, cifg_sequence,
 from repro_torch.models.api import Model
 from repro_torch.models.embed import embed_tokens, embedding_init, lm_logits
 from repro_torch.models.layers import dense_init, lm_loss
+from repro_torch.sharding.kernel_map import is_dtensor, map_local
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import round_to, rowstable_mm, torch_dtype
 from repro_torch.utils.params import (COMPUTE, strip_compute,
@@ -121,9 +122,12 @@ def _states(cw, zx, cfg: ModelConfig, cd):
     B = zx.shape[0]
     h0 = torch.zeros((B, cfg.d_ff), dtype=torch.float32, device=zx.device)
     path = resolve_cell_path(cfg, zx.device)
-    return cifg_states(zx.transpose(0, 1), h0, torch.zeros_like(h0),
-                       cw["w_h"], cell="fused" if path == "fused" else "seq",
-                       compute_dtype=cd)
+    run = partial(cifg_states, cell="fused" if path == "fused" else "seq",
+                  compute_dtype=cd)
+    args = (zx.transpose(0, 1), h0, torch.zeros_like(h0), cw["w_h"])
+    if is_dtensor(zx):   # the production step: every rank runs it whole
+        return map_local(run, args, (None,) * 4, (None, None), shard=False)
+    return run(*args)
 
 
 def _recurrence(cw, zx, cfg: ModelConfig, cd, remat: bool):
@@ -135,6 +139,14 @@ def _recurrence(cw, zx, cfg: ModelConfig, cd, remat: bool):
     path = resolve_cell_path(cfg, zx.device)
     zx = zx.transpose(0, 1)
     if path in ("fused", "seq"):
+        if is_dtensor(zx):   # the production step: every rank runs it whole
+            def run(zx, h, c, w_h):
+                hs, (h_fin, c_fin) = cifg_sequence(
+                    zx, h, c, w_h, cell=path, compute_dtype=cd, remat=remat)
+                return hs, h_fin, c_fin
+            hs, h, c = map_local(run, (zx, h, c, cw["w_h"]), (None,) * 4,
+                                 (None, None, None), shard=False)
+            return hs, (h, c)
         return cifg_sequence(zx, h, c, cw["w_h"], cell=path,
                              compute_dtype=cd, remat=remat)
 
@@ -233,8 +245,10 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     x = embed_tokens(cw, _on(cw, tokens), cd)        # (B, d)
     zx = round_to(rowstable_mm(x, cw["w_x"]), cd) + params["b_gates"]
     if resolve_cell_path(cfg, zx.device) == "fused":
-        h, c = cifg_step(zx, cache["h"], cache["c"], cw["w_h"],
-                         compute_dtype=cd)
+        step = partial(cifg_step, compute_dtype=cd)
+        args = (zx, cache["h"], cache["c"], cw["w_h"])
+        h, c = (map_local(step, args, (None,) * 4, (None, None), shard=False)
+                if is_dtensor(zx) else step(*args))
     else:
         h, c = cifg_cell_ref(zx, cache["h"], cache["c"], cw["w_h"],
                              compute_dtype=cd)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import CHUNK
+from repro_torch.sharding.kernel_map import is_dtensor, map_local
 from repro_torch.models import layers as L
 from repro_torch.models.api import Model
 from repro_torch.models.embed import (embed_tokens, embedding_init,
@@ -96,7 +97,13 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
 
 
 def _causal_conv(seq, w, b):
-    """Depthwise causal conv via shifted adds. seq: (B,S,C); w: (W,C)."""
+    """Depthwise causal conv via shifted adds. seq: (B,S,C); w: (W,C).
+    DTensors over the model axis convolve each rank's channels locally
+    (whole where the channels do not divide the axis): DTensor's rule for
+    the sequence pad mislays a sequence-sharded operand."""
+    if is_dtensor(seq):
+        return map_local(_causal_conv, (seq, w, b), (2, 1, 0), 2,
+                         shard=seq.shape[2] % seq.device_mesh.size() == 0)
     W = w.shape[0]
     out = seq * w[W - 1][None, None, :]
     for i in range(W - 1):
@@ -137,7 +144,12 @@ def mixer_fwd(x, p, cfg: ModelConfig):
     Cc = _causal_conv(C_raw, p["conv_C"].to(cd), p["conv_b_C"])
     xh = xs.reshape(Bsz, S, H, hp)
     A = -torch.exp(p["A_log"])
-    y, h_fin = ssd_scan(xh, dt, Bc, Cc, A)
+    if is_dtensor(xh):   # the production step: heads over the model axis
+        y, h_fin = map_local(ssd_scan, (xh, dt, Bc, Cc, A),
+                             (2, 2, None, None, 0), (2, 1),
+                             shard=H % xh.device_mesh.size() == 0)
+    else:
+        y, h_fin = ssd_scan(xh, dt, Bc, Cc, A)
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.to(cd).reshape(Bsz, S, di)
     y = y * F.silu(z)

@@ -38,6 +38,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.api import Model
 from repro_torch.models.embed import (embed_tokens, embedding_init,
                                       head_logits, token_ids)
+from repro_torch.sharding.kernel_map import is_dtensor, map_local
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import torch_dtype
 from repro_torch.utils.params import compute_view, with_compute_copies
@@ -160,13 +161,25 @@ def moe_ffn(x, p, cfg: ModelConfig, *, dropless: bool = False):
     if dropless:
         cap = group if group <= 128 else _capacity(
             group, cfg.n_experts, cfg.top_k, INFERENCE_CAPACITY_FACTOR)
-    combine, aux = route(xg, p, cfg, capacity=cap)
-    combine = combine.to(torch.bfloat16)
+    if is_dtensor(xg):
+        # DTensor has no rule for route's in-place scatter_add_ into its
+        # plain count tensor: the replicated rows are routed locally
+        combine, aux = map_local(
+            lambda x, w: route(x, {"router": {"w": w}}, cfg, capacity=cap),
+            (xg, p["router"]["w"]), (None, None), (None, None), shard=False)
+    else:
+        combine, aux = route(xg, p, cfg, capacity=cap)
+    # under the production step's mesh: dispatch and combine group-sharded
+    # over the batch axes and expert-sharded where E divides (no-ops off it)
+    combine = L.shard_hint(combine.to(torch.bfloat16),
+                           ("pod", "data"), None, "model", None)
     dispatch = (combine > 0).to(cd)                            # (G,t,E,C)
     xe = _einsum("gtec,gtd->gecd", dispatch, xg)
+    xe = L.shard_hint(xe, ("pod", "data"), "model", None, None)
     gate = F.silu(_einsum("gecd,edf->gecf", xe, p["w_gate"]))
     up = _einsum("gecd,edf->gecf", xe, p["w_up"])
     h = _einsum("gecf,efd->gecd", gate * up, p["w_down"])
+    h = L.shard_hint(h, ("pod", "data"), "model", None, None)
     y = _einsum("gtec,gecd->gtd", combine.to(cd), h).reshape(-1, d)[:n]
     return y.reshape(B, S, d), aux.mean()
 

@@ -44,6 +44,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.api import Model
 from repro_torch.models.embed import (embed_tokens, embedding_init,
                                       head_logits, token_ids)
+from repro_torch.sharding.kernel_map import (attention_heads, cache_write,
+                                             is_dtensor)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.numerics import torch_dtype
 from repro_torch.utils.params import (compute_view, matrix_copies,
@@ -103,7 +105,11 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
 def attend(q, k, v, *, causal: bool, window: int = 0):
     """Attention of whole sequences, queries and keys at positions from 0:
     the flash kernel for CUDA tensors, the plain `layers.attention` on the
-    CPU. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+    CPU. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). DTensors over the model
+    axis attend each rank's local heads (`sharding.kernel_map`)."""
+    if is_dtensor(q):
+        return attention_heads(partial(attend, causal=causal, window=window),
+                               q, k, v)
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal, window=window)
     return L.attention(
@@ -240,8 +246,8 @@ def _attn_step(x, lp, cfg: ModelConfig, kc, vc, pos, slot, kv_positions):
     q_positions = pos.reshape(1)
     q, k, v = L.gqa_project(h, lp["attn"], cfg.n_heads, cfg.n_kv_heads,
                             cfg.head_dim, q_positions, cfg.rope_theta)
-    kc.index_copy_(1, slot, k.to(kc.dtype))
-    vc.index_copy_(1, slot, v.to(vc.dtype))
+    cache_write(kc, slot, k)
+    cache_write(vc, slot, v)
     a = L.attention(q, kc, vc, q_positions=q_positions,
                     kv_positions=kv_positions, kv_len=pos + 1, causal=True,
                     window=cfg.attn_window)

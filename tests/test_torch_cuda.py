@@ -1293,3 +1293,68 @@ def test_sharded_rounds_on_card_are_bitwise_one_rank(cuda_device):
         summed = {k: sum(res[name]["launches"][k] for res in out)
                   for k in one[name]["launches"]}
         assert summed == one[name]["launches"], name
+
+
+# ------------------------------------------------ the production step
+
+
+def test_production_step_on_card_matches_the_cpu(cuda_device):
+    """The (1, 1) production train step (`launch.steps`) of a reduced
+    granite-3-2b on the card, through the flash kernel, against the same
+    step on the CPU: the params' update within 5e-2 of each leaf's largest
+    (bfloat16 products rounded at other places), the clipped fraction
+    equal, the loss within 1e-2 relative; and bitwise the computation with
+    no mesh on the card."""
+    import torch_step_ranks as sr
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.utils.pytree import tree_map as tmap
+
+    rng = np.random.default_rng(0)
+    params = sr.init_params("granite-3-2b")
+    toks = rng.integers(0, sr.config("granite-3-2b").vocab,
+                        (sr.C, sr.S + sr.DECODE + 1)).astype(np.int32)
+    case = sr.case("granite", "granite-3-2b", params, toks, z=0.0,
+                   serve=False)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = flash_ops.LAUNCHES["flash_attention_fwd"]
+        with one_rank(device=dev.type) as d:
+            out[dev.type] = sr.run_cases(d, (1, 1), ("data", "model"),
+                                         [case])["granite"]
+        out[dev.type + "_launches"] = (
+            flash_ops.LAUNCHES["flash_attention_fwd"] - before)
+    # 2 layers x 2 (the forward and the remat recomputation) x 4 clients
+    assert out["cuda_launches"] == 2 * 2 * sr.C
+    assert out["cpu_launches"] == 0
+    card, cpu = out["cuda"], out["cpu"]
+    assert card["metrics"]["frac_clipped"] == cpu["metrics"]["frac_clipped"]
+    np.testing.assert_allclose(card["metrics"]["loss"],
+                               cpu["metrics"]["loss"], rtol=1e-2)
+    for g, w, s in zip(tree_leaves_np(card["params"]),
+                       tree_leaves_np(cpu["params"]),
+                       tree_leaves_np(params)):
+        assert np.abs((g - s) - (w - s)).max() <= \
+            5e-2 * np.abs(w - s).max()
+    # the mesh-free computation on the card, bitwise
+    cfg = sr.config("granite-3-2b")
+    model = build(cfg)
+    from repro_torch.configs import DPConfig
+    from repro_torch.core.server_optim import init_state
+    p0 = tmap(lambda a: torch.from_numpy(np.array(a)).to(cuda_device),
+              params)
+    t = torch.from_numpy(toks).long().to(cuda_device)
+    plain = ST.fed_train_step_plain(
+        model, DPConfig(clients_per_round=sr.C, noise_multiplier=0.0,
+                        clip_norm=0.8), p0, init_state(p0),
+        {"tokens": t[:, :sr.S], "labels": t[:, 1:sr.S + 1]},
+        torch.Generator(cuda_device).manual_seed(7))[0]
+    for a, b in zip(tree_leaves_np(tmap(lambda x: x.cpu().numpy(), plain)),
+                    tree_leaves_np(card["params"])):
+        np.testing.assert_array_equal(a, b)
+
+
+def tree_leaves_np(tree):
+    from repro_torch.utils.pytree import tree_leaves
+    return [np.asarray(l, np.float64) for l in tree_leaves(tree)]
