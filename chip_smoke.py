@@ -12,7 +12,10 @@ line each (any failure exits non-zero and prints no result):
 3. kernel vs plain — each kernel against its plain PyTorch version on the
    card (``cifg_cell_fwd`` at H up to 520, both of its routes;
    ``cifg_cell_bwd``, the per-step form and the sequence form
-   ``cifg_cell_bwd_seq``; ``dp_sumsq``, one leaf and a chunk of clients;
+   ``cifg_cell_bwd_seq``; both cell kernels with a client axis, chunks of
+   16 and 19 clients, each client bitwise its one-client launch, with the
+   clusters the card holds at once; ``dp_sumsq``, one leaf and a chunk of
+   clients;
    ``dp_clip_accumulate``, ``flash_attention_fwd``, ``ssd_scan``), at the
    shapes its path gives it and around them, then timed against its bound,
    the plain version and one PyTorch call where there is one;
@@ -22,12 +25,16 @@ line each (any failure exits non-zero and prints no result):
    agreement with ``reference_generate`` on sampled sessions;
 5. train — DP-FedAvg of the same model through ``FederatedTrainer``
    (host backend): 1000 users, cohort 128, 3 rounds; launch counts (one
-   forward and one backward cell launch per client batch, one sum-of-squares
-   launch per chunk of clients), the fused path against the plain one on
-   one round, the round sum bitwise across cohort chunks, the noise's std,
-   rounds/s and where a round's time goes (a client step and a chunk's clip
-   with and without this slice's kernels, timed in the same run); then the
-   training CLI on a tiny run;
+   forward and one backward cell launch per chunk of clients and local
+   batch — the chunk trains as one batched program —, one sum-of-squares
+   launch per chunk), the fused path against the plain one on one round,
+   the round sum bitwise across cohort chunks, the noise's std, rounds/s
+   and where a round's time goes (a client step and a chunk's clip with and
+   without the sequence backward and the chunked sum of squares; a chunk
+   of 16 clients one after another, as 16
+   calls of ``local_delta`` and as one ``local_deltas``, bitwise and timed;
+   rounds/s with the chunk batched and not, all in turns in the same run);
+   then the training CLI on a tiny run;
 6. grad through decode — the gradient of a loss through 4 ``decode_step``
    calls, through the backward cell kernel, against plain autograd;
 7. hybrid serve — ``zamba2-2.7b`` at its published widths (54 Mamba-2
@@ -66,8 +73,8 @@ line each (any failure exits non-zero and prints no result):
    the streamed backend bitwise the device backend at N = 1000 (both
    samplers; fixed, Poisson and faulty rounds; in-memory and mmap stores;
    ``run`` and ``run_python``), the sharded cohorts on the card equal to
-   the CPU's at N, the corpus bytes on the card equal at both N, 5
-   rounds through ``FederatedTrainer`` with a read every 5 rounds and 5
+   the CPU's at N, the corpus bytes on the card equal at both N, 10
+   rounds through ``FederatedTrainer`` with a read every 5 rounds and 10
    with a read every round (bitwise equal; launches exact), the sample phase per
    sampler, the busy share of one round, the training CLI over the store
    crashed and resumed (sha256-equal);
@@ -102,7 +109,7 @@ line each (any failure exits non-zero and prints no result):
    ``user_update`` of granite-3-2b at full depth (peak memory, step
    time); the training CLI on granite-3-2b and zamba2-2.7b reduced;
 14. shards — the cohort sharded over ranks on one card: the paper's model
-   at full width, cohort 128, z 0.3, S 0.8, 2 rounds, through
+   at full width, cohort 128, z 0.3, S 0.8, 3 rounds, through
    ``SimEngine(num_shards=S, num_pods=P)`` on ranks that share the card
    on gloo (NCCL refuses two ranks on one device), started by
    ``launch.mesh.spawn_ranks`` after the kernels are built: the device
@@ -336,21 +343,23 @@ CELL_WIDTHS = (64, 200, 256, 264, 520)
 def _addmm_loop(zx, h0, c0, w):
     """The PyTorch yardstick of the cell kernel: S × (``addmm`` in the
     compute dtype's values, f32 sums, + the gates) → a function of no
-    arguments returning (h, c)."""
+    arguments returning (h, c); with a client axis (zx (C, S, B, 3H)) S ×
+    ``baddbmm``."""
     import torch
 
     from repro_torch.utils.numerics import round_to
 
-    S, H, cd = zx.shape[0], h0.shape[1], w.dtype
+    S, H, cd = zx.shape[-3], h0.shape[-1], w.dtype
     w32 = round_to(w, cd)
+    mm = torch.baddbmm if zx.dim() == 4 else torch.addmm
 
     def loop():
         h, c = h0, c0
         for t in range(S):
-            z = torch.addmm(zx[t], round_to(h, cd), w32)
-            f = torch.sigmoid(z[:, :H] + 1.0)
-            o = torch.sigmoid(z[:, H:2 * H])
-            g = torch.tanh(z[:, 2 * H:])
+            z = mm(zx[..., t, :, :], round_to(h, cd), w32)
+            f = torch.sigmoid(z[..., :H] + 1.0)
+            o = torch.sigmoid(z[..., H:2 * H])
+            g = torch.tanh(z[..., 2 * H:])
             c = f * c + (1.0 - f) * g
             h = o * torch.tanh(c)
         return h, c
@@ -836,30 +845,33 @@ def _bwd_seq_bound(S, B, H):
 def _reverse_loop(z, cs, c0, dhs, dhf, dcf, w):
     """The reverse recursion as training ran it before the sequence kernel:
     the factors precomputed, then S × (elementwise + f32 ``torch.mm``) →
-    a function of no arguments returning (dh0, dc0)."""
+    a function of no arguments returning (dh0, dc0); with a client axis
+    (z (C, S, B, 3H)) S × ``torch.bmm``."""
     import torch
 
-    S, H = z.shape[0], w.shape[0]
+    S, H = z.shape[-3], w.shape[-2]
     f = torch.sigmoid(z[..., :H] + 1.0)
     o = torch.sigmoid(z[..., H:2 * H])
     g = torch.tanh(z[..., 2 * H:])
     t = torch.tanh(cs)
-    c_prev = torch.cat([c0[None], cs[:-1]])
+    c_prev = torch.cat([c0.unsqueeze(-3), cs[..., :-1, :, :]], dim=-3)
     A, Bf = o * (1.0 - t * t), (c_prev - g) * f * (1.0 - f)
     Co, Dg = t * o * (1.0 - o), (1.0 - f) * (1.0 - g * g)
-    w_t = w.t()
+    w_t = w.transpose(-1, -2)
+    mm = torch.bmm if z.dim() == 4 else torch.mm
     dz = torch.empty_like(z)
 
     def loop():
         dh_next, dc_next = dhf, dcf
         for s in range(S - 1, -1, -1):
-            dh = dh_next + dhs[s]
-            dct = dc_next + dh * A[s]
-            torch.mul(dct, Bf[s], out=dz[s, :, :H])
-            torch.mul(dh, Co[s], out=dz[s, :, H:2 * H])
-            torch.mul(dct, Dg[s], out=dz[s, :, 2 * H:])
-            dh_next = torch.mm(dz[s], w_t)
-            dc_next = dct * f[s]
+            at = (Ellipsis, s, slice(None), slice(None))
+            dh = dh_next + dhs[at]
+            dct = dc_next + dh * A[at]
+            torch.mul(dct, Bf[at], out=dz[..., s, :, :H])
+            torch.mul(dh, Co[at], out=dz[..., s, :, H:2 * H])
+            torch.mul(dct, Dg[at], out=dz[..., s, :, 2 * H:])
+            dh_next = mm(dz[at], w_t)
+            dc_next = dct * f[at]
         return dh_next, dc_next
     return loop
 
@@ -984,6 +996,178 @@ def phase_kernel_bwd_seq(dev) -> dict:
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+# the client axis: phase 5's chunk of clients and phase 9's (152 selected
+# clients pad to 152, blocks of 19)
+CLIENT_CHUNKS = (16, 19)
+
+
+def _client_cell_inputs(C, S, B, H, gen, dev, bwd=False):
+    """A chunk of C clients' inputs of the sequence forward (zx, h0, c0,
+    w_h) or of the sequence backward (its seven), each client its own."""
+    if bwd:
+        per = [_bwd_seq_inputs(S, B, H, gen, dev) for _ in range(C)]
+    else:
+        per = [_cell_inputs(B, H, gen, dev, S=S) for _ in range(C)]
+    import torch
+
+    return [torch.stack(a) for a in zip(*per)]
+
+
+def phase_kernel_clients(dev) -> dict:
+    """The client axis of both cell kernels (a cohort chunk in one launch,
+    each client with its own w_h) at the training shape S 16, B 10 for the
+    chunks of phases 5 and 9 (C 16, 19): H 256 and the wide route (264
+    resident, 520 streamed), the forward in bf16 and f32, against the plain
+    versions with the same axis and each client bitwise its one-client
+    launch; the forward with one shared w_h (stride 0) bitwise too; how many
+    clusters the card holds at once (a chunk past that runs in waves);
+    device times from CUDA-graph replays against the bound, the plain
+    versions, the PyTorch loops and C one-client launches. Returns the
+    timed C = 16 rows of both kernels."""
+    import torch
+
+    from repro_torch.kernels.cifg_cell import ops
+    from repro_torch.kernels.cifg_cell.ops import (cell_bwd_seq,
+                                                   cell_bwd_seq_ref,
+                                                   cell_seq_fwd, cifg_states)
+
+    S, B, tiles = 16, 10, 1
+    for name, dtypes in (("cifg_cell_fwd", (torch.bfloat16, torch.float32)),
+                         ("cifg_cell_bwd_seq", (torch.float32,))):
+        for H in (256, 264, 520):
+            for dt in dtypes:
+                most = ops.max_active_clusters(name, B, H, dt)
+                say(f"kernel: {name} {str(dt).split('.')[-1]} B={B} H={H}: "
+                    f"{most} clusters at once (cudaOccupancyMaxActiveClusters"
+                    f"); " + ", ".join(
+                        f"C={C}: {C * tiles} clusters, "
+                        f"{-(-C * tiles // most)} wave(s)"
+                        for C in CLIENT_CHUNKS))
+    gen = torch.Generator().manual_seed(4321)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for cd in (torch.bfloat16, torch.float32):
+        name = str(cd).split(".")[-1]
+        atol, rtol = TOL[name]
+        for H in (256, 264, 520):
+            for C in CLIENT_CHUNKS:
+                zx, h0, c0, w = _client_cell_inputs(C, S, B, H, gen, dev)
+                w = w.to(cd)
+                hs, cs = cell_seq_fwd(zx, h0, c0, w)
+                hr, cr = cifg_states(zx, h0, c0, w, cell="seq")
+                torch.cuda.synchronize()
+                for what, a, b in (("h", hs, hr), ("c", cs, cr)):
+                    err = (a - b).abs()
+                    if not bool((err <= atol + rtol * b.abs()).all()):
+                        fail(f"cifg_cell_fwd with a client axis disagrees "
+                             f"with plain ({name} C={C} H={H}): max abs err "
+                             f"{float((a - b).abs().max()):.3e}")
+                    worst["fwd"] = max(worst["fwd"],
+                                       float((a - b).abs().max()))
+                for c in range(C):
+                    h1, c1 = cell_seq_fwd(zx[c], h0[c], c0[c], w[c])
+                    if not (torch.equal(hs[c], h1) and torch.equal(cs[c], c1)):
+                        fail(f"cifg_cell_fwd client {c} of {C} differs from "
+                             f"its one-client launch ({name} H={H})")
+                hsh, csh = cell_seq_fwd(zx, h0, c0, w[0])
+                for c in (0, C - 1):
+                    h1, c1 = cell_seq_fwd(zx[c], h0[c], c0[c], w[0])
+                    if not (torch.equal(hsh[c], h1)
+                            and torch.equal(csh[c], c1)):
+                        fail(f"cifg_cell_fwd with a shared w_h: client {c} "
+                             f"of {C} differs ({name} H={H})")
+            say(f"kernel: cifg_cell_fwd {name} with a client axis, S={S} "
+                f"B={B} H={H}, C {CLIENT_CHUNKS}: within tol of the plain "
+                f"recurrence (worst so far {worst['fwd']:.3e}); every client "
+                f"bitwise its one-client launch; a shared w_h bitwise too")
+    atol, rtol = TOL_BWD_SEQ
+    for H in (256, 264, 520):
+        for C in CLIENT_CHUNKS:
+            args = _client_cell_inputs(C, S, B, H, gen, dev, bwd=True)
+            got = cell_bwd_seq(*args)
+            want = cell_bwd_seq_ref(*args)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("dz", "dh0", "dc0"), got, want):
+                if not bool(((a - b).abs() <= atol + rtol * b.abs()).all()):
+                    fail(f"cifg_cell_bwd_seq with a client axis disagrees "
+                         f"with plain ({what}, C={C} H={H}): max abs err "
+                         f"{float((a - b).abs().max()):.3e}")
+                worst["bwd"] = max(worst["bwd"], float((a - b).abs().max()))
+            for c in range(C):
+                one = cell_bwd_seq(*[a[c] for a in args])
+                if not all(torch.equal(a[c], b) for a, b in zip(got, one)):
+                    fail(f"cifg_cell_bwd_seq client {c} of {C} differs from "
+                         f"its one-client launch (H={H})")
+        say(f"kernel: cifg_cell_bwd_seq with a client axis, S={S} B={B} "
+            f"H={H}, C {CLIENT_CHUNKS}: within tol of the plain loop (worst "
+            f"so far {worst['bwd']:.3e}); every client bitwise its "
+            f"one-client launch")
+
+    # device times: the chunk in one launch against C one-client launches,
+    # the plain versions with the client axis and the PyTorch loops
+    rows = {}
+    timed = [("fwd", torch.bfloat16, 256, C) for C in CLIENT_CHUNKS]
+    timed += [("fwd", torch.float32, 256, 16), ("fwd", torch.bfloat16, 264,
+                                                 16),
+              ("fwd", torch.bfloat16, 520, 16)]
+    timed += [("bwd", torch.float32, 256, C) for C in CLIENT_CHUNKS]
+    timed += [("bwd", torch.float32, 264, 16), ("bwd", torch.float32, 520,
+                                                 16)]
+    for kind, cd, H, C in timed:
+        main = H == 256 and cd == (torch.bfloat16 if kind == "fwd"
+                                   else torch.float32)
+        if kind == "fwd":
+            zx, h0, c0, w = _client_cell_inputs(C, S, B, H, gen, dev)
+            w = w.to(cd)
+            hs, cs = torch.empty((2, C, S, B, H), device=dev)
+            one = (zx[0].contiguous(), h0[0].contiguous(), c0[0].contiguous(),
+                   w[0].contiguous())
+            ms = graph_time_ms(lambda: cell_seq_fwd(zx, h0, c0, w, hs=hs,
+                                                    cs=cs))
+            ms1 = graph_time_ms(lambda: cell_seq_fwd(*one))
+            nbytes = C * ((S * B * 3 * H + 2 * B * H + 2 * S * B * H) * 4
+                          + 3 * H * H * w.element_size())
+            bound_ms, bound_by = _bound(nbytes, C * 2 * S * B * H * 3 * H,
+                                        str(cd).split(".")[-1])
+            if main:
+                plain_ms = graph_time_ms(
+                    lambda: cifg_states(zx, h0, c0, w, cell="seq"),
+                    per_graph=2)
+                library_ms = graph_time_ms(_addmm_loop(zx, h0, c0, w),
+                                           per_graph=2)
+        else:
+            args = _client_cell_inputs(C, S, B, H, gen, dev, bwd=True)
+            one = [a[0].contiguous() for a in args]
+            ms = graph_time_ms(lambda: cell_bwd_seq(*args))
+            ms1 = graph_time_ms(lambda: cell_bwd_seq(*one))
+            b1, bound_by, _, _ = _bwd_seq_bound(S, B, H)
+            bound_ms = C * b1
+            if main:
+                plain_ms = graph_time_ms(lambda: cell_bwd_seq_ref(*args),
+                                         per_graph=2)
+                library_ms = graph_time_ms(_reverse_loop(*args),
+                                           per_graph=2)
+        kname = "cifg_cell_fwd" if kind == "fwd" else "cifg_cell_bwd_seq"
+        most = ops.max_active_clusters(kname, B, H, cd)
+        line = (f"kernel: {kname} {str(cd).split('.')[-1]} a chunk of C={C} "
+                f"clients S={S} B={B} H={H} in one launch ({C} clusters, "
+                f"{most} at once: {-(-C // most)} wave(s)), device time "
+                f"{ms * 1e3:.2f} us/launch against one client's launch "
+                f"{ms1 * 1e3:.2f} us (x{C} = {C * ms1 * 1e3:.2f} us); bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by})")
+        if main:
+            lib = "baddbmm" if kind == "fwd" else "bmm"
+            line += (f"; plain with the client axis {plain_ms * 1e3:.2f} us; "
+                     f"the PyTorch loop ({lib} a step) "
+                     f"{library_ms * 1e3:.2f} us")
+            if C == 16:
+                rows[kind] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "max_abs_err": worst[kind]}
+        say(line)
+    return rows
 
 
 CLIP_SIZES = (1, 127, 32769, 983040, 196608)
@@ -1328,7 +1512,8 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
     from repro_torch.core.dp_fedavg import finalize_round
     from repro_torch.data.corpus import BigramCorpus
     from repro_torch.data.federated import FederatedDataset
-    from repro_torch.fl.client import local_sgd, round_compute
+    from repro_torch.fl.client import (local_delta, local_deltas, local_sgd,
+                                       round_compute)
     from repro_torch.fl.population import PopulationSim
     from repro_torch.fl.reduction import resolve_chunk
     from repro_torch.fl.round import FederatedTrainer
@@ -1379,11 +1564,13 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
         fail(f"training losses not finite: {[r['loss'] for r in recs]}")
     # one sum-of-squares launch and one accumulate launch per leaf per live
     # chunk (every chunk of a full round of a multiple of 8 clients is live)
-    chunks = clients // resolve_chunk(None, cohort // 8)
-    # one forward and one backward cell launch per client batch (the whole
-    # sequence); the per-step backward is not on this path
-    want = {"cifg_cell_fwd": n_batches * clients,
-            "cifg_cell_bwd_seq": n_batches * clients, "cifg_cell_bwd": 0,
+    chunk = resolve_chunk(None, cohort // 8)
+    chunks = clients // chunk
+    # one forward and one backward cell launch per chunk and local batch
+    # (the chunk's clients and the whole sequence in one launch); the
+    # per-step backward is not on this path
+    want = {"cifg_cell_fwd": n_batches * chunks,
+            "cifg_cell_bwd_seq": n_batches * chunks, "cifg_cell_bwd": 0,
             "dp_sumsq": chunks, "dp_clip_accumulate": 5 * chunks}
     for k, v in want.items():
         if launches[k] != v:
@@ -1398,7 +1585,7 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
         f"{[round(r['loss'], 4) for r in recs]}; norms "
         f"{[round(r['mean_update_norm'], 4) for r in recs]}; clipped "
         f"{[r['frac_clipped'] for r in recs]}; launches {launches} "
-        f"({clients} clients in {chunks} chunks); peak "
+        f"({clients} clients in {chunks} chunks of {chunk}); peak "
         f"device memory {peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} MiB above "
         f"what was allocated before the rounds")
 
@@ -1539,19 +1726,85 @@ def phase_train(dev, n_users: int = 1000, cohort: int = 128,
             f"{_fmt_ms(d0)}; device busy {busy_share(d1, e1)} vs "
             f"{busy_share(d0, e0)} of "
             f"the eager time")
+    # one chunk of the round's width (16 at cohort 128) three ways, in
+    # turns in this run: the clients one after another through loss_fn (the
+    # port before the chunk was batched), a local_delta call a client (the
+    # chunk program at a width of 1) and one local_deltas
+    one_chunk = tree_map(lambda l: l[:chunk], stacked)
+    loop_model = model._replace(client_loss_fn=None)
+    ways = {
+        "the clients one after another through loss_fn": lambda: local_deltas(
+            loop_model, params, one_chunk, cl),
+        f"{chunk} calls of local_delta": lambda: [
+            local_delta(model, params, tree_map(lambda l: l[c], one_chunk), cl)
+            for c in range(chunk)],
+        "one local_deltas": lambda: local_deltas(model, params, one_chunk, cl)}
+    one_by_one = ways[f"{chunk} calls of local_delta"]()
+    together = ways["one local_deltas"]()
+    for c, (d, loss) in enumerate(one_by_one):
+        if not (torch.equal(loss, together[1][c]) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(d),
+                                                  tree_leaves(together[0][c])
+                                                  ))):
+            fail(f"train: client {c}'s delta or loss differs between "
+                 f"local_delta and the chunk's local_deltas")
+    timed = {k: [] for k in ways}
+    for order in (list(ways), list(ways)[::-1]):
+        for k in order:
+            timed[k].append((cuda_time_ms(ways[k], 2, warmup=1),
+                             profiled_device_ms(ways[k], 1, top=8)))
+    chunk_ms = {}
+    for k, runs in timed.items():
+        eager = sum(e for e, _ in runs) / len(runs)
+        devs = [d[0] for _, d in runs]
+        dev_ms = None if None in devs else sum(devs) / len(devs)
+        chunk_ms[k] = (eager, dev_ms)
+        say(f"train: a chunk of {chunk} clients ({n_batches} batches of "
+            f"{batch} x {seq_len} each), {k}: {eager:.2f} ms eager, "
+            f"{_fmt_ms(dev_ms)} on the device (busy "
+            f"{busy_share(dev_ms, eager)}), mean of 2 turns; "
+            f"device time by kernel: " + "; ".join(
+                f"{name} {ms * 1e3:.1f} us x{n:g}"
+                for name, ms, n in runs[-1][1][2]))
+    say(f"train: every client's delta and loss bitwise equal between "
+        f"{chunk} calls of local_delta and one local_deltas of the chunk")
+
+    # rounds/s before and after in this run: rounds of the same trainer's
+    # model with the chunk's clients one after another, then batched
+    loop_trainer = FederatedTrainer(loop_model, ds, dp, cl, pop=pop, seed=1,
+                                    n_local_batches=n_batches, device=dev)
+    turns_rps = {"one after another": [], "batched": []}
+    for which, tr in (("one after another", loop_trainer),
+                      ("batched", trainer), ("batched", trainer),
+                      ("one after another", loop_trainer)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        turns_rps[which].append(time.perf_counter() - t0)
+    say(f"train: rounds/s at cohort {cohort}, in turns in this run: the "
+        f"chunk's clients one after another " + ", ".join(
+            f"{1 / t:.3f}" for t in turns_rps["one after another"])
+        + "; batched " + ", ".join(
+            f"{1 / t:.3f}" for t in turns_rps["batched"]))
+
     round_dev, round_wall, _ = profiled_device_ms(trainer.run_round, 1,
                                                   warmup=False)
     busy = None if round_dev is None else 100 * round_dev / round_wall
     round_ms = run_s / rounds * 1e3
-    say(f"train: one client SGD step (batch {batch} x {seq_len}) "
+    chunk_step = chunk_ms["one local_deltas"][0] / n_batches
+    chunk_clip = mean("chunk", 0)
+    n_chunks = cohort // chunk
+    say(f"train: one client SGD step (batch {batch} x {seq_len}, the chunk "
+        f"program at a width of 1) "
         f"{step_eager:.3f} ms eager, {_fmt_ms(step_dev)} on the device "
         f"(busy {busy_share(step_dev, step_eager)}); "
         f"clip + accumulate of one client {clip_eager:.3f} ms eager, "
         f"{_fmt_ms(clip_dev)} on the device; a round {round_ms:.1f} ms "
-        f"= {cohort * n_batches} client steps x {step_eager:.3f} ms + "
-        f"{cohort} clips x {clip_eager:.3f} ms + "
-        f"{round_ms - cohort * (n_batches * step_eager + clip_eager):.1f} ms "
-        f"else; device busy "
+        f"= {n_chunks * n_batches} chunk steps of {chunk} clients x "
+        f"{chunk_step:.3f} ms + {n_chunks} chunk clips x {chunk_clip:.3f} ms "
+        f"+ {round_ms - n_chunks * (n_batches * chunk_step + chunk_clip):.1f}"
+        f" ms else; device busy "
         f"{'not measured' if busy is None else f'{busy:.1f}%'} of a profiled "
         f"round ({_fmt_ms(round_dev)} of {round_wall:.1f} ms under the "
         f"profiler)")
@@ -2945,9 +3198,11 @@ def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
     evals = rounds // per_call
     rs_chunks = -(-rs_samples // 1024)
     beam_steps = K * 3
-    client_batches = rounds * cohort * n_batches
-    want = {"cifg_cell_bwd_seq": client_batches, "cifg_cell_bwd": 0,
-            "cifg_cell_fwd": client_batches + evals + 1 + rs_chunks
+    # one launch of each cell kernel per chunk and local batch: the chunk's
+    # clients train as one program
+    chunk_batches = chunks * n_batches
+    want = {"cifg_cell_bwd_seq": chunk_batches, "cifg_cell_bwd": 0,
+            "cifg_cell_fwd": chunk_batches + evals + 1 + rs_chunks
             + beam_steps,
             "dp_sumsq": chunks, "dp_clip_accumulate": 5 * chunks}
     for k, v in want.items():
@@ -2993,7 +3248,8 @@ def phase_memorize(dev, n_users: int = 1000, cohort: int = 128,
         f"{_fmt_ms(chunk_dev)} on the device of {chunk_wall:.1f} ms; by "
         f"kernel: " + "; ".join(f"{n} {ms * 1e3:.1f} us x{c:g}"
                                 for n, ms, c in chunk_top))
-    say(f"memorize: launches {launches} = {client_batches} client batches, "
+    say(f"memorize: launches {launches} = {chunk_batches} (chunk, local "
+        f"batch) programs, "
         f"{evals} eval hooks, 1 + {rs_chunks} RS forwards, {beam_steps} beam "
         f"steps, {chunks} chunks of {main.engine.cohort_chunk} clients; peak "
         f"device memory in training {train_peak:.0f} MiB "
@@ -3194,8 +3450,9 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
                  f"host's fates ({int(reported.sum())} reported, "
                  f"{rejected} corrupt)")
         live = int(reported.reshape(-1, chunk).any(-1).sum())
-        want["cifg_cell_fwd"] += live * chunk * n_batches
-        want["cifg_cell_bwd_seq"] += live * chunk * n_batches
+        # a live chunk trains as one program: one launch a local batch
+        want["cifg_cell_fwd"] += live * n_batches
+        want["cifg_cell_bwd_seq"] += live * n_batches
         want["dp_sumsq"] += live
         want["dp_clip_accumulate"] += live * len(tree_leaves(params0))
     for k, v in want.items():
@@ -3662,8 +3919,8 @@ def _phase_fleet(dev, tmp: str, procs: list, n_users: int = 4_000_000,
         fail(f"fleet: bad round records {hist[:2]}")
     chunks = rounds * canon_pad(cohort) // a.engine.cohort_chunk
     n_leaves = len(tree_leaves(a.state.params))
-    want = {"cifg_cell_fwd": rounds * cohort * n_batches,
-            "cifg_cell_bwd_seq": rounds * cohort * n_batches,
+    want = {"cifg_cell_fwd": chunks * n_batches,
+            "cifg_cell_bwd_seq": chunks * n_batches,
             "dp_sumsq": chunks, "dp_clip_accumulate": chunks * n_leaves}
     for k, v in want.items():
         if launches[k] != v:
@@ -4353,7 +4610,8 @@ def _shard_rank(dev, runs, store: str, vocab: int, cohort: int) -> dict:
             last_round=e.population(state.last_round).cpu(), hist=hist,
             ids=[i.cpu() for i in ids], launches=launches, t0=t0, t1=t1,
             gather=dict(e.gather_log), pop_bytes=pop_bytes,
-            staged=e.corpus_device_bytes)
+            staged=e.corpus_device_bytes, chunk=e.cohort_chunk,
+            padded=e.padded)
     return out
 
 
@@ -4456,6 +4714,18 @@ def _phase_shards(dev, tmp, procs, n_users, fleet_users, cohort, vocab,
     t0 = time.perf_counter()
     one = {k[2]: v for k, v in _shard_rank(
         dev, [(1, 1, s) for s in (fixed, pf, fleet)], *args).items()}
+    # the one rank's fixed rounds: one launch of each cell kernel per chunk
+    # and local batch (3), every chunk of a full round live
+    for s in (fixed, fleet):
+        r = one[s["name"]]
+        want = rounds * r["padded"] // r["chunk"] * 3
+        got = [r["launches"][k] for k in ("cifg_cell_fwd",
+                                          "cifg_cell_bwd_seq")]
+        if dev.type == "cuda" and got != [want, want]:
+            fail(f"shards: the one-rank {s['name']} run launched the cell "
+                 f"kernels {got} times, expected {want} each ({rounds} "
+                 f"rounds of {r['padded'] // r['chunk']} chunks x 3 local "
+                 f"batches)")
     say(f"shards: one-rank runs in this process (the reference of every "
         f"check): " + "; ".join(
             f"{k} {rounds} rounds in {v['t1'] - v['t0']:.2f} s = "
@@ -5308,20 +5578,28 @@ def main() -> None:
     fwd = phase_kernel(dev)
     phase_kernel_bwd(dev)
     bwd = phase_kernel_bwd_seq(dev)
+    # the kernels line's row of the sequence backward: a training chunk of
+    # 16 clients, its one shape on the main path since the chunk is batched
+    chunk_rows = phase_kernel_clients(dev)
+    bwd.update({**chunk_rows["bwd"], "max_abs_err": max(
+        bwd["max_abs_err"], chunk_rows["bwd"]["max_abs_err"])})
+    fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                             chunk_rows["fwd"]["max_abs_err"])
     clip_rows = phase_kernel_clip(dev)
     flash = phase_kernel_flash(dev)
     ssd = phase_kernel_ssd(dev)
     serve = phase_serve(dev, fwd)
     train = phase_train(dev)
     step_launches = phase_decode_grad(dev)
-    # depths cut to fit phase 15 in the time limit: |R| 2.5·10⁵ (was
-    # 5·10⁵), 5 fleet rounds (were 10), 2 rounds a shard run (were 3)
+    # |R| cut to 2.5·10⁵ (was 5·10⁵) to fit phase 15 in the time limit;
+    # the fleet's 10 rounds and the shards' 3 back since the chunk trains
+    # as one batched program
     memo = phase_memorize(dev, rs_samples=250_000)
     faults = phase_faults(dev)
-    fleet = phase_fleet(dev, rounds=5)
+    fleet = phase_fleet(dev, rounds=10)
     # phase 14 runs here, beside the other engine paths and before the
     # serving phases fill this process's memory
-    shards = phase_shards(dev, rounds=2)
+    shards = phase_shards(dev, rounds=3)
     # phase 15 runs here too, while the serving phases have not yet filled
     # this process's memory: its granite-3-2b step holds ~50 GB of state
     prod = phase_production(dev)

@@ -17,9 +17,22 @@ O(cohort_chunk · |params|), and the sum is bit-identical for every
 ``cohort_chunk`` dividing the block size. ``cohort_chunk=0`` selects the
 materializing path, kept as the reference.
 
-The clients of a chunk run one after another (a Python loop where the
-reference vmaps), so a client's delta does not depend on the chunk's width,
-and the reference's guard for width-1 vmaps has no counterpart here.
+A chunk of clients trains as one batched program where the model has a
+``client_loss_fn`` (the CIFG-LSTM): the chunk's parameters are θ0 expanded
+to a leading client axis, and each local SGD step is one forward of the
+per-client losses and one ``autograd.grad`` of their sum — no client's loss
+reads another client's parameters, so client c's gradient is exactly
+∂L_c/∂θ_c. This is the reference's ``vmap`` of :func:`local_delta` over
+the chunk: the cell kernels launch once per chunk with a client axis. A
+client's delta and loss are the same bits whatever the chunk's width
+(`utils.numerics.client_mm`: a single client's products are widened to a
+batch of two on CUDA, the counterpart of the reference's width-1 guard in
+``stream_block_sums``), and :func:`local_delta` and :func:`user_update`
+are the same program at a width of 1.
+
+Every other family trains the chunk's clients one after another: a chunk of
+them at full width does not fit one card (one full-depth granite-3-2b
+client step alone peaks at 36 GB).
 
 Trees are nested dicts of tensors; client batches are dicts of tensors with
 leading axes (n_batches, B, S), stacked per cohort as (C, n_batches, B, S).
@@ -50,11 +63,52 @@ def _stack(trees: List) -> Dict:
     return tree_map(lambda *ls: torch.stack(ls), *trees)
 
 
+def _mean(xs: List[torch.Tensor]) -> torch.Tensor:
+    """The mean of equally shaped tensors as one sum left to right, so each
+    element's bits depend only on its own values."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x
+    return total / len(xs)
+
+
+def _local_sgd_clients(model: Model, params0, chunk_batches,
+                       client: ClientConfig):
+    """E epochs of SGD for every client of a chunk as one batched program:
+    ``params0`` one tree, ``chunk_batches`` (C, n_batches, B, S) tensors →
+    (local params, every leaf with a leading C axis; mean losses (C,)).
+    Each step is one ``client_loss_fn`` and one ``autograd.grad`` of the
+    losses' sum; the update is applied in the parameters' dtype."""
+    C, n_batches = tree_leaves(chunk_batches)[0].shape[:2]
+    p = tree_map(lambda l: l.detach().expand((C,) + tuple(l.shape)),
+                 strip_compute(params0))
+    epoch_losses = []
+    for _ in range(client.local_epochs):
+        losses = []
+        for i in range(n_batches):
+            q = tree_map(lambda l: l.detach().requires_grad_(True), p)
+            loss = model.client_loss_fn(
+                q, tree_map(lambda l: l[:, i], chunk_batches))
+            grads = tree_unflatten(q, torch.autograd.grad(
+                loss.sum(), tree_leaves(q)))
+            with torch.no_grad():
+                p = tree_map(lambda w, g: (w.float() - client.lr * g.float())
+                             .to(w.dtype), q, grads)
+            losses.append(loss.detach())
+        epoch_losses.append(_mean(losses))
+    return p, _mean(epoch_losses)
+
+
 def local_sgd(model: Model, params, batches: Dict[str, torch.Tensor],
               client: ClientConfig):
     """E epochs of SGD over ``batches`` ((n_batches, B, S) tensors) →
     (local params, mean loss). The compute copies of ``params``, if any,
-    are dropped: every step casts the updated weights afresh."""
+    are dropped: every step casts the updated weights afresh. A model with
+    ``client_loss_fn`` runs the chunk program at a width of 1."""
+    if model.client_loss_fn is not None:
+        p, loss = _local_sgd_clients(
+            model, params, tree_map(lambda l: l[None], batches), client)
+        return tree_map(lambda l: l[0], p), loss[0]
     p = tree_map(torch.Tensor.detach, strip_compute(params))
     n_batches = tree_leaves(batches)[0].shape[0]
     epoch_losses = []
@@ -75,7 +129,12 @@ def local_sgd(model: Model, params, batches: Dict[str, torch.Tensor],
 
 def local_delta(model: Model, params0, batches, client: ClientConfig):
     """Unclipped client delta: E local epochs, then Δ = θ_local − θ0 in
-    float32. Returns (delta tree, mean loss)."""
+    float32. Returns (delta tree, mean loss). A model with
+    ``client_loss_fn`` runs :func:`local_deltas` at a width of 1."""
+    if model.client_loss_fn is not None:
+        deltas, losses = local_deltas(
+            model, params0, tree_map(lambda l: l[None], batches), client)
+        return deltas[0], losses[0]
     params0 = strip_compute(params0)
     params_local, loss = local_sgd(model, params0, batches, client)
     f32 = lambda t: tree_map(lambda l: l.detach().float(), t)  # noqa: E731
@@ -84,13 +143,24 @@ def local_delta(model: Model, params0, batches, client: ClientConfig):
 
 def local_deltas(model: Model, params, chunk_batches, client: ClientConfig
                  ) -> Tuple[List, torch.Tensor]:
-    """:func:`local_delta` for each client of a chunk (leading axis of
-    ``chunk_batches``), one after another → (list of delta trees, losses
-    (chunk,))."""
-    n = tree_leaves(chunk_batches)[0].shape[0]
-    out = [local_delta(model, params, _index(chunk_batches, i), client)
-           for i in range(n)]
-    return [d for d, _ in out], torch.stack([l for _, l in out])
+    """:func:`local_delta` of each client of a chunk (leading axis of
+    ``chunk_batches``) → (list of delta trees, losses (chunk,)). With the
+    model's ``client_loss_fn`` the chunk is one batched program and the
+    delta trees are views of one (chunk, …) stack a leaf; otherwise the
+    clients run one after another."""
+    if model.client_loss_fn is None:
+        n = tree_leaves(chunk_batches)[0].shape[0]
+        out = [local_delta(model, params, _index(chunk_batches, i), client)
+               for i in range(n)]
+        return [d for d, _ in out], torch.stack([l for _, l in out])
+    params0 = strip_compute(params)
+    local, losses = _local_sgd_clients(model, params0, chunk_batches,
+                                       client)
+    delta = tree_map(lambda a, b: a.float() - b.detach().float(), local,
+                     params0)
+    leaves = [l.unbind(0) for l in tree_leaves(delta)]
+    return ([tree_unflatten(delta, list(ls)) for ls in zip(*leaves)],
+            losses)
 
 
 def user_update(model: Model, params0, batches, client: ClientConfig,

@@ -102,10 +102,18 @@
 // resident is the faster form (PERF.md has both times). The route is chosen
 // by H alone, never by B or S.
 //
+// A client axis: C independent recursions in one launch (a cohort chunk in
+// training, each client with its own parameters): z (C, S, B, 3H), cs and
+// dhs (C, S, B, H), c0, dh_fin and dc_fin (C, B, H), w_h (C, H, 3H); dz, dh0
+// and dc0 with the same leading C. gridDim.z = C on both routes; every
+// cluster offsets its pointers by its client. The one-client entry is the
+// C = 1 call.
+//
 // Determinism: every output element is a fixed sequence of operations on
 // its row's data, whatever B is and wherever the row sits: the same run on
 // the same inputs gives the same bits, and no sum is split across threads
-// or blocks; there are no atomics.
+// or blocks; there are no atomics. A client's results are the same bits
+// whatever C is and wherever the client sits.
 //
 // Removal builds: -DCIFGB_SKIP_ELEMENTWISE, -DCIFGB_SKIP_EXCHANGE,
 // -DCIFGB_SKIP_BARRIER and -DCIFGB_SKIP_PRODUCT compile that part of the
@@ -386,9 +394,23 @@ cifg_bwd_seq_kernel(const float* __restrict__ z, const float* __restrict__ cs,
                     const float* __restrict__ dhs,
                     const float* __restrict__ dh_fin,
                     const float* __restrict__ dc_fin,
-                    const float* __restrict__ w_h, float* __restrict__ dz,
-                    float* __restrict__ dh0, float* __restrict__ dc0, int S,
-                    int B, int H) {
+                    const float* __restrict__ w_h, long long w_client,
+                    float* __restrict__ dz, float* __restrict__ dh0,
+                    float* __restrict__ dc0, int S, int B, int H) {
+  // this cluster's client
+  {
+    const long long zc = blockIdx.z, BH = (long long)B * H;
+    z += zc * S * BH * 3;
+    cs += zc * S * BH;
+    c0 += zc * BH;
+    dhs += zc * S * BH;
+    dh_fin += zc * BH;
+    dc_fin += zc * BH;
+    w_h += zc * w_client;
+    dz += zc * S * BH * 3;
+    dh0 += zc * BH;
+    dc0 += zc * BH;
+  }
   extern __shared__ __align__(16) float sm[];
   const int W3 = round4(3 * H);
   const int wld = W3 + 4;
@@ -547,8 +569,23 @@ cifg_bwd_seq_wide_kernel(const float* __restrict__ z,
                          const float* __restrict__ dhs,
                          const float* __restrict__ dh_fin,
                          const float* __restrict__ dc_fin,
-                         const float* __restrict__ w_h, float* dz, float* dh0,
-                         float* dc0, int S, int B, int H) {
+                         const float* __restrict__ w_h, long long w_client,
+                         float* dz, float* dh0, float* dc0, int S, int B,
+                         int H) {
+  // this cluster's client
+  {
+    const long long zc = blockIdx.z, BH = (long long)B * H;
+    z += zc * S * BH * 3;
+    cs += zc * S * BH;
+    c0 += zc * BH;
+    dhs += zc * S * BH;
+    dh_fin += zc * BH;
+    dc_fin += zc * BH;
+    w_h += zc * w_client;
+    dz += zc * S * BH * 3;
+    dh0 += zc * BH;
+    dc0 += zc * BH;
+  }
   extern __shared__ __align__(16) float sm[];
   const int H3i = 3 * H;
   const int W3 = round4(H3i);
@@ -663,42 +700,46 @@ cudaError_t configure_once(bool* done, F set) {
   return err;
 }
 
-int launch_seq(const float* z, const float* cs, const float* c0,
-               const float* dhs, const float* dh_fin, const float* dc_fin,
-               const float* w_h, float* dz, float* dh0, float* dc0, int S,
-               int B, int H, cudaStream_t stream) {
+cudaError_t seq_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                       int C, int B, int H) {
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = configure_once(configured, [] {
     return cudaFuncSetAttribute(cifg_bwd_seq_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 seq_smem_bytes(kSeqMaxH));
   });
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSeqCluster, (B + kSeqRows - 1) / kSeqRows, 1);
+  if (set != cudaSuccess) return set;
+  cfg = {};
+  cfg.gridDim = dim3(kSeqCluster, (B + kSeqRows - 1) / kSeqRows, C);
   cfg.blockDim = dim3(kSeqThreads, 1, 1);
   cfg.dynamicSmemBytes = seq_smem_bytes(H);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kSeqCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, cifg_bwd_seq_kernel, z, cs, c0, dhs, dh_fin,
-                         dc_fin, w_h, dz, dh0, dc0, S, B, H);
+  return cudaSuccess;
+}
+
+int launch_seq(const float* z, const float* cs, const float* c0,
+               const float* dhs, const float* dh_fin, const float* dc_fin,
+               const float* w_h, long long w_client, float* dz, float* dh0,
+               float* dc0, int C, int S, int B, int H, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = seq_config(cfg, attr, C, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, cifg_bwd_seq_kernel, z, cs, c0, dhs, dh_fin,
+                           dc_fin, w_h, w_client, dz, dh0, dc0, S, B, H);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kResident>
-int launch_seq_wide(const float* z, const float* cs, const float* c0,
-                    const float* dhs, const float* dh_fin,
-                    const float* dc_fin, const float* w_h, float* dz,
-                    float* dh0, float* dc0, int S, int B, int H,
-                    cudaStream_t stream) {
+cudaError_t seq_wide_config(cudaLaunchConfig_t& cfg,
+                            cudaLaunchAttribute* attr, int C, int B, int H) {
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = configure_once(configured, [] {
     cudaError_t err = cudaFuncSetAttribute(
@@ -711,22 +752,34 @@ int launch_seq_wide(const float* z, const float* cs, const float* c0,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return err;
   });
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kSeqWideCluster, (B + kSeqRows - 1) / kSeqRows, 1);
+  if (set != cudaSuccess) return set;
+  cfg = {};
+  cfg.gridDim = dim3(kSeqWideCluster, (B + kSeqRows - 1) / kSeqRows, C);
   cfg.blockDim = dim3(kSeqThreads, 1, 1);
   cfg.dynamicSmemBytes = seq_wide_smem_bytes(H, kResident);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kSeqWideCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cifg_bwd_seq_wide_kernel<kResident>, z, cs, c0, dhs, dh_fin,
-      dc_fin, w_h, dz, dh0, dc0, S, B, H);
+  return cudaSuccess;
+}
+
+template <bool kResident>
+int launch_seq_wide(const float* z, const float* cs, const float* c0,
+                    const float* dhs, const float* dh_fin,
+                    const float* dc_fin, const float* w_h, long long w_client,
+                    float* dz, float* dh0, float* dc0, int C, int S, int B,
+                    int H, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = seq_wide_config<kResident>(cfg, attr, C, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, cifg_bwd_seq_wide_kernel<kResident>, z, cs,
+                           c0, dhs, dh_fin, dc_fin, w_h, w_client, dz, dh0,
+                           dc0, S, B, H);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -756,26 +809,54 @@ extern "C" int cifg_cell_bwd(const float* zx, const void* w_h, int w_is_bf16,
 }
 
 // Plain C entry point, loaded with ctypes: the reverse recursion of a whole
-// sequence (see the header), all tensors f32 and contiguous. The route
-// follows H: the 8-CTA kernel up to 256, the 16-CTA wide kernel beyond
-// (w_h resident up to 512, streamed above). Returns the cudaError_t of the
-// launch (0 on success); S, B or H below 1 return cudaErrorInvalidValue.
+// sequence (see the header) for each of C clients, each with its own w_h,
+// all tensors f32 and contiguous. The route follows H: the 8-CTA kernel up
+// to 256, the 16-CTA wide kernel beyond (w_h resident up to 512, streamed
+// above). Returns the cudaError_t of the launch (0 on success); C, S, B or
+// H below 1 return cudaErrorInvalidValue.
 extern "C" int cifg_cell_bwd_seq(const float* z, const float* cs,
                                  const float* c0, const float* dhs,
                                  const float* dh_fin, const float* dc_fin,
                                  const float* w_h, float* dz, float* dh0,
-                                 float* dc0, int S, int B, int H,
+                                 float* dc0, int C, int S, int B, int H,
                                  void* stream) {
-  if (S < 1 || B < 1 || H < 1 || B > 65535 * kSeqRows) {
+  if (C < 1 || S < 1 || B < 1 || H < 1 || B > 65535 * kSeqRows ||
+      C > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long w_client = 3LL * H * H;
   if (H <= kSeqMaxH)
-    return launch_seq(z, cs, c0, dhs, dh_fin, dc_fin, w_h, dz, dh0, dc0, S,
-                      B, H, st);
+    return launch_seq(z, cs, c0, dhs, dh_fin, dc_fin, w_h, w_client, dz, dh0,
+                      dc0, C, S, B, H, st);
   if (H <= kSeqResidentH)
-    return launch_seq_wide<true>(z, cs, c0, dhs, dh_fin, dc_fin, w_h, dz,
-                                 dh0, dc0, S, B, H, st);
-  return launch_seq_wide<false>(z, cs, c0, dhs, dh_fin, dc_fin, w_h, dz, dh0,
-                                dc0, S, B, H, st);
+    return launch_seq_wide<true>(z, cs, c0, dhs, dh_fin, dc_fin, w_h,
+                                 w_client, dz, dh0, dc0, C, S, B, H, st);
+  return launch_seq_wide<false>(z, cs, c0, dhs, dh_fin, dc_fin, w_h,
+                                w_client, dz, dh0, dc0, C, S, B, H, st);
+}
+
+// The most clusters of the sequence form's route at (B, H) that the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int cifg_cell_bwd_seq_max_clusters(int B, int H, int* out) {
+  if (B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  if (H <= kSeqMaxH) {
+    err = seq_config(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(out, cifg_bwd_seq_kernel, &cfg);
+  } else if (H <= kSeqResidentH) {
+    err = seq_wide_config<true>(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, cifg_bwd_seq_wide_kernel<true>, &cfg);
+  } else {
+    err = seq_wide_config<false>(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, cifg_bwd_seq_wide_kernel<false>, &cfg);
+  }
+  return static_cast<int>(err);
 }

@@ -17,6 +17,15 @@
 // gate columns [f | o | g]; outputs hs and cs (S, B, H) f32, the state after
 // every step. One step is this kernel at S = 1.
 //
+// A client axis: C independent recurrences in one launch, each with its
+// own inputs and outputs (zx (C, S, B, 3H), h0 and c0 (C, B, H), hs and cs
+// (C, S, B, H)) and either its own w_h (C, H, 3H) — a cohort chunk in
+// training, where each client holds its own parameters (the reference
+// vmaps cell_fwd over the chunk, which adds a grid axis of clients) — or
+// one w_h shared by all (client stride 0). gridDim.z = C on both routes;
+// every cluster offsets its pointers by its client and loads its client's
+// slice of w_h. The one-client entry is the C = 1 call of the same kernel.
+//
 // What bounds it on an H100: a training sequence (S 16, B 10, H 256, bf16)
 // moves about 1.2 MB (zx, w_h, hs, cs) for 0.06 GFLOP: about 0.4 us of
 // memory traffic. The recurrence is serial, so the real limit is S times one
@@ -76,7 +85,14 @@
 // k ascending with one FMA per term (f32), whatever B is and wherever the
 // row sits, on either route. So a row's result does not depend on the
 // batch, hs[t] of an S-step launch equals the state after a launch over the
-// first t+1 steps, and equals t+1 chained S = 1 launches, bit for bit.
+// first t+1 steps, and equals t+1 chained S = 1 launches, bit for bit. The
+// same holds across clients: a client's results are the same bits whatever
+// C is and wherever the client sits (a cluster touches its client's data
+// only).
+//
+// Occupancy: the clusters of a launch are C x ceil(B / 16); a cluster sits
+// inside one GPC, so a launch with more clusters than the card holds at
+// once (cifg_cell_fwd_max_clusters) runs in waves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -197,9 +213,19 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 cifg_seq_kernel(const float* __restrict__ zx, const float* __restrict__ h0,
                 const float* __restrict__ c0, const T* __restrict__ w_h,
-                float* __restrict__ hs, float* __restrict__ cs, int S, int B,
-                int H) {
+                long long w_client, float* __restrict__ hs,
+                float* __restrict__ cs, int S, int B, int H) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  // this cluster's client
+  {
+    const long long z = blockIdx.z, BH = (long long)B * H;
+    zx += z * S * BH * 3;
+    h0 += z * BH;
+    c0 += z * BH;
+    w_h += z * w_client;
+    hs += z * S * BH;
+    cs += z * S * BH;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   const int KP = (H + 15) & ~15;
   T* ws = reinterpret_cast<T*>(smem);
@@ -454,9 +480,11 @@ cudaError_t configure_once(bool* done, F set) {
   return err;
 }
 
+// The launch of the H <= 256 route: its grid, block, shared memory and
+// cluster; the function attribute set once per device.
 template <typename T>
-int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
-           float* hs, float* cs, int S, int B, int H, cudaStream_t stream) {
+cudaError_t seq_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                       int C, int B, int H) {
   // the most shared memory any width takes
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = configure_once(configured, [] {
@@ -464,23 +492,33 @@ int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 smem_bytes<T>(kMaxH));
   });
-  if (set != cudaSuccess) return static_cast<int>(set);
+  if (set != cudaSuccess) return set;
   const int KP = (H + 15) & ~15;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, 1);
+  cfg = {};
+  cfg.gridDim = dim3(kCluster, (B + kRows - 1) / kRows, C);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes<T>(KP);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cifg_seq_kernel<T>, zx, h0, c0, static_cast<const T*>(w_h), hs,
-      cs, S, B, H);
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(const float* zx, const float* h0, const float* c0, const void* w_h,
+           long long w_client, float* hs, float* cs, int C, int S, int B,
+           int H, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = seq_config<T>(cfg, attr, C, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, cifg_seq_kernel<T>, zx, h0, c0,
+                           static_cast<const T*>(w_h), w_client, hs, cs, S,
+                           B, H);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -559,8 +597,19 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 cifg_seq_wide_kernel(const float* __restrict__ zx,
                      const float* __restrict__ h0,
                      const float* __restrict__ c0, const T* __restrict__ w_h,
-                     float* hs, float* cs, int S, int B, int H) {
+                     long long w_client, float* hs, float* cs, int S, int B,
+                     int H) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  // this cluster's client
+  {
+    const long long z = blockIdx.z, BH = (long long)B * H;
+    zx += z * S * BH * 3;
+    h0 += z * BH;
+    c0 += z * BH;
+    w_h += z * w_client;
+    hs += z * S * BH;
+    cs += z * S * BH;
+  }
   constexpr int ldw = wide_ldw<T>();
   constexpr int hld = kKT + 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -702,9 +751,8 @@ cifg_seq_wide_kernel(const float* __restrict__ zx,
 }
 
 template <typename T, bool kResident>
-int launch_wide(const float* zx, const float* h0, const float* c0,
-                const void* w_h, float* hs, float* cs, int S, int B, int H,
-                cudaStream_t stream) {
+cudaError_t wide_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                        int C, int B, int H) {
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = configure_once(configured, [] {
     cudaError_t err = cudaFuncSetAttribute(
@@ -717,55 +765,105 @@ int launch_wide(const float* zx, const float* h0, const float* c0,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return err;
   });
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kWideCluster, (B + kRows - 1) / kRows, 1);
+  if (set != cudaSuccess) return set;
+  cfg = {};
+  cfg.gridDim = dim3(kWideCluster, (B + kRows - 1) / kRows, C);
   cfg.blockDim = dim3(kWideThreads, 1, 1);
   cfg.dynamicSmemBytes = wide_smem_bytes<T>((H + 15) & ~15, kResident);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kWideCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, cifg_seq_wide_kernel<T, kResident>, zx, h0, c0,
-      static_cast<const T*>(w_h), hs, cs, S, B, H);
+  return cudaSuccess;
+}
+
+template <typename T, bool kResident>
+int launch_wide(const float* zx, const float* h0, const float* c0,
+                const void* w_h, long long w_client, float* hs, float* cs,
+                int C, int S, int B, int H, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = wide_config<T, kResident>(cfg, attr, C, B, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, cifg_seq_wide_kernel<T, kResident>, zx, h0,
+                           c0, static_cast<const T*>(w_h), w_client, hs, cs,
+                           S, B, H);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_any(const float* zx, const float* h0, const float* c0,
-               const void* w_h, float* hs, float* cs, int S, int B, int H,
-               cudaStream_t s) {
-  if (H <= kMaxH) return launch<T>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+               const void* w_h, long long w_client, float* hs, float* cs,
+               int C, int S, int B, int H, cudaStream_t s) {
+  if (H <= kMaxH)
+    return launch<T>(zx, h0, c0, w_h, w_client, hs, cs, C, S, B, H, s);
   if (H <= kWideResidentH)
-    return launch_wide<T, true>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
-  return launch_wide<T, false>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+    return launch_wide<T, true>(zx, h0, c0, w_h, w_client, hs, cs, C, S, B,
+                                H, s);
+  return launch_wide<T, false>(zx, h0, c0, w_h, w_client, hs, cs, C, S, B, H,
+                               s);
+}
+
+// The most clusters of the route at H the card holds at once.
+template <typename T>
+int max_clusters(int B, int H, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  if (H <= kMaxH) {
+    err = seq_config<T>(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(out, cifg_seq_kernel<T>, &cfg);
+  } else if (H <= kWideResidentH) {
+    err = wide_config<T, true>(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, cifg_seq_wide_kernel<T, true>, &cfg);
+  } else {
+    err = wide_config<T, false>(cfg, attr, 1, B, H);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          out, cifg_seq_wide_kernel<T, false>, &cfg);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes: S steps of the recurrence from
-// (h0, c0), writing the state after each step into hs[t] and cs[t].
-// w_is_bf16 selects the compute dtype of w_h (1 = bf16, 0 = f32). The route
-// follows H: the 8-CTA resident kernel up to 256, the 16-CTA wide kernel
-// beyond (w_h resident up to 512, streamed above). Returns the cudaError_t
-// of the launch (0 on success); S, B or H below 1 return
-// cudaErrorInvalidValue.
+// (h0, c0) for each of C clients, writing the state after each step into
+// hs[c, t] and cs[c, t]. w_is_bf16 selects the compute dtype of w_h (1 =
+// bf16, 0 = f32); w_per_client 1 gives each client its own w_h (C, H, 3H),
+// 0 one w_h (H, 3H) for all. The route follows H: the 8-CTA resident kernel
+// up to 256, the 16-CTA wide kernel beyond (w_h resident up to 512,
+// streamed above). Returns the cudaError_t of the launch (0 on success); C,
+// S, B or H below 1 return cudaErrorInvalidValue.
 extern "C" int cifg_cell_seq_fwd(const float* zx, const float* h0,
                                  const float* c0, const void* w_h,
-                                 int w_is_bf16, float* hs, float* cs, int S,
-                                 int B, int H, void* stream) {
-  if (S < 1 || B < 1 || H < 1 || B > 65535 * kRows) {
+                                 int w_is_bf16, int w_per_client, float* hs,
+                                 float* cs, int C, int S, int B, int H,
+                                 void* stream) {
+  if (C < 1 || S < 1 || B < 1 || H < 1 || B > 65535 * kRows || C > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long w_client = w_per_client ? 3LL * H * H : 0;
   if (w_is_bf16) {
-    return launch_any<__nv_bfloat16>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+    return launch_any<__nv_bfloat16>(zx, h0, c0, w_h, w_client, hs, cs, C, S,
+                                     B, H, s);
   }
-  return launch_any<float>(zx, h0, c0, w_h, hs, cs, S, B, H, s);
+  return launch_any<float>(zx, h0, c0, w_h, w_client, hs, cs, C, S, B, H, s);
+}
+
+// The most clusters of the route at (B, H) that the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out. Returns the cudaError_t.
+extern "C" int cifg_cell_fwd_max_clusters(int w_is_bf16, int B, int H,
+                                          int* out) {
+  if (B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return w_is_bf16 ? max_clusters<__nv_bfloat16>(B, H, out)
+                   : max_clusters<float>(B, H, out);
 }

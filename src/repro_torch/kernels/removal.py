@@ -123,7 +123,8 @@ def _stream() -> int:
 
 
 def _cell_call(lib, B: int, S: int, H: int, gen):
-    """One call of ``cifg_cell_seq_fwd`` at (S, B, H), bf16 w_h."""
+    """One call of ``cifg_cell_seq_fwd`` at (S, B, H), bf16 w_h, one
+    client."""
     dev = torch.device("cuda")
     zx = torch.randn((S, B, 3 * H), generator=gen).to(dev)
     h0, c0 = ((0.3 * torch.randn((B, H), generator=gen)).to(dev)
@@ -133,19 +134,20 @@ def _cell_call(lib, B: int, S: int, H: int, gen):
     hs, cs = (torch.empty((S, B, H), device=dev) for _ in range(2))
     fn = lib.cifg_cell_seq_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, p, i, i, i, p]
+    fn.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, p]
     fn.restype = ctypes.c_int
 
     def call():
         err = fn(zx.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(), 1,
-                 hs.data_ptr(), cs.data_ptr(), S, B, H, _stream())
+                 0, hs.data_ptr(), cs.data_ptr(), 1, S, B, H, _stream())
         if err:
             raise RuntimeError(f"cifg_cell_seq_fwd failed: CUDA error {err}")
     return call
 
 
 def _bwd_seq_call(lib, B: int, S: int, H: int, gen):
-    """One call of ``cifg_cell_bwd_seq`` at (S, B, H), all float32."""
+    """One call of ``cifg_cell_bwd_seq`` at (S, B, H), all float32, one
+    client."""
     dev = torch.device("cuda")
 
     def randn(*shape, scale=1.0):
@@ -158,13 +160,13 @@ def _bwd_seq_call(lib, B: int, S: int, H: int, gen):
     dh0, dc0 = torch.empty_like(c0), torch.empty_like(c0)
     fn = lib.cifg_cell_bwd_seq
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 10 + [i, i, i, p]
+    fn.argtypes = [p] * 10 + [i] * 4 + [p]
     fn.restype = ctypes.c_int
 
     def call():
         err = fn(z.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
                  dhf.data_ptr(), dcf.data_ptr(), w.data_ptr(), dz.data_ptr(),
-                 dh0.data_ptr(), dc0.data_ptr(), S, B, H, _stream())
+                 dh0.data_ptr(), dc0.data_ptr(), 1, S, B, H, _stream())
         if err:
             raise RuntimeError(f"cifg_cell_bwd_seq failed: CUDA error {err}")
     return call

@@ -5,7 +5,11 @@ Launches ``cifg_cell_fwd`` (``cell_seq_fwd``) at the serving decode tick
 (B 256, S 1), the training client batch (B 10, S 16), the admission prefill
 (B 1, S 16), the Random-Sampling chunk of the Secret Sharer (B 27,648,
 S 5) and its beam search (B 5, S 2–4), bf16 and f32, and
-``cifg_cell_bwd_seq`` at the training shape, all at H 256; and
+``cifg_cell_bwd_seq`` at the training shape, all at H 256; both again with
+a client axis, at a training chunk of 16 clients and at a chunk with more
+clusters than the card holds at once (``ops.max_active_clusters``: a launch
+in at least two waves), each client with its own w_h, the guard after the
+last client's outputs; and
 ``flash_attention_fwd`` at whisper-small's two shapes that no other path
 gives it, in bf16 (the tensor cores) and f32: the encoder's bidirectional
 self-attention over 1,500 frames (the last K tile holds 28 of 64 rows) and
@@ -33,6 +37,7 @@ FWD_SHAPES = (("decode", 256, 1), ("train", 10, 16), ("prefill", 1, 16),
               ("rs", 27648, 5), ("beam", 5, 2), ("beam", 5, 3),
               ("beam", 5, 4))
 BWD_SHAPES = (("train", 10, 16),)
+CHUNK_SHAPE = (10, 16, 16)      # a training chunk: B, S, clients
 # (what, B, Sq, Sk, heads, hd), bidirectional
 FLASH_SHAPES = (("whisper encoder", 4, 1500, 1500, 12, 64),
                 ("whisper cross-attention", 4, 64, 1500, 12, 64))
@@ -60,18 +65,22 @@ def _tail_intact(buf) -> bool:
     return bool((buf[-GUARD:].view(torch.int32) == _PATTERN).all())
 
 
-def check_fwd(S: int, B: int, H: int, dtype, repeats: int, dev) -> str:
+def check_fwd(S: int, B: int, H: int, dtype, repeats: int, dev,
+              C: int = 0) -> str:
+    """``C`` > 0: a chunk of C clients (a leading client axis), each client
+    with its own w_h."""
     from repro_torch.kernels.cifg_cell import cell_seq_fwd
 
-    gen = torch.Generator().manual_seed(S * 100_003 + B)
-    zx = _randn(gen, dev, S, B, 3 * H)
-    h0 = _randn(gen, dev, B, H, scale=0.3)
-    c0 = _randn(gen, dev, B, H, scale=0.3)
-    w = _randn(gen, dev, H, 3 * H, scale=H ** -0.5).to(dtype)
+    gen = torch.Generator().manual_seed(S * 100_003 + B + C)
+    lead = (C,) if C else ()
+    zx = _randn(gen, dev, *lead, S, B, 3 * H)
+    h0 = _randn(gen, dev, *lead, B, H, scale=0.3)
+    c0 = _randn(gen, dev, *lead, B, H, scale=0.3)
+    w = _randn(gen, dev, *lead, H, 3 * H, scale=H ** -0.5).to(dtype)
     first = None
     for i in range(repeats):
-        hs, hbuf = _guarded((S, B, H), dev)
-        cs, cbuf = _guarded((S, B, H), dev)
+        hs, hbuf = _guarded(lead + (S, B, H), dev)
+        cs, cbuf = _guarded(lead + (S, B, H), dev)
         cell_seq_fwd(zx, h0, c0, w, hs=hs, cs=cs)
         torch.cuda.synchronize()
         if not (_tail_intact(hbuf) and _tail_intact(cbuf)):
@@ -83,25 +92,58 @@ def check_fwd(S: int, B: int, H: int, dtype, repeats: int, dev) -> str:
     return ""
 
 
-def check_bwd(S: int, B: int, H: int, repeats: int, dev) -> str:
+def check_bwd(S: int, B: int, H: int, repeats: int, dev, C: int = 0) -> str:
+    """The sequence backward's entry point called with guarded outputs;
+    ``C`` > 0 as in `check_fwd`."""
     from repro_torch.kernels.cifg_cell import ops
 
-    gen = torch.Generator().manual_seed(S * 7 + B)
-    args = (_randn(gen, dev, S, B, 3 * H), _randn(gen, dev, S, B, H, scale=0.3),
-            _randn(gen, dev, B, H, scale=0.3),
-            _randn(gen, dev, S, B, H, scale=0.1),
-            _randn(gen, dev, B, H, scale=0.1),
-            _randn(gen, dev, B, H, scale=0.1),
-            _randn(gen, dev, H, 3 * H, scale=H ** -0.5))
+    gen = torch.Generator().manual_seed(S * 7 + B + C)
+    lead = (C,) if C else ()
+    args = (_randn(gen, dev, *lead, S, B, 3 * H),
+            _randn(gen, dev, *lead, S, B, H, scale=0.3),
+            _randn(gen, dev, *lead, B, H, scale=0.3),
+            _randn(gen, dev, *lead, S, B, H, scale=0.1),
+            _randn(gen, dev, *lead, B, H, scale=0.1),
+            _randn(gen, dev, *lead, B, H, scale=0.1),
+            _randn(gen, dev, *lead, H, 3 * H, scale=H ** -0.5))
+    fn = ops._kernel("cifg_cell_bwd_seq")
     first = None
     for i in range(repeats):
-        out = ops.cell_bwd_seq(*args)
+        dz, zbuf = _guarded(lead + (S, B, 3 * H), dev)
+        dh0, hbuf = _guarded(lead + (B, H), dev)
+        dc0, cbuf = _guarded(lead + (B, H), dev)
+        err = fn(*(a.data_ptr() for a in args), dz.data_ptr(),
+                 dh0.data_ptr(), dc0.data_ptr(), max(C, 1), S, B, H,
+                 torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
+        if err:
+            return f"launch {i} failed with CUDA error {err}"
+        if not all(_tail_intact(b) for b in (zbuf, hbuf, cbuf)):
+            return f"a launch wrote past its output (launch {i})"
+        out = (dz, dh0, dc0)
+        if i == 0:
+            ref = ops.cell_bwd_seq(*args)
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                return "the guarded launch differs from the wrapper's"
         if first is None:
             first = [t.clone() for t in out]
         elif not all(torch.equal(a, b) for a, b in zip(out, first)):
             return f"launch {i} differs from launch 0"
     return ""
+
+
+def chunk_sizes(B: int, H: int, dtype) -> dict:
+    """The clients of a training chunk, and of a chunk that needs more than
+    one wave of clusters, for each kernel: name → (C, clusters the card
+    holds at once)."""
+    from repro_torch.kernels.cifg_cell import ops
+
+    tiles = -(-B // 16)
+    out = {}
+    for name in ("cifg_cell_fwd", "cifg_cell_bwd_seq"):
+        most = ops.max_active_clusters(name, B, H, dtype)
+        out[name] = (most // tiles + 1, most)
+    return out
 
 
 def check_flash(B: int, Sq: int, Sk: int, H: int, hd: int, dtype,
@@ -151,7 +193,28 @@ def main(argv=None) -> int:
         bad += bool(err)
         print(f"sanitize: cifg_cell_bwd_seq {what} B={B} S={S} H={H}, "
               f"{args.repeats} launches: "
-              f"{err or 'bitwise repeatable'}", flush=True)
+              f"{err or 'tails intact, bitwise repeatable'}", flush=True)
+    B, S, C = CHUNK_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        waves = chunk_sizes(B, H, dtype)
+        for name, check in (("cifg_cell_fwd", check_fwd),
+                            ("cifg_cell_bwd_seq", check_bwd)):
+            if name == "cifg_cell_bwd_seq" and dtype != torch.float32:
+                continue
+            big, most = waves[name]
+            for n in sorted({C, big}):
+                if name == "cifg_cell_fwd":
+                    err = check(S, B, H, dtype, args.repeats, dev, C=n)
+                else:
+                    err = check(S, B, H, args.repeats, dev, C=n)
+                bad += bool(err)
+                print(f"sanitize: {name} chunk of {n} clients B={B} S={S} "
+                      f"H={H} {str(dtype).split('.')[-1]} ({n * -(-B // 16)} "
+                      f"clusters, {most} at once: "
+                      f"{-(-n * -(-B // 16) // most)} wave(s)), "
+                      f"{args.repeats} launches: "
+                      f"{err or 'tails intact, bitwise repeatable'}",
+                      flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for what, B, Sq, Sk, nh, hd in FLASH_SHAPES:
             err = check_flash(B, Sq, Sk, nh, hd, dtype, args.repeats, dev)

@@ -8,11 +8,18 @@ identical to an unpadded prefill of that length — gets bucket-padded
 admission; the engine checks this with a probe at construction.
 
 Training contract (`repro_torch.fl.client`): ``loss_fn(params, batch)`` is a
-float32 scalar differentiable in every leaf of ``params``.
+float32 scalar differentiable in every leaf of ``params``. A model whose
+``client_loss_fn`` is set also trains a chunk of clients as one batched
+program: ``client_loss_fn(params_c, batch_c)`` takes parameters whose every
+leaf has a leading client axis C and batch leaves (C, B, S), and returns the
+per-client losses (C,), client c's computed as ``loss_fn`` computes one
+client's and the same bits whatever C is (the reference's vmapped
+``loss_fn``). ``None`` (every family but the CIFG-LSTM) trains the chunk's
+clients one after another.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -26,3 +33,4 @@ class Model(NamedTuple):
     prefill: Callable[..., Any]      # (params, batch) -> (logits (B,Vpad), cache)
     decode_step: Callable[..., Any]  # (params, tokens (B,), cache) -> (logits, cache)
     compute_copies: Callable[..., Any]  # (params, dtype) -> params["compute"]
+    client_loss_fn: Optional[Callable[..., Any]] = None  # (params_c, batch_c) -> (C,)

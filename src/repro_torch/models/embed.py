@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import embed_init, pad_vocab
-from repro_torch.utils.numerics import round_to, rowstable_mm
+from repro_torch.utils.numerics import client_mm, round_to, rowstable_mm
 
 
 def embedding_init(generator: torch.Generator, cfg: ModelConfig, *,
@@ -29,18 +29,35 @@ def embedding_init(generator: torch.Generator, cfg: ModelConfig, *,
 
 class EmbedRows(torch.autograd.Function):
     """``table[ids]`` whose backward is ``one_hot(ids)ᵀ @ grad``: a fixed
-    product, so the table's gradient has the same bits on every run."""
+    product, so the table's gradient has the same bits on every run.
+
+    With a client axis (a chunk of clients, each with its own table):
+    table (C, V, d), ids (C, …) → (C, …, d), client c's rows from its own
+    table; the backward is one product a client (`client_mm`), each
+    client's gradient the bits of its one-client call."""
 
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
-        ctx.rows = table.shape[0]
+        ctx.rows = table.shape[-2]
+        ctx.clients = table.dim() == 3
+        if ctx.clients:
+            clients = torch.arange(table.shape[0], device=ids.device)
+            return table[clients.reshape((-1,) + (1,) * (ids.dim() - 1)),
+                         ids]
         return table.index_select(0, ids.reshape(-1)).reshape(
             tuple(ids.shape) + tuple(table.shape[1:]))
 
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
+        if ctx.clients:
+            C = ids.shape[0]
+            flat = grad.reshape(C, ids[0].numel(), -1)
+            onehot = torch.zeros((C, ids[0].numel(), ctx.rows),
+                                 dtype=flat.dtype, device=flat.device)
+            onehot.scatter_(2, ids.reshape(C, -1, 1), 1.0)
+            return client_mm(onehot.transpose(1, 2), flat, rows=False), None
         flat = grad.reshape(ids.numel(), -1)
         onehot = torch.nn.functional.one_hot(ids.reshape(-1), ctx.rows)
         return onehot.to(flat.dtype).t().mm(flat), None

@@ -371,14 +371,8 @@ def mlp(x, p, act: str):
 # ------------------------------------------------------- vocab and loss
 
 
-def lm_loss(logits: torch.Tensor, labels, vocab: int, mask=None
-            ) -> torch.Tensor:
-    """Cross-entropy over a padded vocab axis, as the reference's
-    ``lm_loss``: logits (B, S, Vpad), labels (B, S) ints, mask (B, S) float
-    or ``None``. Padded columns are masked to −1e30, the logsumexp runs in
-    float32, the true logit is a where-reduce over the vocab axis (one
-    nonzero term, so the same bits as a gather), and the masked mean divides
-    by ``max(Σ mask, 1)``."""
+def _token_nll(logits: torch.Tensor, labels, vocab: int) -> torch.Tensor:
+    """Per-token −log p(label): logits (…, Vpad), labels (…) → (…) f32."""
     vpad = logits.shape[-1]
     lf = logits.float()
     vocab_ids = torch.arange(vpad, device=lf.device)
@@ -388,8 +382,32 @@ def lm_loss(logits: torch.Tensor, labels, vocab: int, mask=None
     labels = torch.as_tensor(labels, device=lf.device).long()
     true_logit = torch.where(labels[..., None] == vocab_ids, lf,
                              torch.zeros((), device=lf.device)).sum(dim=-1)
-    nll = lse - true_logit
+    return lse - true_logit
+
+
+def lm_loss(logits: torch.Tensor, labels, vocab: int, mask=None
+            ) -> torch.Tensor:
+    """Cross-entropy over a padded vocab axis, as the reference's
+    ``lm_loss``: logits (B, S, Vpad), labels (B, S) ints, mask (B, S) float
+    or ``None``. Padded columns are masked to −1e30, the logsumexp runs in
+    float32, the true logit is a where-reduce over the vocab axis (one
+    nonzero term, so the same bits as a gather), and the masked mean divides
+    by ``max(Σ mask, 1)``."""
+    nll = _token_nll(logits, labels, vocab)
     if mask is None:
         return nll.mean()
-    mask = torch.as_tensor(mask, device=lf.device, dtype=torch.float32)
+    mask = torch.as_tensor(mask, device=nll.device, dtype=torch.float32)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss_clients(logits: torch.Tensor, labels, vocab: int, mask=None
+                    ) -> torch.Tensor:
+    """`lm_loss` of each client of a chunk: logits (C, B, S, Vpad), labels
+    and mask (C, B, S) → the per-client losses (C,), each the same
+    arithmetic over that client's tokens."""
+    nll = _token_nll(logits, labels, vocab)
+    dims = tuple(range(1, nll.dim()))
+    if mask is None:
+        return nll.mean(dims)
+    mask = torch.as_tensor(mask, device=nll.device, dtype=torch.float32)
+    return (nll * mask).sum(dims) / torch.clamp(mask.sum(dims), min=1.0)

@@ -20,6 +20,12 @@ projection ``(H → d)`` feeds the tied embedding's logits.
   reference's validated path;
 * ``"auto"`` (default) — ``"fused"`` for CUDA tensors, ``"seq"`` on the CPU.
 
+`loss_fn_clients` is the batched loss of a chunk of clients (the
+reference's ``loss_fn`` under the vmap of ``local_deltas``): every leaf of
+the parameters and of the batch carries a leading client axis, the
+products run per client (`utils.numerics.client_mm`), and each cell kernel
+launches once for the chunk, with a client axis.
+
 Products run in float32 over compute-dtype operands and are row-stable
 (`repro_torch.utils.numerics`). Weights: a parameter set that carries its
 compute copies (``params["compute"]``, made once for serving by
@@ -39,11 +45,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cifg_cell import (cifg_cell_ref, cifg_sequence,
                                            cifg_states, cifg_step)
 from repro_torch.models.api import Model
-from repro_torch.models.embed import embed_tokens, embedding_init, lm_logits
-from repro_torch.models.layers import dense_init, lm_loss
+from repro_torch.models.embed import (EmbedRows, embed_tokens,
+                                     embedding_init, lm_logits)
+from repro_torch.models.layers import dense_init, lm_loss, lm_loss_clients
 from repro_torch.sharding.kernel_map import is_dtensor, map_local
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.numerics import round_to, rowstable_mm, torch_dtype
+from repro_torch.utils.numerics import (client_mm, round_to, rowstable_mm,
+                                       torch_dtype)
 from repro_torch.utils.params import (COMPUTE, strip_compute,
                                       with_compute_copies)
 
@@ -132,12 +140,15 @@ def _states(cw, zx, cfg: ModelConfig, cd):
 
 def _recurrence(cw, zx, cfg: ModelConfig, cd, remat: bool):
     """zx (B, S, 3H) → (hs (S, B, H), (h_fin, c_fin)), differentiable, on
-    the resolved ``cell_path``."""
-    B, S = zx.shape[:2]
-    h = torch.zeros((B, cfg.d_ff), dtype=torch.float32, device=zx.device)
+    the resolved ``cell_path``; with a leading client axis (zx (C, B, S,
+    3H), ``cw["w_h"]`` (C, H, 3H)) every result has it too, and the cell
+    kernels launch once for the chunk."""
+    S = zx.shape[-2]
+    h = torch.zeros(tuple(zx.shape[:-2]) + (cfg.d_ff,), dtype=torch.float32,
+                    device=zx.device)
     c = torch.zeros_like(h)
     path = resolve_cell_path(cfg, zx.device)
-    zx = zx.transpose(0, 1)
+    zx = zx.transpose(-3, -2)
     if path in ("fused", "seq"):
         if is_dtensor(zx):   # the production step: every rank runs it whole
             def run(zx, h, c, w_h):
@@ -155,12 +166,13 @@ def _recurrence(cw, zx, cfg: ModelConfig, cd, remat: bool):
 
     hs = []
     for t in range(S):
+        zx_t = zx[..., t, :, :]
         if remat and torch.is_grad_enabled():
-            h, c = checkpoint(step, zx[t], h, c, use_reentrant=False)
+            h, c = checkpoint(step, zx_t, h, c, use_reentrant=False)
         else:
-            h, c = step(zx[t], h, c)
+            h, c = step(zx_t, h, c)
         hs.append(h)
-    return torch.stack(hs), (h, c)
+    return torch.stack(hs, dim=-3), (h, c)
 
 
 def _logits(cw, h, cd):
@@ -190,6 +202,34 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = False):
     inside the graph: any compute copies ``params`` carries are ignored."""
     logits = forward(strip_compute(params), batch, cfg, remat=remat)
     return lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
+
+
+def loss_fn_clients(params_c, batch_c, cfg: ModelConfig) -> torch.Tensor:
+    """The losses (C,) of a chunk of clients, each with its own parameters:
+    every leaf of ``params_c`` has a leading client axis C, every batch leaf
+    is (C, B, S). Client c's loss is `loss_fn`'s of its own parameters and
+    batch (the same steps: the row gather, the hoisted input product, the
+    recurrence, the projection, the tied logits, `lm_loss`), and the same
+    bits whatever C is and wherever the client sits: the products run per
+    client (`client_mm`), the reductions over each client's own rows, and
+    the recurrence is one launch of each cell kernel for the chunk."""
+    cd = torch_dtype(cfg.compute_dtype)
+    p = strip_compute(params_c)
+    emb = p["embed"]
+    tokens = torch.as_tensor(batch_c["tokens"],
+                             device=p["w_h"].device).long()
+    C, B, S = tokens.shape
+    x = EmbedRows.apply(emb["tok"], tokens).to(cd)            # (C, B, S, d)
+    zx = round_to(client_mm(x.reshape(C, B * S, -1),
+                            round_to(p["w_x"], cd)), cd)
+    zx = zx.reshape(C, B, S, -1) + p["b_gates"][:, None, None, :]
+    hs, _ = _recurrence(p, zx, cfg, cd, remat=False)           # (C, S, B, H)
+    h = hs.transpose(1, 2).reshape(C, B * S, -1)
+    y = round_to(client_mm(round_to(h, cd), round_to(p["w_proj"], cd)), cd)
+    head = round_to(emb.get("head", emb["tok"]), cd)
+    logits = client_mm(y, head.transpose(1, 2)).reshape(C, B, S, -1)
+    return lm_loss_clients(logits, batch_c["labels"], cfg.vocab,
+                           batch_c.get("mask"))
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
@@ -268,4 +308,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(loss_fn_clients, cfg=cfg),
     )

@@ -739,12 +739,13 @@ def test_engine_round_on_card_matches_cpu(cuda_device, sampling):
         draws = EngineDraws(torch.Generator().manual_seed(0))
         out[dev.type] = e.run(e.init_state(params, draws=draws), 2)
         if dev.type == "cuda":
-            # every slot of a chunk with a live slot computes (the round's
-            # slots are the first n_clients, so ceil(n / chunk) chunks)
+            # a chunk with a live slot computes as one batched program, one
+            # launch of each cell kernel per local batch (the round's slots
+            # are the first n_clients, so ceil(n / chunk) chunks)
             c = e.cohort_chunk
             chunks = sum(-(-int(n) // c) for n in out["cuda"][1]["n_clients"])
-            assert LAUNCHES["cifg_cell_bwd_seq"] == 2 * c * chunks
-            assert LAUNCHES["cifg_cell_fwd"] == 2 * c * chunks + 1  # + eval
+            assert LAUNCHES["cifg_cell_bwd_seq"] == 2 * chunks
+            assert LAUNCHES["cifg_cell_fwd"] == 2 * chunks + 1  # + eval
             assert clip_ops.LAUNCHES["dp_sumsq"] == chunks
     (sd, hd), (sc, hc) = out["cuda"], out["cpu"]
     np.testing.assert_array_equal(hd["n_clients"], hc["n_clients"])
@@ -1358,3 +1359,119 @@ def test_production_step_on_card_matches_the_cpu(cuda_device):
 def tree_leaves_np(tree):
     from repro_torch.utils.pytree import tree_leaves
     return [np.asarray(l, np.float64) for l in tree_leaves(tree)]
+
+
+# ------------------------------------------- the client axis (a chunk)
+
+
+def _client_inputs(C, S, B, H, dev, seed, bwd=False):
+    """Per-client inputs made client by client, so client c's are the same
+    whatever C is: the forward's (zx, h0, c0, w_h) or the sequence
+    backward's seven."""
+    def one(c):
+        rng = np.random.default_rng(seed * 1000 + c)
+        if bwd:
+            shapes = ((S, B, 3 * H, 1.0), (S, B, H, 0.3), (B, H, 0.3),
+                      (S, B, H, 0.1), (B, H, 0.1), (B, H, 0.1),
+                      (H, 3 * H, H ** -0.5))
+        else:
+            shapes = ((S, B, 3 * H, 1.0), (B, H, 0.3), (B, H, 0.3),
+                      (H, 3 * H, H ** -0.5))
+        return [rng.standard_normal(s[:-1]) * s[-1] for s in shapes]
+    per = [one(c) for c in range(C)]
+    return [torch.from_numpy(np.stack(a).astype(np.float32)).to(dev)
+            for a in zip(*per)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [256, 264])
+@pytest.mark.parametrize("C", [1, 16, 19])
+def test_client_axis_forward_is_bitwise_one_client_launches(cuda_device, C,
+                                                            H, dtype):
+    """cell_seq_fwd with a client axis at the training shape (S 16, B 10),
+    both routes: one launch for the chunk, each client bitwise its own
+    one-client launch and within TOL of the plain version; with one w_h
+    for every client (stride 0) bitwise the same launches on it."""
+    zx, h0, c0, w = _client_inputs(C, 16, 10, H, cuda_device, seed=H)
+    w = w.to(getattr(torch, dtype))
+    before = LAUNCHES["cifg_cell_fwd"]
+    hs, cs = cell_seq_fwd(zx, h0, c0, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_fwd"] == before + 1
+    assert hs.shape == (C, 16, 10, H)
+    for c in range(C):
+        h1, c1 = cell_seq_fwd(zx[c], h0[c], c0[c], w[c])
+        assert torch.equal(hs[c], h1) and torch.equal(cs[c], c1), c
+    hr, cr = cifg_states(zx, h0, c0, w, cell="seq")
+    _close(hs, hr, dtype, "hs")
+    _close(cs, cr, dtype, "cs")
+    hs0, cs0 = cell_seq_fwd(zx, h0, c0, w[0])
+    for c in range(C):
+        h1, c1 = cell_seq_fwd(zx[c], h0[c], c0[c], w[0])
+        assert torch.equal(hs0[c], h1) and torch.equal(cs0[c], c1), c
+
+
+@pytest.mark.parametrize("H", [256, 264, 520])
+@pytest.mark.parametrize("C", [1, 16, 19])
+def test_client_axis_backward_is_bitwise_one_client_launches(cuda_device, C,
+                                                             H):
+    """cell_bwd_seq with a client axis at the training shape, every route:
+    one launch, each client bitwise its one-client launch, within the
+    float32 tolerance of the plain loop."""
+    from repro_torch.kernels.cifg_cell import cell_bwd_seq, cell_bwd_seq_ref
+
+    args = _client_inputs(C, 16, 10, H, cuda_device, seed=H + 1, bwd=True)
+    before = LAUNCHES["cifg_cell_bwd_seq"]
+    got = cell_bwd_seq(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cifg_cell_bwd_seq"] == before + 1
+    for c in range(C):
+        one = cell_bwd_seq(*[a[c] for a in args])
+        assert all(torch.equal(a[c], b) for a, b in zip(got, one)), c
+    for what, a, b in zip(("dz", "dh0", "dc0"), got,
+                          cell_bwd_seq_ref(*args)):
+        _close(a, b, "float32", what)
+
+
+def _chunk_batches(C, nb, B, S, vocab, seed):
+    """C clients' (n_batches, B, S) batches, client c's from its own seed."""
+    out = []
+    for c in range(C):
+        rng = np.random.default_rng(seed * 1000 + c)
+        ex = rng.integers(4, vocab, size=(nb, B, S + 1))
+        mask = (rng.random((nb, B, S)) > 0.1).astype(np.float32)
+        out.append((ex[..., :-1], ex[..., 1:], mask))
+    return [np.stack(a) for a in zip(*out)]
+
+
+def test_chunk_program_is_client_invariant_at_full_width(cuda_device):
+    """The paper's CIFG-LSTM at full width (vocab 10,000, d 96, H 256,
+    bf16): local_deltas of a chunk of C clients, C in {1, 2, 4, 8, 16, 19},
+    gives every client the Δ and loss of its C = 1 program bit for bit, and
+    launches each cell kernel once per local batch for the whole chunk."""
+    from repro_torch.configs import ClientConfig
+    from repro_torch.fl.client import local_delta, local_deltas
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    model = build(get_config("gboard-cifg-lstm"))
+    params = model.init(torch.Generator().manual_seed(3), device=cuda_device)
+    nb, B, S = 2, 10, 16
+    toks, labels, mask = _chunk_batches(19, nb, B, S, 10_000, seed=5)
+    allb = {"tokens": torch.from_numpy(toks).to(cuda_device),
+            "labels": torch.from_numpy(labels).to(cuda_device),
+            "mask": torch.from_numpy(mask).to(cuda_device)}
+    cl = ClientConfig(local_epochs=1, batch_size=B, lr=0.3)
+    ones = [local_delta(model, params, tree_map(lambda l: l[c], allb), cl)
+            for c in range(19)]
+    for C in (1, 2, 4, 8, 16, 19):
+        f0, b0 = LAUNCHES["cifg_cell_fwd"], LAUNCHES["cifg_cell_bwd_seq"]
+        deltas, losses = local_deltas(
+            model, params, tree_map(lambda l: l[:C], allb), cl)
+        torch.cuda.synchronize()
+        assert LAUNCHES["cifg_cell_fwd"] - f0 == nb
+        assert LAUNCHES["cifg_cell_bwd_seq"] - b0 == nb
+        for c in range(C):
+            d1, l1 = ones[c]
+            assert torch.equal(losses[c], l1), (C, c)
+            for a, b in zip(tree_leaves(deltas[c]), tree_leaves(d1)):
+                assert torch.equal(a, b), (C, c)
