@@ -16,7 +16,8 @@ line each (any failure exits non-zero and prints no result):
    16 and 19 clients, each client bitwise its one-client launch, with the
    clusters the card holds at once; ``dp_sumsq``, one leaf and a chunk of
    clients;
-   ``dp_clip_accumulate``, ``flash_attention_fwd``, ``ssd_scan``), at the
+   ``dp_clip_accumulate``, ``flash_attention_fwd``, ``ssd_scan``, also
+   with one A per batch row at a chunk of mamba2-370m clients), at the
    shapes its path gives it and around them, then timed against its bound,
    the plain version and one PyTorch call where there is one;
 4. serve — the paper's CIFG-LSTM at its published widths (vocab 10000,
@@ -105,9 +106,15 @@ line each (any failure exits non-zero and prints no result):
    against CPU (loss, Δ, norm, clip flag), with exactly 2 flash launches
    per attention and 2 SSD launches per mixer (the forward and the remat
    recomputation; the backward is the plain version's gradient); a bf16
-   DP-FedAvg round of 4 clients on the card with its noise std; one
-   ``user_update`` of granite-3-2b at full depth (peak memory, step
-   time); the training CLI on granite-3-2b and zamba2-2.7b reduced;
+   DP-FedAvg round of 4 clients trained as one chunk (``local_deltas``,
+   2 flash launches per attention and 2 SSD launches per mixer for the
+   whole round), clipped and summed as the round does, with its noise
+   std, every client's Δ and loss bitwise at C 1 and at C 2 in the other
+   position; mamba2-370m and whisper-small uncut, a chunk of 4 against the
+   one-client loop (f32 within ``TOL_TRAIN``, then bf16 timed in turns);
+   one ``user_update`` of granite-3-2b at full depth (peak memory, step
+   time); the training CLI on granite-3-2b and zamba2-2.7b reduced, 32
+   clients a round in chunks of 4, launches exact per chunk;
 14. shards — the cohort sharded over ranks on one card: the paper's model
    at full width, cohort 128, z 0.3, S 0.8, 3 rounds, through
    ``SimEngine(num_shards=S, num_pods=P)`` on ranks that share the card
@@ -205,6 +212,11 @@ TOL_HYBRID_CONSISTENT = {"float32": 1e-4, "bfloat16": 1e-1}
 TOL_HYBRID_CPU = 1e-4
 
 
+# the card's name and power limit as nvidia-smi gives them (`phase_card`),
+# named beside the times that a phase prints
+CARD = "card not read"
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -297,6 +309,8 @@ def phase_card() -> str:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     line = out.stdout.strip().splitlines()[0]
     say(f"card: {line}")
+    global CARD
+    CARD = line
     return line
 
 
@@ -2131,6 +2145,8 @@ SSD_CASES = ((4, 512, 80, 64, 64), (1, 512, 32, 64, 128),
              (1, 256, 4, 256, 256), (2, 200, 3, 160, 160))
 # the wide route's timed shape
 SSD_WIDE_TIMED = (2, 512, 16, 256, 256)
+# one A per batch row: phase 13's chunk of 4 mamba2-370m clients of B 2
+SSD_PER_ROW = (8, 128, 32, 64, 128)
 
 
 def _ssd_inputs(B, S, H, p, N, gen, dev):
@@ -2173,10 +2189,13 @@ def phase_kernel_ssd(dev) -> dict:
     gives them; those inputs cast to f32 first, as a wrapper without the
     bf16 kernels would; and f32), at mamba2-370m's (H 32, p 64, N 128) and
     on the wide route (p = N = 256) against the bound and the plain version
-    (no single PyTorch call computes the scan)."""
+    (no single PyTorch call computes the scan); one A per batch row at a
+    chunk of mamba2-370m clients (`SSD_PER_ROW`) against the plain version,
+    each row bitwise its own call, timed beside the shared-A call."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     gen = torch.Generator().manual_seed(6160)
@@ -2254,6 +2273,53 @@ def phase_kernel_ssd(dev) -> dict:
         if row is None:
             row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by}
+    # one A per batch row (a_stride H): a chunk of 4 mamba2-370m clients of
+    # B 2 folded into the batch, against the plain chunked form with the
+    # same (B, H) A and bitwise each row's call with its own (H,) A; the
+    # stride-0 view of one row bitwise the shared (H,) call
+    B, S, H, p, N = SSD_PER_ROW
+    x, dt, Bm, Cm, _ = _ssd_inputs(B, S, H, p, N, gen, dev)
+    A = -torch.exp(torch.randn((B, H), generator=gen)).to(dev)
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    _reset(ssd_ops.LAUNCHES)
+    y, st = ssd_scan(xb, dt, Bb, Cb, A)
+    torch.cuda.synchronize()
+    launches = ssd_ops.LAUNCHES["ssd_scan"]
+    yr, sr = ssd_chunked(xb, dt, Bb, Cb, A, torch.zeros_like(st))
+    errs = [_rel(y, yr), _rel(st, sr)]
+    worst = max(worst, float((y - yr).abs().max()),
+                float((st - sr).abs().max()))
+    if launches != 1 or max(errs) > TOL_SSD:
+        fail(f"ssd_scan with one A per row: {launches} launches, err / max "
+             f"|plain| y {errs[0]:.2e} state {errs[1]:.2e} (tol {TOL_SSD:g})")
+    for b in range(B):
+        y1, s1 = ssd_scan(xb[b:b + 1], dt[b:b + 1], Bb[b:b + 1],
+                          Cb[b:b + 1], A[b])
+        if not (torch.equal(y1[0], y[b]) and torch.equal(s1[0], st[b])):
+            fail(f"ssd_scan with one A per row: row {b} differs from its "
+                 f"own call with that row's A")
+    ys, ss = ssd_scan(xb, dt, Bb, Cb, A[0])
+    ye, se = ssd_scan(xb, dt, Bb, Cb, A[0].expand(B, H))
+    if not (torch.equal(ys, ye) and torch.equal(ss, se)):
+        fail("ssd_scan: a stride-0 (B, H) A differs from the shared (H,) "
+             "call")
+    row_ms = graph_time_ms(lambda: ssd_scan(xb, dt, Bb, Cb, A), per_graph=20)
+    shared_ms = graph_time_ms(lambda: ssd_scan(xb, dt, Bb, Cb, A[0]),
+                              per_graph=20)
+    h0 = torch.zeros((B, H, p, N), device=dev)
+    row_plain_ms = graph_time_ms(
+        lambda: ssd_chunked(xb, dt, Bb, Cb, A, h0), per_graph=5)
+    nbytes = (2 * (x.numel() + Bm.numel() + Cm.numel())
+              + 4 * (dt.numel() + A.numel() + x.numel() + B * H * p * N))
+    row_bound, row_by = _bound(nbytes, _ssd_ops(B, S, H, p, N))
+    say(f"kernel: ssd_scan with one A per batch row (a chunk of 4 "
+        f"mamba2-370m clients x B 2) B={B} S={S} H={H} p={p} N={N}, bf16 "
+        f"inputs: err / max |plain| y {errs[0]:.2e} state {errs[1]:.2e} "
+        f"(tol {TOL_SSD:g}), {launches} launch, each row bitwise its own "
+        f"call, a stride-0 A bitwise the shared call; device time "
+        f"{row_ms * 1e3:.2f} us/call, the same call with one shared A "
+        f"{shared_ms * 1e3:.2f} us, plain {row_plain_ms * 1e3:.2f} us; bound "
+        f"{row_bound * 1e3:.3f} us ({row_by}) ({CARD})")
     # training: the kernel forward with the plain chunked form's gradient
     # recomputed, at zamba2-2.7b's training shape in phase 13 (B 2, S 128)
     x, dt, Bm, Cm, A = _ssd_inputs(2, 128, 80, 64, 64, gen, dev)
@@ -2486,7 +2552,8 @@ class RouteLog:
         def spy(x, p, cfg, capacity=None):
             combine, aux = self._route(x, p, cfg, capacity)
             k = cfg.top_k
-            probs = torch.softmax(x.float() @ p["router"]["w"].float(), -1)
+            probs = torch.softmax(moe.L.matmul(x.float(),
+                                               p["router"]["w"].float()), -1)
             srt, idx = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
             gap = (srt[..., k - 1] - srt[..., k]) / srt[..., k - 1]
@@ -3350,7 +3417,6 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
     from repro_torch.configs import ClientConfig, DPConfig, get_config
     from repro_torch.data.corpus import BigramCorpus
     from repro_torch.data.federated import FederatedDataset
-    from repro_torch.fl.engine import EngineDraws, SimEngine
     from repro_torch.fl.faults import (FaultConfig, fault_fates,
                                        fault_generator)
     from repro_torch.fl.population import PopulationSim
@@ -3525,7 +3591,74 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
         f"steps; {time.perf_counter() - t0:.1f} s")
     del strict
 
-    # ------------------------- a fault-on round, card against the CPU
+    # ------------------------------- the CLI: crash, resume, sha256
+    # (its first two runs in subprocesses while a fault-on round runs on
+    # the card and on the CPU in this process; stopped however it ends)
+    t0 = time.perf_counter()
+    cli = ["--vocab", str(vocab), "--rounds", "3", "--n-users", "300",
+           "--clients-per-round", "40", "--rounds-per-call", "2",
+           "--device", str(dev),
+           "--fault-dropout", "0.1", "--fault-straggler", "0.2",
+           "--fault-corrupt", "0.05", "--fault-seed", "7"]
+    code = ("import sys; sys.modules['msgpack'] = None; "
+            "from repro_torch.launch.train import main; main(sys.argv[1:])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(args, out_dir):
+        return subprocess.Popen([sys.executable, "-c", code, *cli, *args,
+                                 "--out", str(out_dir)], env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full_dir, cut_dir = Path(tmp) / "full", Path(tmp) / "cut"
+        procs = [run([], full_dir),
+                 run(["--checkpoint-every", "1", "--crash-after", "2"],
+                     cut_dir)]
+        try:
+            _fault_round_vs_cpu(dev, model, ds, params0, cl, n_batches,
+                                cohort, fc)
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs) or \
+                "simulated crash after round 2" not in logs[1]:
+            fail("faults: the training CLI failed:\n" + "\n".join(
+                l[-2000:] for l in logs))
+        resume = run(["--checkpoint-every", "1", "--resume"], cut_dir)
+        log = resume.communicate(timeout=300)[0]
+        if resume.returncode or "resumed from" not in log:
+            fail(f"faults: the resumed CLI run failed:\n{log[-2000:]}")
+        name = "gboard-cifg-lstm_r3.msgpack"
+        digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
+    if digests[0] != digests[1]:
+        fail(f"faults: CLI checkpoints differ: uninterrupted {digests[0]}, "
+             f"crashed then resumed {digests[1]}")
+    say(f"faults: the training CLI at vocab {vocab} (300 users, 40 a round, "
+        f"faults on), 3 rounds uninterrupted and crashed after round 2 then "
+        f"resumed, in subprocesses with msgpack made unimportable: final "
+        f"checkpoints sha256 {digests[0][:16]}... equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"faults: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rounds_per_s": rounds / train_s,
+            "committed": committed, "busy": busy}
+
+
+def _fault_round_vs_cpu(dev, model, ds, params0, cl, n_batches, cohort,
+                        fc) -> None:
+    """Phase 9's fault-on round (z 0), card (kernels) against the CPU
+    (plain), on one stream of draws: counts and verdict equal, the change
+    within `TOL_ROUND`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import DPConfig
+    from repro_torch.fl.engine import EngineDraws, SimEngine
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
     t0 = time.perf_counter()
     dp0 = DPConfig(clients_per_round=cohort, noise_multiplier=0.0,
                    clip_norm=0.8, server_opt="momentum", server_lr=0.5,
@@ -3569,53 +3702,8 @@ def phase_faults(dev, n_users: int = 1000, cohort: int = 128,
         f"accepted); parameter change rel L2 {rel:.2e}, norm "
         f"{errs['norm']:.2e}, loss {errs['loss']:.2e}, clipped fraction {errs['frac']:.3f} "
         f"(TOL_ROUND {TOL_ROUND}); {time.perf_counter() - t0:.1f} s, the "
-        f"card's round {side_s[0]:.1f} s, the CPU's {side_s[1]:.1f} s")
-    del out, pc, pp
-
-    # ------------------------------- the CLI: crash, resume, sha256
-    t0 = time.perf_counter()
-    cli = ["--vocab", str(vocab), "--rounds", "3", "--n-users", "300",
-           "--clients-per-round", "40", "--rounds-per-call", "2",
-           "--device", str(dev),
-           "--fault-dropout", "0.1", "--fault-straggler", "0.2",
-           "--fault-corrupt", "0.05", "--fault-seed", "7"]
-    code = ("import sys; sys.modules['msgpack'] = None; "
-            "from repro_torch.launch.train import main; main(sys.argv[1:])")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-
-    def run(args, out_dir):
-        return subprocess.Popen([sys.executable, "-c", code, *cli, *args,
-                                 "--out", str(out_dir)], env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        full_dir, cut_dir = Path(tmp) / "full", Path(tmp) / "cut"
-        procs = [run([], full_dir),
-                 run(["--checkpoint-every", "1", "--crash-after", "2"],
-                     cut_dir)]
-        logs = [p.communicate(timeout=300)[0] for p in procs]
-        if any(p.returncode for p in procs) or \
-                "simulated crash after round 2" not in logs[1]:
-            fail("faults: the training CLI failed:\n" + "\n".join(
-                l[-2000:] for l in logs))
-        resume = run(["--checkpoint-every", "1", "--resume"], cut_dir)
-        log = resume.communicate(timeout=300)[0]
-        if resume.returncode or "resumed from" not in log:
-            fail(f"faults: the resumed CLI run failed:\n{log[-2000:]}")
-        name = "gboard-cifg-lstm_r3.msgpack"
-        digests = [_sha256(d / name) for d in (full_dir, cut_dir)]
-    if digests[0] != digests[1]:
-        fail(f"faults: CLI checkpoints differ: uninterrupted {digests[0]}, "
-             f"crashed then resumed {digests[1]}")
-    say(f"faults: the training CLI at vocab {vocab} (300 users, 40 a round, "
-        f"faults on), 3 rounds uninterrupted and crashed after round 2 then "
-        f"resumed, in subprocesses with msgpack made unimportable: final "
-        f"checkpoints sha256 {digests[0][:16]}... equal; "
-        f"{time.perf_counter() - t0:.1f} s")
-    say(f"faults: phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "rounds_per_s": rounds / train_s,
-            "committed": committed, "busy": busy}
+        f"card's round {side_s[0]:.1f} s, the CPU's {side_s[1]:.1f} s (the "
+        f"CLI's runs beside it)")
 
 
 def _rss_mb() -> float:
@@ -3993,6 +4081,16 @@ TRAIN_FAMILIES = (("granite-3-2b", 2, 64, 0), ("olmoe-1b-7b", 2, 64, 0),
                   ("whisper-small", None, 64, 0),
                   ("chameleon-34b", 1, 64, 32))
 WHISPER_PARAMS = 238_279_680
+# phase 13 keeps a bf16 round's four deltas on the card for its bitwise
+# check up to this size, else in pinned host memory
+KEEP_ON_CARD_BYTES = 20 * 2 ** 30
+# the training CLI's chunks in phase 13: 32 clients a round pad to 8
+# canonical blocks of 4, each one chunk of 4 (the largest divisor <= 32);
+# the CLI draws 3 local batches a client
+CLI_CHUNK, CLI_BATCHES = 4, 3
+# (arch, S) trained uncut in phase 13, a chunk of 4 clients at B 2 against
+# the one-client loop
+UNCUT_FAMILIES = (("mamba2-370m", 128), ("whisper-small", 64))
 
 
 def _attn_sites(cfg) -> int:
@@ -4258,20 +4356,110 @@ def _tree_std(a, b) -> float:
     return ((s2 - s1 * s1 / n) / (n - 1)) ** 0.5
 
 
+def _uncut_chunks(dev, client) -> dict:
+    """`UNCUT_FAMILIES` at full width and depth: one ``local_deltas`` of a
+    chunk of 4 clients (B 2, one local batch) in f32 against the same four
+    through the one-client loop (``client_loss_fn=None``), within
+    `TOL_TRAIN`; then both ways in bf16, in turns: eager time, device time,
+    peak memory and launches. Returns the launches of the first bf16
+    chunk."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.client import local_deltas
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build
+    from repro_torch.utils.params import strip_compute
+    from repro_torch.utils.pytree import tree_size
+
+    counted = {"flash_attention_fwd": 0, "ssd_scan": 0}
+    for name, S in UNCUT_FAMILIES:
+        t_fam = time.perf_counter()
+        cfg = get_config(name).with_(compute_dtype="float32")
+        sites, mixers = _attn_sites(cfg), _mixers(cfg)
+        per = [_family_batches(cfg, 2, S, 0, seed=200 + u) for u in range(4)]
+        chunk = {k: torch.stack([b[k] for b in per]).to(dev) for k in per[0]}
+        model = build(cfg)
+        params = strip_compute(model.init(
+            torch.Generator(device=dev).manual_seed(3), device=dev))
+        n_params = tree_size(params)
+        dc, lc = local_deltas(model, params, chunk, client)
+        dl, ll = local_deltas(model._replace(client_loss_fn=None), params,
+                              chunk, client)
+        errs = {"loss": max(abs(float(a) - float(b)) / abs(float(b))
+                            for a, b in zip(lc, ll)),
+                "delta": max(_tree_rel_diff(a, b) for a, b in zip(dc, dl))}
+        if not all(errs[k] <= TOL_TRAIN[k] for k in errs):
+            fail(f"{name} uncut: the chunk of 4 against the one-client "
+                 f"loop {errs} (tol {TOL_TRAIN})")
+        del dc, dl, params
+        torch.cuda.empty_cache()
+        model = build(cfg.with_(compute_dtype="bfloat16"))
+        loop = model._replace(client_loss_fn=None)
+        params = strip_compute(model.init(
+            torch.Generator(device=dev).manual_seed(3), device=dev))
+        times = {"chunk": [], "loop": []}
+        info = {}
+        for turn in range(2):
+            for way, m in (("chunk", model), ("loop", loop)):
+                _reset(fa_ops.LAUNCHES, ssd_ops.LAUNCHES)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = local_deltas(m, params, chunk, client)
+                torch.cuda.synchronize()
+                times[way].append((time.perf_counter() - t0) * 1e3)
+                del out
+                info[way] = (torch.cuda.max_memory_allocated() / 2 ** 20,
+                             fa_ops.LAUNCHES["flash_attention_fwd"],
+                             ssd_ops.LAUNCHES["ssd_scan"])
+                if turn == 0 and way == "chunk":
+                    counted["flash_attention_fwd"] += info[way][1]
+                    counted["ssd_scan"] += info[way][2]
+        want = {"chunk": (2 * sites, 2 * mixers),
+                "loop": (8 * sites, 8 * mixers)}
+        for way, (fa, ssd) in want.items():
+            if info[way][1:] != (fa, ssd):
+                fail(f"{name} uncut bf16 {way}: launches flash and ssd_scan "
+                     f"{info[way][1:]}, expected {(fa, ssd)}")
+        dev_ms = {way: profiled_device_ms(
+            lambda m=m: local_deltas(m, params, chunk, client), 1,
+            warmup=False, top=0, cpu=False)[0]
+            for way, m in (("chunk", model), ("loop", loop))}
+        say(f"train-family: {name} uncut ({cfg.n_layers} layers, "
+            f"{n_params} parameters), 4 clients at B=2 S={S}, one local "
+            f"batch: f32 chunk against the one-client loop: loss "
+            f"{errs['loss']:.2e}, |dDelta|/|Delta| {errs['delta']:.2e} (tol "
+            f"{TOL_TRAIN}); bf16 on {CARD}, in turns: "
+            + "; ".join(f"{way} eager {' / '.join(f'{t:.1f}' for t in ts)} "
+                        f"ms, device {_fmt_ms(dev_ms[way])}, peak "
+                        f"{info[way][0]:.0f} MiB, launches flash "
+                        f"{info[way][1]}, ssd_scan {info[way][2]}"
+                        for way, ts in times.items())
+            + f"; {time.perf_counter() - t_fam:.1f} s in all")
+        del params, chunk
+        torch.cuda.empty_cache()
+    return counted
+
+
 def phase_families(dev) -> dict:
     """Every family trains on the card at full width (C1): per family one
-    ``user_update`` in f32, card against CPU, on the same weights and
-    batch (B 2, S 128 for the SSM and hybrid families and 64 for the
-    others; depth cut as `TRAIN_FAMILIES` says), with the flash and SSD
-    launches of the client step exact under remat; the MoE's top-k sets
-    compared first, its bf16 combine roundings replayed on the CPU within
-    `COMBINE_NEAR`, a bound that must catch two planted flash faults
-    (`PlantedFlash`); then one DP-FedAvg round of 4 clients on the card in
-    bf16 with its noise std; then granite-3-2b at full depth, one
-    ``user_update`` (peak memory, step time); then the training CLI on
-    granite-3-2b and zamba2-2.7b reduced, 2 rounds each, in process.
-    Returns the launches of the main path (the bf16 rounds, the memory
-    probe and the CLI runs)."""
+    ``user_update`` in f32 (the batched chunk program at a width of 1),
+    card against CPU, on the same weights and batch (B 2, S 128 for the
+    SSM and hybrid families and 64 for the others; depth cut as
+    `TRAIN_FAMILIES` says), with the flash and SSD launches of the client
+    step exact under remat; the MoE's top-k sets compared first, its bf16
+    combine roundings replayed on the CPU within `COMBINE_NEAR`, a bound
+    that must catch two planted flash faults (`PlantedFlash`); then one
+    DP-FedAvg round of 4 clients on the card in bf16, the 4 trained as one
+    chunk, with its launches, its noise std and every client bitwise
+    across chunk widths; then `UNCUT_FAMILIES` (`_uncut_chunks`); then
+    granite-3-2b at full depth, one ``user_update`` (peak memory, step
+    time); then the training CLI on granite-3-2b and zamba2-2.7b reduced,
+    2 rounds each, in process. Returns the launches of the main path (the
+    bf16 rounds, the uncut chunks, the full-depth step and the CLI
+    runs)."""
     import tempfile
 
     import numpy as np
@@ -4280,14 +4468,16 @@ def phase_families(dev) -> dict:
     from repro_torch.configs import ClientConfig, DPConfig, get_config
     from repro_torch.core.dp_fedavg import finalize_round, server_step
     from repro_torch.core.server_optim import init_state
-    from repro_torch.fl.client import user_update
+    from repro_torch.fl.client import (chunk_accumulate, local_deltas,
+                                       user_update)
     from repro_torch.kernels.dp_clip import ops as clip_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import build
     from repro_torch.utils.params import strip_compute
-    from repro_torch.utils.pytree import tree_leaves, tree_map, tree_size
+    from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_size,
+                                          tree_zeros_like)
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4412,53 +4602,96 @@ def phase_families(dev) -> dict:
             f"{card_s:.2f} s, peak {peak_mb:.0f} MiB; CPU {cpu_s:.1f} s"
             f"{note}")
 
-        # one DP-FedAvg round on the card, bf16, 4 clients
+        # one DP-FedAvg round on the card, bf16: 4 clients as one chunk
         cfg16 = cfg.with_(compute_dtype="bfloat16")
         model = build(cfg16)
         params = strip_compute(model.init(
             torch.Generator(device=dev).manual_seed(1), device=dev))
-        opt = init_state(params)
+        per = [_family_batches(cfg16, 2, S, n_img, seed=100 + u)
+               for u in range(4)]
+        chunk = {k: torch.stack([b[k] for b in per]).to(dev) for k in per[0]}
         _reset(*counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        total, losses = None, []
-        for u in range(4):
-            bu = _family_batches(cfg16, 2, S, n_img, seed=100 + u)
-            delta, _, _, loss = user_update(
-                model, params, {k: v.to(dev) for k, v in bu.items()}, client,
-                dp)
-            total = delta if total is None else tree_map(torch.add, total,
-                                                         delta)
-            losses.append(float(loss))
+        deltas, losses = local_deltas(model, params, chunk, client)
+        total, _ = chunk_accumulate(
+            (tree_zeros_like(params, torch.float32),
+             torch.zeros((4,), device=dev)), deltas, losses,
+            torch.ones((4,), device=dev), dp.clip_norm)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        # the chunk's deltas wait for the bitwise check below on the card,
+        # or in pinned host memory where four of them would crowd the runs
+        # that follow (chameleon-34b's four are 28 GB)
+        if 16 * tree_size(params) > KEEP_ON_CARD_BYTES:
+            def keep(t):
+                return torch.empty(t.shape, dtype=t.dtype,
+                                   pin_memory=True).copy_(t)
+        else:
+            def keep(t):
+                return t
+        four = [([keep(t) for t in tree_leaves(d)], keep(losses[u]))
+                for u, d in enumerate(deltas)]
+        del deltas
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         mean = tree_map(lambda l: l / 4, total)
         noised, stats = finalize_round(
             total, 4, torch.Generator(device=dev).manual_seed(99), dp)
-        params, opt = server_step(params, opt, noised, dp)
+        new_params, opt = server_step(params, init_state(params), noised,
+                                      dp)
         torch.cuda.synchronize()
-        round_s = time.perf_counter() - t0
-        got = (fa_ops.LAUNCHES["flash_attention_fwd"],
-               ssd_ops.LAUNCHES["ssd_scan"])
-        if got != (8 * sites, 8 * mixers):
-            fail(f"{name}: the bf16 round launched flash {got[0]} and the "
-                 f"SSD scan {got[1]} times, expected {8 * sites} and "
-                 f"{8 * mixers}")
-        main_path["flash_attention_fwd"] += got[0]
-        main_path["ssd_scan"] += got[1]
+        round_s += time.perf_counter() - t0
+        got = {**fa_ops.LAUNCHES, **ssd_ops.LAUNCHES, **clip_ops.LAUNCHES}
+        if (got["flash_attention_fwd"], got["ssd_scan"]) != (2 * sites,
+                                                             2 * mixers):
+            fail(f"{name}: the bf16 round's chunk of 4 launched flash "
+                 f"{got['flash_attention_fwd']} and the SSD scan "
+                 f"{got['ssd_scan']} times, expected {2 * sites} and "
+                 f"{2 * mixers}")
+        for k in main_path:
+            main_path[k] += got[k]
         sigma = dp.noise_multiplier * dp.clip_norm / 4
         std = _tree_std(noised, mean)
         if abs(std / sigma - 1) > 0.02:
             fail(f"{name}: noise std {std:.4e}, expected {sigma:.4e} within "
                  f"2%")
-        if not (all(np.isfinite(losses)) and all(
-                bool(torch.isfinite(t).all()) for t in tree_leaves(params))):
+        if not (bool(torch.isfinite(losses).all()) and all(
+                bool(torch.isfinite(t).all())
+                for t in tree_leaves(new_params))):
             fail(f"{name}: the bf16 round gave non-finite values")
+        del new_params, opt, total, mean, noised
+        torch.cuda.empty_cache()
+        # every client's Δ and loss bitwise its own at C 1 and at C 2 with
+        # the client at the other position
+        t0 = time.perf_counter()
+        for order in ((0,), (1,), (2,), (3,), (1, 0), (3, 2)):
+            ds, ls = local_deltas(model, params, tree_map(
+                lambda l: l[list(order)], chunk), client)
+            for j, u in enumerate(order):
+                if not (torch.equal(ls[j], four[u][1].to(dev)) and all(
+                        torch.equal(a, b.to(dev, non_blocking=True))
+                        for a, b in zip(tree_leaves(ds[j]), four[u][0]))):
+                    fail(f"{name}: client {u}'s bf16 delta or loss in a "
+                         f"chunk {order} differs from its bits in the "
+                         f"chunk of 4")
+            del ds, ls
         say(f"train-family: {name} bf16 DP-FedAvg round on the card, 4 "
-            f"clients: losses {[round(x, 3) for x in losses]}, noise std "
-            f"{std:.4e} against zS/qN {sigma:.4e}; launches flash {got[0]}, "
-            f"ssd_scan {got[1]}; {round_s:.2f} s")
-        del params, opt, total, mean, noised, delta
+            f"clients as one chunk: losses "
+            f"{[round(float(x), 3) for x in losses]}, noise std "
+            f"{std:.4e} against zS/qN {sigma:.4e}; launches flash "
+            f"{got['flash_attention_fwd']} (2 x {sites} sites), ssd_scan "
+            f"{got['ssd_scan']} (2 x {mixers} mixers), dp_sumsq "
+            f"{got['dp_sumsq']}, dp_clip_accumulate "
+            f"{got['dp_clip_accumulate']}; {round_s:.2f} s ({CARD}); every "
+            f"client's delta and loss bitwise at C 1 and at C 2 in the "
+            f"other position (checked in {time.perf_counter() - t0:.1f} s)")
+        del params, four, chunk
         torch.cuda.empty_cache()
         rows.append(name)
+
+    for k, v in _uncut_chunks(dev, client).items():
+        main_path[k] += v
 
     # granite-3-2b at full depth: one user_update on the card
     cfg = get_config("granite-3-2b")
@@ -4495,28 +4728,40 @@ def phase_families(dev) -> dict:
     del params, b
     torch.cuda.empty_cache()
 
-    # the training CLI, reduced, 2 rounds each, on the card
+    # the training CLI, reduced, 2 rounds of 32 clients each, on the card:
+    # canonical blocks of 4, each trained as one chunk of 4 clients
     for arch in ("granite-3-2b", "zamba2-2.7b"):
         _reset(*counters)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             ck = train_main(["--arch", arch, "--reduced", "--rounds", "2",
-                             "--n-users", "60", "--clients-per-round", "8",
+                             "--n-users", "200", "--clients-per-round", "32",
                              "--out", tmp, "--device", str(dev)])
             size = Path(ck).stat().st_size
+            hist = json.loads((Path(tmp) / f"{arch}_r2_history.json")
+                              .read_text())
         cli_s = time.perf_counter() - t0
         got = {**fa_ops.LAUNCHES, **ssd_ops.LAUNCHES, **clip_ops.LAUNCHES}
-        if size < 1000 or not got["flash_attention_fwd"] or not got[
-                "dp_sumsq"]:
+        rcfg = get_config(arch).reduced()
+        chunks = sum(-(-int(h["n_clients"]) // CLI_CHUNK) for h in hist)
+        want = {"flash_attention_fwd": 2 * _attn_sites(rcfg) * CLI_BATCHES
+                * chunks,
+                "ssd_scan": 2 * _mixers(rcfg) * CLI_BATCHES * chunks,
+                "dp_sumsq": chunks}
+        if size < 1000 or any(got[k] != v for k, v in want.items()):
             fail(f"training CLI --arch {arch} --reduced: a {size}-byte "
-                 f"checkpoint, launches {got}")
+                 f"checkpoint, launches {got}, expected {want} ({chunks} "
+                 f"chunks of {CLI_CHUNK} clients, {CLI_BATCHES} local "
+                 f"batches each)")
         for k in main_path:
             main_path[k] += got[k]
-        say(f"train-family: CLI --arch {arch} --reduced, 2 rounds of 8 "
+        say(f"train-family: CLI --arch {arch} --reduced, 2 rounds of 32 "
             f"clients on the card in {cli_s:.1f} s: a {size}-byte "
-            f"checkpoint; launches {got}")
+            f"checkpoint; {chunks} chunks of {CLI_CHUNK} clients; launches "
+            f"{got}, exact per chunk and local batch")
     say(f"train-family: launches on the main path (the bf16 rounds, the "
-        f"full-depth step, the CLI runs): {main_path}; phase took "
+        f"uncut chunks, the full-depth step, the CLI runs): {main_path}; "
+        f"phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return main_path
 

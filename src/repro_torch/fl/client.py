@@ -17,22 +17,23 @@ O(cohort_chunk · |params|), and the sum is bit-identical for every
 ``cohort_chunk`` dividing the block size. ``cohort_chunk=0`` selects the
 materializing path, kept as the reference.
 
-A chunk of clients trains as one batched program where the model has a
-``client_loss_fn`` (the CIFG-LSTM): the chunk's parameters are θ0 expanded
-to a leading client axis, and each local SGD step is one forward of the
+A chunk of clients trains as one batched program, every family of the zoo
+through its ``client_loss_fn``: the chunk's parameters are θ0 expanded to a
+leading client axis, and each local SGD step is one forward of the
 per-client losses and one ``autograd.grad`` of their sum — no client's loss
 reads another client's parameters, so client c's gradient is exactly
 ∂L_c/∂θ_c. This is the reference's ``vmap`` of :func:`local_delta` over
-the chunk: the cell kernels launch once per chunk with a client axis. A
-client's delta and loss are the same bits whatever the chunk's width
-(`utils.numerics.client_mm`: a single client's products are widened to a
-batch of two on CUDA, the counterpart of the reference's width-1 guard in
-``stream_block_sums``), and :func:`local_delta` and :func:`user_update`
-are the same program at a width of 1.
-
-Every other family trains the chunk's clients one after another: a chunk of
-them at full width does not fit one card (one full-depth granite-3-2b
-client step alone peaks at 36 GB).
+the chunk: each kernel launches once per layer for the whole chunk (the
+CIFG cell kernels with a client axis, flash attention and the SSD scan with
+the clients folded into their batch). A client's delta and loss are the
+same bits whatever the chunk's width and wherever the client sits
+(`utils.numerics`: each client's products are calls of their own with its
+own weights, and the attention and SSD gradients run a client at a time),
+and :func:`local_delta` and :func:`user_update` are the same program at a
+width of 1. A chunk that does not fit the card
+fails with CUDA's out-of-memory error; nothing retries it client by
+client. A model built with ``client_loss_fn=None`` trains the chunk's
+clients one after another through ``loss_fn``.
 
 Trees are nested dicts of tensors; client batches are dicts of tensors with
 leading axes (n_batches, B, S), stacked per cohort as (C, n_batches, B, S).
@@ -80,23 +81,30 @@ def _local_sgd_clients(model: Model, params0, chunk_batches,
     Each step is one ``client_loss_fn`` and one ``autograd.grad`` of the
     losses' sum; the update is applied in the parameters' dtype."""
     C, n_batches = tree_leaves(chunk_batches)[0].shape[:2]
-    p = tree_map(lambda l: l.detach().expand((C,) + tuple(l.shape)),
-                 strip_compute(params0))
+    params0 = strip_compute(params0)
+    flat = [l.detach().expand((C,) + tuple(l.shape))
+            for l in tree_leaves(params0)]
     epoch_losses = []
     for _ in range(client.local_epochs):
         losses = []
         for i in range(n_batches):
-            q = tree_map(lambda l: l.detach().requires_grad_(True), p)
+            leaves = [l.detach().requires_grad_(True) for l in flat]
             loss = model.client_loss_fn(
-                q, tree_map(lambda l: l[:, i], chunk_batches))
-            grads = tree_unflatten(q, torch.autograd.grad(
-                loss.sum(), tree_leaves(q)))
+                tree_unflatten(params0, leaves),
+                tree_map(lambda l: l[:, i], chunk_batches))
+            grads = list(torch.autograd.grad(loss.sum(), leaves))
+            del leaves
+            # leaf by leaf, each gradient and old leaf dropped as soon as
+            # its update is made: a full-width chunk holds C copies of the
+            # model in each of them
             with torch.no_grad():
-                p = tree_map(lambda w, g: (w.float() - client.lr * g.float())
-                             .to(w.dtype), q, grads)
+                for j, w in enumerate(flat):
+                    g, grads[j] = grads[j], None
+                    flat[j] = (w.float() - client.lr * g.float()).to(w.dtype)
+                    del w, g
             losses.append(loss.detach())
         epoch_losses.append(_mean(losses))
-    return p, _mean(epoch_losses)
+    return tree_unflatten(params0, flat), _mean(epoch_losses)
 
 
 def local_sgd(model: Model, params, batches: Dict[str, torch.Tensor],
@@ -145,9 +153,10 @@ def local_deltas(model: Model, params, chunk_batches, client: ClientConfig
                  ) -> Tuple[List, torch.Tensor]:
     """:func:`local_delta` of each client of a chunk (leading axis of
     ``chunk_batches``) → (list of delta trees, losses (chunk,)). With the
-    model's ``client_loss_fn`` the chunk is one batched program and the
-    delta trees are views of one (chunk, …) stack a leaf; otherwise the
-    clients run one after another."""
+    model's ``client_loss_fn`` (every family's) the chunk is one batched
+    program and the delta trees are views of one (chunk, …) stack a leaf;
+    a model built with ``client_loss_fn=None`` runs the clients one after
+    another."""
     if model.client_loss_fn is None:
         n = tree_leaves(chunk_batches)[0].shape[0]
         out = [local_delta(model, params, _index(chunk_batches, i), client)
@@ -156,8 +165,10 @@ def local_deltas(model: Model, params, chunk_batches, client: ClientConfig
     params0 = strip_compute(params)
     local, losses = _local_sgd_clients(model, params0, chunk_batches,
                                        client)
-    delta = tree_map(lambda a, b: a.float() - b.detach().float(), local,
+    # in place: the local parameters are this call's own
+    delta = tree_map(lambda a, b: a.float().sub_(b.detach().float()), local,
                      params0)
+    del local
     leaves = [l.unbind(0) for l in tree_leaves(delta)]
     return ([tree_unflatten(delta, list(ls)) for ls in zip(*leaves)],
             losses)

@@ -34,7 +34,7 @@ from functools import partial
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.recompute import RecomputeGrad
+from repro_torch.kernels.recompute import RecomputeGrad, by_client
 
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_fwd_tc": 0}
 
@@ -79,14 +79,21 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    clients: int = 1):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), bfloat16 or float32 →
     (B, Sq, H, hd) in q's dtype. ``causal`` masks keys after the query
     (positions from 0 in both), ``window > 0`` keeps the ``window`` newest
     keys up to the query. On CUDA tensors differentiable in q, k and v
-    through the plain version's gradient."""
+    through the plain version's gradient. ``clients``: the batch folds a
+    chunk of that many clients' rows, one launch for all, and the plain
+    version runs a client at a time (`recompute.by_client`)."""
     _check(q, k, v, window)
-    plain = partial(flash_attention_ref, causal=causal, window=window)
+    if q.shape[0] % clients:
+        raise ValueError(f"flash_attention: {q.shape[0]} batch rows do not "
+                         f"fold {clients} clients")
+    plain = by_client(partial(flash_attention_ref, causal=causal,
+                              window=window), clients)
     if q.device.type == "cpu":
         return plain(q, k, v)
     return RecomputeGrad.apply(partial(_launch, causal=causal, window=window),

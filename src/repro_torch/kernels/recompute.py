@@ -12,7 +12,10 @@ launch counter counts forward launches only.
 
 The recomputation holds what the plain version holds (for attention the
 whole score matrix of one call), one call at a time; under the models'
-per-layer remat that is one layer's.
+per-layer remat that is one layer's. A batch that folds a chunk of
+clients (`by_client`) is recomputed a client at a time: the plain
+version's batched products see the batch count of a one-client call, so a
+client's gradient does not depend on how many clients share the launch.
 """
 from __future__ import annotations
 
@@ -52,3 +55,20 @@ class RecomputeGrad(torch.autograd.Function):
                                        [g for _, g in pairs],
                                        allow_unused=True))
         return (None, None) + tuple(next(got) if n else None for n in need)
+
+
+def by_client(plain, clients: int):
+    """``plain`` of each client's rows of a folded batch: every input's
+    leading axis cut into ``clients`` equal groups, ``plain`` called on each
+    group, the outputs (a tensor or a tuple of tensors) concatenated on
+    their leading axis. One client too goes through the cut and the
+    concatenation, so that its gradients have the layout they have in a
+    wider chunk."""
+
+    def run(*inputs):
+        outs = [plain(*group) for group in
+                zip(*(t.chunk(clients) for t in inputs))]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(o) for o in zip(*outs))
+        return torch.cat(outs)
+    return run

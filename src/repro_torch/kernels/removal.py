@@ -187,14 +187,14 @@ def _ssd_call(lib, B: int, S: int, H: int, P: int, N: int, gen):
     decay = torch.empty((B, S // 128, H), device=dev)
     fn = lib.ssd_scan_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 6 + [p]
+    fn.argtypes = [p] * 9 + [i] * 7 + [p]
     fn.restype = ctypes.c_int
 
     def call():
         err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  A.data_ptr(), y.data_ptr(), state.data_ptr(),
                  chunk_states.data_ptr(), decay.data_ptr(), 1, B, S, H, P, N,
-                 _stream())
+                 0, _stream())
         if err:
             raise RuntimeError(f"ssd_scan_fwd failed: CUDA error {err}")
     return call

@@ -1,5 +1,5 @@
-"""Race and bounds checks of the CIFG kernels and of flash attention at the
-shapes their paths give them.
+"""Race and bounds checks of the CIFG kernels, of flash attention and of
+the SSD scan at the shapes their paths give them.
 
 Launches ``cifg_cell_fwd`` (``cell_seq_fwd``) at the serving decode tick
 (B 256, S 1), the training client batch (B 10, S 16), the admission prefill
@@ -13,8 +13,12 @@ last client's outputs; and
 ``flash_attention_fwd`` at whisper-small's two shapes that no other path
 gives it, in bf16 (the tensor cores) and f32: the encoder's bidirectional
 self-attention over 1,500 frames (the last K tile holds 28 of 64 rows) and
-the cross-attention of 64 decoder tokens against them (Sq ≪ Sk). Each output
-stack is a view into a larger buffer whose tail is filled with a NaN
+the cross-attention of 64 decoder tokens against them (Sq ≪ Sk); and
+``ssd_scan`` (its three CUDA kernels, with their scratch) at a training
+chunk of 4 clients × B 2 folded into the batch at mamba2-370m's and
+zamba2-2.7b's widths and on the wide route (p and N above 128), each with
+the shared A (a_stride 0) and one A per batch row, bf16 and f32 inputs.
+Each output stack is a view into a larger buffer whose tail is filled with a NaN
 pattern; after every launch the tail must still hold it (a write past the
 output), and every launch must give bitwise the first one's result (a race
 between threads or cluster peers shows as a difference).
@@ -41,6 +45,10 @@ CHUNK_SHAPE = (10, 16, 16)      # a training chunk: B, S, clients
 # (what, B, Sq, Sk, heads, hd), bidirectional
 FLASH_SHAPES = (("whisper encoder", 4, 1500, 1500, 12, 64),
                 ("whisper cross-attention", 4, 64, 1500, 12, 64))
+# (what, B, S, H, p, N) of the SSD scan: 4 clients × B 2 folded
+SSD_SHAPES = (("mamba2-370m chunk", 8, 128, 32, 64, 128),
+              ("zamba2-2.7b chunk", 8, 128, 80, 64, 64),
+              ("wide route", 8, 256, 4, 256, 192))
 GUARD = 4096                    # float32 words after each output
 _PATTERN = 0x7FC0DEAD           # a NaN no kernel writes
 
@@ -168,6 +176,47 @@ def check_flash(B: int, Sq: int, Sk: int, H: int, hd: int, dtype,
     return ""
 
 
+def check_ssd(B: int, S: int, H: int, P: int, N: int, dtype, per_row: bool,
+              repeats: int, dev) -> str:
+    """The scan's entry point called with guarded outputs and scratch (y,
+    the final state, the chunk states, the chunk decays); ``per_row``: A
+    (B, H), one row each (a_stride H), else (H,) (a_stride 0)."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    gen = torch.Generator().manual_seed(S * 13 + H + P + N + per_row)
+    x = _randn(gen, dev, B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, dev, B, S, H)) * 0.1
+    Bm = _randn(gen, dev, B, S, N).to(dtype)
+    Cm = _randn(gen, dev, B, S, N).to(dtype)
+    A = -torch.exp(_randn(gen, dev, *((B, H) if per_row else (H,))))
+    fn = ops._kernel()
+    first = None
+    for i in range(repeats):
+        bufs = [_guarded(shape, dev) for shape in (
+            (B, S, H, P), (B, H, P, N), (B, S // 128, H, P, N),
+            (B, S // 128, H))]
+        y, state, chunk_states, decay = (v for v, _ in bufs)
+        err = fn(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 A.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 chunk_states.data_ptr(), decay.data_ptr(),
+                 int(dtype == torch.bfloat16), B, S, H, P, N,
+                 H if per_row else 0, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err:
+            return f"launch {i} failed with CUDA error {err}"
+        if not all(_tail_intact(b) for _, b in bufs):
+            return f"a launch wrote past its output (launch {i})"
+        if i == 0:
+            ref = ops.ssd_scan(x, dt, Bm, Cm, A)
+            if not (torch.equal(y, ref[0]) and torch.equal(state, ref[1])):
+                return "the guarded launch differs from the wrapper's"
+        if first is None:
+            first = (y.clone(), state.clone())
+        elif not (torch.equal(y, first[0]) and torch.equal(state, first[1])):
+            return f"launch {i} differs from launch 0"
+    return ""
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeats", type=int, default=2,
@@ -223,6 +272,18 @@ def main(argv=None) -> int:
                   f"Sk={Sk} H={nh} hd={hd} bidirectional "
                   f"{str(dtype).split('.')[-1]}, {args.repeats} launches: "
                   f"{err or 'tail intact, bitwise repeatable'}", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, B, S, nh, P, N in SSD_SHAPES:
+            for per_row in (False, True):
+                err = check_ssd(B, S, nh, P, N, dtype, per_row, args.repeats,
+                                dev)
+                bad += bool(err)
+                print(f"sanitize: ssd_scan {what} B={B} S={S} H={nh} p={P} "
+                      f"N={N} {str(dtype).split('.')[-1]} inputs, "
+                      f"{'one A per row' if per_row else 'shared A'}, "
+                      f"{args.repeats} launches: "
+                      f"{err or 'tails intact, bitwise repeatable'}",
+                      flush=True)
     return 1 if bad else 0
 
 

@@ -12,9 +12,11 @@
 // Layout: the model's own, row-major and contiguous: x (B, S, H, p) and
 // Bm, Cm (B, S, N) (one group: no head axis) in float32 or bfloat16 (read in
 // that dtype and converted in registers, which is exact), dt (B, S, H) and
-// A (H,) float32; outputs y (B, S, H, p) and the final state (B, H, p, N),
-// float32. S is a multiple of Q (the wrapper pads with dt = 0, as the
-// reference's ops.py does). Scratch from the wrapper: the chunk states
+// A float32, (H,) shared by every batch row or (B, H) one row each (a chunk
+// of clients folded into the batch, each client's A on its rows); outputs
+// y (B, S, H, p) and the final state (B, H, p, N), float32. S is a
+// multiple of Q (the wrapper pads with dt = 0, as the reference's ops.py
+// does). Scratch from the wrapper: the chunk states
 // (B, S/Q, H, p, N) and the chunk decays (B, S/Q, H), float32.
 //
 // What bounds it on an H100: at zamba2-2.7b's prefill (B 4, S 512, H 80,
@@ -269,7 +271,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                        const T* __restrict__ Bm, const float* __restrict__ A,
                        float* __restrict__ chunk_states,
                        float* __restrict__ decay, int S, int H, int P, int N,
-                       int G, int n_ps) {
+                       int G, int n_ps, int a_stride) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldb = NP + 8, ldx = PP + 8;
   float* Bs = smem;                   // [kQ][ldb]
@@ -300,7 +302,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     pre.store(Xs, ldx, dts);
     __syncthreads();
     if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P, j_off);
-    if (warp == 0) chunk_cum(dts, A[h], cum, lane);
+    if (warp == 0) chunk_cum(dts, A[b * a_stride + h], cum, lane);
     __syncthreads();
     if (tid < kQ) fs[tid] = dts[tid] * expf(cum[kQ - 1] - cum[tid]);
     if (tid == 0 && slice == 0)
@@ -395,7 +397,7 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A,
                       const float* __restrict__ states_in,
                       float* __restrict__ y, int S, int H, int P, int N,
-                      int G) {
+                      int G, int a_stride) {
   extern __shared__ __align__(16) float smem[];
   constexpr int ldc = NP + 4, ldx = PP + 8, lds = NP + 4;
   float* Cs = smem;                          // [kQ][ldc]
@@ -484,7 +486,7 @@ ssd_chunk_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     pre.store(Xs, ldx, dts);
     __syncthreads();
     if (h + 1 < h_end) pre.load(x, dt, t0, h + 1, H, P, j_off);
-    if (warp == 0) chunk_cum(dts, A[h], cum, lane);
+    if (warp == 0) chunk_cum(dts, A[b * a_stride + h], cum, lane);
     __syncthreads();
     if (tid < kQ) eq[tid] = expf(cum[tid]);
 
@@ -617,8 +619,8 @@ cudaError_t set_smem_limits() {
 template <typename T, int PP, int NP, bool WIDE>
 int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
                  const float* A, float* y, float* state, float* chunk_states,
-                 float* decay, int B, int S, int H, int P, int N, int sms,
-                 cudaStream_t stream) {
+                 float* decay, int B, int S, int H, int P, int N,
+                 int a_stride, int sms, cudaStream_t stream) {
   const int nc = S / kQ;
   // the wide route's slices: blocks per (b, chunk) grow with the p-slices
   const int n_ps = WIDE ? (P + PP - 1) / PP : 1;
@@ -629,7 +631,7 @@ int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
   ssd_chunk_state_kernel<T, PP, NP, WIDE>
       <<<dim3(groups * n_ps * n_ns, nc, B), kThreads,
          state_smem_floats(PP, NP) * 4, stream>>>(
-          x, dt, Bm, A, chunk_states, decay, S, H, P, N, G, n_ps);
+          x, dt, Bm, A, chunk_states, decay, S, H, P, N, G, n_ps, a_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long elems = (long long)B * H * P * N;
@@ -641,7 +643,7 @@ int launch_sized(const T* x, const float* dt, const T* Bm, const T* Cm,
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_chunk_scan_kernel<T, PP, NP, WIDE>
       <<<grid, kThreads, scan_smem_floats(PP, NP) * 4, stream>>>(
-          x, dt, Bm, Cm, A, chunk_states, y, S, H, P, N, G);
+          x, dt, Bm, Cm, A, chunk_states, y, S, H, P, N, G, a_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -656,7 +658,7 @@ inline int wide_slice(int d) {
 template <typename T>
 int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
            const float* A, float* y, float* state, float* chunk_states,
-           float* decay, int B, int S, int H, int P, int N,
+           float* decay, int B, int S, int H, int P, int N, int a_stride,
            cudaStream_t stream) {
   // the card's SM count and every instantiation's shared-memory limit,
   // read and set once (one card per process; a launch inside a CUDA-graph
@@ -685,11 +687,11 @@ int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
 #define SSD_LAUNCH(PP, NP)                                                   \
   return launch_sized<T, PP, NP, false>(xt, dt, bt, ct, A, y, state,        \
                                         chunk_states, decay, B, S, H, P, N, \
-                                        sms, stream)
+                                        a_stride, sms, stream)
 #define SSD_LAUNCH_WIDE(PP, NP)                                             \
   return launch_sized<T, PP, NP, true>(xt, dt, bt, ct, A, y, state,        \
                                        chunk_states, decay, B, S, H, P, N, \
-                                       sms, stream)
+                                       a_stride, sms, stream)
   if (P > kMaxP || N > kMaxN) {
     const int pp = P > kMaxP ? wide_slice(P) : (P <= 64 ? 64 : 128);
     const int np = N > kMaxN ? wide_slice(N) : (N <= 64 ? 64 : 128);
@@ -713,23 +715,26 @@ int launch(const void* x, const float* dt, const void* Bm, const void* Cm,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. x, Bm and Cm are bf16 when
-// in_is_bf16 is 1, else float32. Runs the three kernels on `stream`.
+// in_is_bf16 is 1, else float32. A holds one row of H values per batch row
+// b at A + b * a_stride: a_stride 0 shares one row (the model's A), a_stride
+// >= H gives each row its own (a chunk of clients, each with its own A).
+// Runs the three kernels on `stream`.
 // Returns the cudaError_t of the launches (0 on success); shapes the kernel
 // does not take return cudaErrorInvalidValue.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const void* Bm,
                             const void* Cm, const float* A, float* y,
                             float* state, float* chunk_states, float* decay,
                             int in_is_bf16, int B, int S, int H, int P, int N,
-                            void* stream) {
+                            int a_stride, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || S < kQ || S % kQ || S / kQ > 65535 ||
-      P < 1 || N < 1) {
+      P < 1 || N < 1 || (a_stride != 0 && a_stride < H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_is_bf16) {
     return launch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, state, chunk_states,
-                                 decay, B, S, H, P, N, s);
+                                 decay, B, S, H, P, N, a_stride, s);
   }
   return launch<float>(x, dt, Bm, Cm, A, y, state, chunk_states, decay, B, S,
-                       H, P, N, s);
+                       H, P, N, a_stride, s);
 }

@@ -32,14 +32,37 @@ def ssd_scan_ref(x, dt, Bm, Cm, A, h0=None):
     return torch.stack(ys, dim=1), h
 
 
+class _RowScale(torch.autograd.Function):
+    """dt (B, Q, H) times one row of A (B, H) per batch row. A's gradient
+    is each row's sum over its Q tokens taken left to right, the last
+    entry of a running sum: on CUDA one reduction over every row would
+    split its sums by how many rows the call has, and a chunk of clients
+    must give each client's rows the bits of its one-client call."""
+
+    @staticmethod
+    def forward(ctx, dt, A):
+        ctx.save_for_backward(dt, A)
+        return dt * A[:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        dt, A = ctx.saved_tensors
+        g_dt = g * A[:, None, :] if ctx.needs_input_grad[0] else None
+        g_A = (torch.cumsum(g * dt, dim=1)[:, -1]
+               if ctx.needs_input_grad[1] else None)
+        return g_dt, g_A
+
+
 def ssd_chunked(xh, dt, Bc, Cc, A, h0):
     """Chunked SSD scan (chunks of ``min(CHUNK, S)``). Within a chunk the
     dual quadratic form (C·Bᵀ ∘ L ∘ dt)·x, with L the exponentiated segment
     sums of dt·A on the lower triangle; across chunks the carried state,
     e^{cum}·C·stateᵀ, and its update e^{cum_Q}·state + xᵀ·(dt·e^{cum_Q−cum}·B).
 
-    xh: (B,S,H,p); dt: (B,S,H) float32; Bc, Cc: (B,S,N); A: (H,) negative;
-    h0: (B,H,p,N) float32. Returns y (B,S,H,p) float32 and the final state.
+    xh: (B,S,H,p); dt: (B,S,H) float32; Bc, Cc: (B,S,N); A: (H,) negative,
+    or (B,H), one row of A per batch row (the same products, element by
+    element); h0: (B,H,p,N) float32. Returns y (B,S,H,p) float32 and the
+    final state.
     ``S`` must be a multiple of ``min(CHUNK, S)``, as in the reference."""
     Bsz, S, H, p = xh.shape
     Q = min(CHUNK, S)
@@ -54,7 +77,9 @@ def ssd_chunked(xh, dt, Bc, Cc, A, h0):
         dtc = dt[:, c0:c0 + Q].float()                # (B,Q,H)
         bc = Bc[:, c0:c0 + Q].float()                 # (B,Q,N)
         cc = Cc[:, c0:c0 + Q].float()
-        cum = torch.cumsum(dtc * A[None, None, :], dim=1)   # (B,Q,H)
+        dta = (_RowScale.apply(dtc, A) if A.dim() == 2
+               else dtc * A[None, None, :])
+        cum = torch.cumsum(dta, dim=1)                      # (B,Q,H)
         seg = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
         # exp only on the lower triangle: above it seg > 0 and can overflow
         Lmat = torch.exp(seg.masked_fill(~tri[None, :, :, None],

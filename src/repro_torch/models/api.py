@@ -14,8 +14,8 @@ program: ``client_loss_fn(params_c, batch_c)`` takes parameters whose every
 leaf has a leading client axis C and batch leaves (C, B, S), and returns the
 per-client losses (C,), client c's computed as ``loss_fn`` computes one
 client's and the same bits whatever C is (the reference's vmapped
-``loss_fn``). ``None`` (every family but the CIFG-LSTM) trains the chunk's
-clients one after another.
+``loss_fn``). Every family's ``build`` sets it; a model rebuilt with
+``client_loss_fn=None`` trains the chunk's clients one after another.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import embed_init, pad_vocab
-from repro_torch.utils.numerics import client_mm, round_to, rowstable_mm
+from repro_torch.utils.numerics import per_client, round_to, rowstable_mm
 
 
 def embedding_init(generator: torch.Generator, cfg: ModelConfig, *,
@@ -33,8 +33,10 @@ class EmbedRows(torch.autograd.Function):
 
     With a client axis (a chunk of clients, each with its own table):
     table (C, V, d), ids (C, …) → (C, …, d), client c's rows from its own
-    table; the backward is one product a client (`client_mm`), each
-    client's gradient the bits of its one-client call."""
+    table; the backward is one product a client (`per_client`: a
+    client's (V, d) gradient is the largest product of a chunk, so no
+    client is padded), each client's gradient the bits of its one-client
+    call."""
 
     @staticmethod
     def forward(ctx, table, ids):
@@ -57,7 +59,7 @@ class EmbedRows(torch.autograd.Function):
             onehot = torch.zeros((C, ids[0].numel(), ctx.rows),
                                  dtype=flat.dtype, device=flat.device)
             onehot.scatter_(2, ids.reshape(C, -1, 1), 1.0)
-            return client_mm(onehot.transpose(1, 2), flat, rows=False), None
+            return per_client(torch.mm, onehot.transpose(1, 2), flat), None
         flat = grad.reshape(ids.numel(), -1)
         onehot = torch.nn.functional.one_hot(ids.reshape(-1), ctx.rows)
         return onehot.to(flat.dtype).t().mm(flat), None
@@ -80,8 +82,13 @@ def head_logits(p, x: torch.Tensor) -> torch.Tensor:
     of the embedding parameters ``p``, in x's dtype: the serving families'
     logits. On the CPU the float32 product of those values, as the
     reference's ``preferred_element_type=float32``; on the card one product
-    in x's dtype (float32 sums, the output rounded to x's dtype)."""
+    in x's dtype (float32 sums, the output rounded to x's dtype). A head
+    with a leading client axis (C, Vpad, d) is a chunk of clients, x
+    (C, B, S, d): each client's logits against its own head, its
+    one-client call (`per_client`)."""
     w = p.get("head", p["tok"]).to(x.dtype)
+    if w.dim() == 3:
+        return per_client(lambda wc, xc: head_logits({"tok": wc}, xc), w, x)
     if x.device.type == "cpu":
         return x.float() @ w.float().t()
     return (x @ w.t()).float()

@@ -92,8 +92,7 @@ def _self_attn(x, ln, ap, cfg: ModelConfig, positions, *, causal: bool,
     q, k, v = L.gqa_project(h, ap, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                             positions, 0.0)
     a = T.attend(q, k, v, causal=causal, window=window)
-    B, S = x.shape[:2]
-    return x + L.matmul(a.reshape(B, S, -1), ap["wo"]), (k, v)
+    return x + L.matmul(a.flatten(-2), ap["wo"]), (k, v)
 
 
 def _enc_layer_fwd(x, lp, cfg: ModelConfig, positions):
@@ -108,11 +107,11 @@ def encode(params, frames, cfg: ModelConfig, *, remat: bool = False):
     cw = compute_view(params)
     dev = cw["ln_f"]["scale"].device
     x = torch.as_tensor(frames, device=dev).to(cd)
-    F = x.shape[1]
-    x = x + L.sinusoidal_positions(F, cfg.d_model).to(dev, cd)[None]
+    F = x.shape[-2]
+    x = x + L.sinusoidal_positions(F, cfg.d_model).to(dev, cd)
     positions = torch.arange(F, dtype=torch.int32, device=dev)
     layer = partial(_enc_layer_fwd, cfg=cfg, positions=positions)
-    for lp in L.unstack_layers(cw["enc_layers"]):
+    for lp in L.unstack_layers(cw["enc_layers"], int(L.is_chunk(cw))):
         x = L.remat_call(layer, x, lp, remat=remat)
     return L.norm(x, cw["ln_enc"], cfg.norm)
 
@@ -129,7 +128,7 @@ def _cross_attend(x, memory_kv, lp, cfg: ModelConfig, *, kernel: bool):
     Bidirectional: `transformer.attend` when ``kernel`` (the whole-sequence
     path), else the plain attention (the decode step)."""
     mk, mv = memory_kv
-    B, Sq, _ = x.shape
+    Sq = x.shape[-2]
     h = L.norm(x, lp["ln_x"], cfg.norm)
     q = L.split_heads(L.matmul(h, lp["cross_attn"]["wq"]), cfg.n_heads,
                       cfg.head_dim)
@@ -142,7 +141,7 @@ def _cross_attend(x, memory_kv, lp, cfg: ModelConfig, *, kernel: bool):
                                                 device=x.device),
                         kv_positions=torch.arange(F, dtype=torch.int32,
                                                   device=x.device))
-    return x + L.matmul(a.reshape(B, Sq, -1), lp["cross_attn"]["wo"])
+    return x + L.matmul(a.flatten(-2), lp["cross_attn"]["wo"])
 
 
 def _dec_layer_fwd(x, lp, memory, cfg: ModelConfig, positions, *,
@@ -166,13 +165,13 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
     cw = compute_view(params)
     memory = encode(params, batch["frames"], cfg, remat=remat)
     x = embed_tokens(cw["embed"], token_ids(cw, batch["tokens"]), cd)
-    S = x.shape[1]
-    x = x + L.sinusoidal_positions(S, cfg.d_model).to(x.device, cd)[None]
+    S = x.shape[-2]
+    x = x + L.sinusoidal_positions(S, cfg.d_model).to(x.device, cd)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     layer = partial(_dec_layer_fwd, cfg=cfg, positions=positions,
                     window=cfg.attn_window)
     caches = []
-    for lp in L.unstack_layers(cw["dec_layers"]):
+    for lp in L.unstack_layers(cw["dec_layers"], int(L.is_chunk(cw))):
         x, kvs = L.remat_call(layer, x, lp, memory,
                               remat=remat and not collect_cache)
         if collect_cache:
@@ -249,4 +248,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(L.chunk_loss, forward, cfg=cfg),
     )

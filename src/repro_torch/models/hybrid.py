@@ -28,7 +28,9 @@ Training: ``loss_fn`` recomputes each group (its Mamba-2 layers and the
 shared block after them) in the backward (``remat``, on by default as in
 the reference); both kernels' outputs are differentiable through their
 plain versions' gradients (`repro_torch.kernels.recompute`), and the
-shared block's gradient sums every site's.
+shared block's gradient sums every site's. A chunk of clients trains as
+one program (`layers.chunk_loss`): each client has its own shared block,
+applied at every site to that client's rows alone.
 """
 from __future__ import annotations
 
@@ -86,7 +88,8 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device=None):
 def _groups(params, cfg: ModelConfig):
     """Per attention site, the list of its ``hybrid_attn_every`` Mamba
     layers' parameters (views), in order."""
-    layers = L.unstack_layers(params["mamba_layers"])
+    layers = L.unstack_layers(params["mamba_layers"],
+                              int(L.is_chunk(params)))
     e = cfg.hybrid_attn_every
     return [layers[g * e:(g + 1) * e] for g in range(n_attn_sites(cfg))]
 
@@ -112,7 +115,8 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
     cd = torch_dtype(cfg.compute_dtype)
     cw = compute_view(params)
     x = embed_tokens(cw["embed"], token_ids(cw, batch["tokens"]), cd)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32,
+                             device=x.device)
     group_fwd = partial(_group_fwd, cfg=cfg, positions=positions)
     sp = cw["shared_attn"]
     mcaches, kvs = [], []
@@ -202,4 +206,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(L.chunk_loss, forward, cfg=cfg),
     )

@@ -17,11 +17,15 @@ parameter set already carries compute-dtype copies
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.utils.numerics import (client_apply, client_matmul,
+                                        client_vector, compute_mm)
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
@@ -52,17 +56,25 @@ def stacked_dense_init(generator: torch.Generator, n: int,
                       in_dim=in_dim or shape[0], device=device)
 
 
-def unstack_layers(stacked) -> list:
+def unstack_layers(stacked, axis: int = 0) -> list:
     """Every layer of a stacked parameter tree, as a list of per-layer
     trees (views, no copy). One ``unbind`` per leaf: its backward stacks
     the layers' gradients once, where a separate ``stacked[i]`` per layer
     would each add a zero-filled gradient of the whole stack (at
-    granite-3-2b's 40 layers, ~1.3 TB of memory traffic a step)."""
+    granite-3-2b's 40 layers, ~1.3 TB of memory traffic a step). The
+    layers lie on ``axis``: 0, or 1 behind a chunk's client axis."""
     if isinstance(stacked, dict):
-        parts = {k: unstack_layers(v) for k, v in stacked.items()}
+        parts = {k: unstack_layers(v, axis) for k, v in stacked.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return list(torch.unbind(stacked, 0))
+    return list(torch.unbind(stacked, axis))
+
+
+def is_chunk(params) -> bool:
+    """Whether a model's parameters carry a leading client axis (a chunk of
+    clients, `repro_torch.fl.client`): read from the final norm's scale,
+    (d,) for one client and (C, d) for a chunk."""
+    return params["ln_f"]["scale"].dim() == 2
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int], *,
@@ -73,14 +85,13 @@ def embed_init(generator: torch.Generator, shape: Sequence[int], *,
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in ``x``'s dtype, summed in float32. On the card that is one
-    product in that dtype; on the CPU it is the product of the float32
-    values, rounded once, which is the same arithmetic up to the order of
-    the sum (and the CPU's bfloat16 products are slow)."""
-    w = w.to(x.dtype)
-    if x.device.type == "cpu" and x.dtype != torch.float32:
-        return (x.float() @ w.float()).to(x.dtype)
-    return x @ w
+    """``x @ w`` in ``x``'s dtype, summed in float32 (`compute_mm`). A
+    weight with a leading client axis (C, K, N) is a chunk of clients, x
+    (C, …, K): each client's product with its own weight
+    (`client_matmul`)."""
+    if w.dim() == 3:
+        return client_matmul(x, w)
+    return compute_mm(x, w)
 
 
 # ---------------------------------------------------------------- norms
@@ -91,7 +102,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * w.float()).to(x.dtype)
+    return (out * client_vector(w.float(), out)).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -100,7 +111,8 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * w.float() + b.float()).to(x.dtype)
+    return (out * client_vector(w.float(), out)
+            + client_vector(b.float(), out)).to(x.dtype)
 
 
 def norm(x: torch.Tensor, p, kind: str) -> torch.Tensor:
@@ -334,7 +346,7 @@ def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def swiglu(x, p):
-    g = F.silu(matmul(x, p["w_gate"]))
+    g = client_apply(F.silu, matmul(x, p["w_gate"]), p["w_gate"].dim() == 3)
     u = matmul(x, p["w_up"])
     return matmul(g * u, p["w_down"])
 
@@ -353,8 +365,12 @@ def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 def gelu_mlp(x, p):
     """``jax.nn.gelu``'s default is the tanh approximation."""
     cd = x.dtype
-    h = F.gelu(matmul(x, p["w_in"]) + p["b_in"].to(cd), approximate="tanh")
-    return matmul(h, p["w_out"]) + p["b_out"].to(cd)
+    h = matmul(x, p["w_in"])
+    h = client_apply(partial(F.gelu, approximate="tanh"),
+                     h + client_vector(p["b_in"].to(cd), h),
+                     p["w_in"].dim() == 3)
+    h = matmul(h, p["w_out"])
+    return h + client_vector(p["b_out"].to(cd), h)
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, act: str,
@@ -398,6 +414,20 @@ def lm_loss(logits: torch.Tensor, labels, vocab: int, mask=None
         return nll.mean()
     mask = torch.as_tensor(mask, device=nll.device, dtype=torch.float32)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def chunk_loss(forward, params_c, batch_c, cfg, *, remat: bool = True
+               ) -> torch.Tensor:
+    """A family's ``client_loss_fn``: the losses (C,) of a chunk of
+    clients, each with its own parameters (every leaf with a leading client
+    axis C; batch leaves (C, B, S, …)), client c's the same bits whatever C
+    is. ``forward`` is the family's, which runs the whole chunk: each
+    product with the client's own weights (`matmul`), one kernel launch a
+    layer (attention and the SSD scan fold the clients into their
+    batch)."""
+    logits = forward(params_c, batch_c, cfg, remat=remat)
+    return lm_loss_clients(logits, batch_c["labels"], cfg.vocab,
+                           batch_c.get("mask"))
 
 
 def lm_loss_clients(logits: torch.Tensor, labels, vocab: int, mask=None

@@ -38,7 +38,8 @@ from repro_torch.models.api import Model
 from repro_torch.models.embed import (embed_tokens, embedding_init,
                                       head_logits, token_ids)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.numerics import torch_dtype
+from repro_torch.utils.numerics import (client_apply, client_rows,
+                                        client_vector, torch_dtype)
 from repro_torch.utils.params import (compute_view, matrix_copies,
                                       with_compute_copies)
 
@@ -97,20 +98,23 @@ def layers_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
 
 
 def _causal_conv(seq, w, b):
-    """Depthwise causal conv via shifted adds. seq: (B,S,C); w: (W,C).
-    DTensors over the model axis convolve each rank's channels locally
-    (whole where the channels do not divide the axis): DTensor's rule for
-    the sequence pad mislays a sequence-sharded operand."""
+    """Depthwise causal conv via shifted adds. seq: (B,S,C); w: (W,C); a
+    chunk of clients: seq (C', B, S, C), w (C', W, C), b (C', C), each
+    client's taps on its own rows. DTensors over the model axis convolve
+    each rank's channels locally (whole where the channels do not divide
+    the axis): DTensor's rule for the sequence pad mislays a
+    sequence-sharded operand."""
     if is_dtensor(seq):
         return map_local(_causal_conv, (seq, w, b), (2, 1, 0), 2,
                          shard=seq.shape[2] % seq.device_mesh.size() == 0)
-    W = w.shape[0]
-    out = seq * w[W - 1][None, None, :]
+    W = w.shape[-2]
+    out = seq * client_vector(w[..., W - 1, :], seq)
     for i in range(W - 1):
         shift = W - 1 - i
-        shifted = F.pad(seq, (0, 0, shift, 0))[:, :-shift, :]
-        out = out + shifted * w[i][None, None, :]
-    return F.silu(out + b[None, None, :].to(seq.dtype))
+        shifted = F.pad(seq, (0, 0, shift, 0))[..., :-shift, :]
+        out = out + shifted * client_vector(w[..., i, :], seq)
+    return client_apply(F.silu, out + client_vector(b.to(seq.dtype), seq),
+                        w.dim() == 3)
 
 
 def _proj(x, p):
@@ -120,17 +124,41 @@ def _proj(x, p):
     x_raw = L.matmul(x, p["w_x"])
     B_raw = L.matmul(x, p["w_B"])
     C_raw = L.matmul(x, p["w_C"])
-    dt = F.softplus(L.matmul(x, p["w_dt"]).float()
-                    + p["dt_bias"][None, None, :])
+    dt = L.matmul(x, p["w_dt"]).float()
+    dt = client_apply(F.softplus, dt + client_vector(p["dt_bias"], dt),
+                      p["dt_bias"].dim() == 2)
     return z, x_raw, B_raw, C_raw, dt
+
+
+def _scan(xh, dt, Bc, Cc, A):
+    """`ssd_scan` of xh (…, S, H, p) with A (H,), or a chunk's (C, H)
+    against xh (C, B, S, H, p): the leading axes folded into the scan's
+    batch, the plain gradient a client at a time (``clients``), and A
+    handed on one row per batch row (for one client an expand, stride 0:
+    the kernel's shared A), so that ``A_log``'s gradient sums the rows' in
+    the same order whatever the path. → (y like xh, the final states
+    (rows, H, p, N))."""
+    lead = tuple(xh.shape[:-3])
+
+    def fold(t):
+        return t.reshape((-1,) + tuple(t.shape[len(lead):]))
+
+    chunk = {"clients": lead[0]} if A.dim() == 2 else {}
+    y, h_fin = ssd_scan(fold(xh), fold(dt), fold(Bc), fold(Cc),
+                        client_rows(A, lead[-1]), **chunk)
+    return y.reshape(xh.shape), h_fin
 
 
 def mixer_fwd(x, p, cfg: ModelConfig):
     """Full-sequence mixer. x: (B,S,d) in the compute dtype → (out, final
-    SSD state, conv tails (cx, cB, cC), the last W-1 raw inputs)."""
+    SSD state, conv tails (cx, cB, cC), the last W-1 raw inputs). A chunk
+    of clients, x (C, B, S, d) with a client axis leading every leaf of
+    ``p``, runs one `ssd_scan` for the chunk (`_scan`), (C, B) folded into
+    the scan's batch and each row with its client's ``A = −exp(A_log)``;
+    the final state is then (C·B, H, p, N)."""
     di, H = d_inner(cfg), cfg.ssm_heads
     hp = di // H
-    Bsz, S, _ = x.shape
+    lead, S = tuple(x.shape[:-2]), x.shape[-2]
     # the reference's contract (ssd_chunked asserts S % min(CHUNK, S) == 0),
     # held on every device although the kernel would pad such lengths
     if S % min(CHUNK, S):
@@ -142,22 +170,22 @@ def mixer_fwd(x, p, cfg: ModelConfig):
     xs = _causal_conv(x_raw, p["conv_x"].to(cd), p["conv_b_x"])
     Bc = _causal_conv(B_raw, p["conv_B"].to(cd), p["conv_b_B"])
     Cc = _causal_conv(C_raw, p["conv_C"].to(cd), p["conv_b_C"])
-    xh = xs.reshape(Bsz, S, H, hp)
-    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(lead + (S, H, hp))
+    A = -client_apply(torch.exp, p["A_log"], p["A_log"].dim() == 2)
     if is_dtensor(xh):   # the production step: heads over the model axis
-        y, h_fin = map_local(ssd_scan, (xh, dt, Bc, Cc, A),
+        y, h_fin = map_local(_scan, (xh, dt, Bc, Cc, A),
                              (2, 2, None, None, 0), (2, 1),
                              shard=H % xh.device_mesh.size() == 0)
     else:
-        y, h_fin = ssd_scan(xh, dt, Bc, Cc, A)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.to(cd).reshape(Bsz, S, di)
-    y = y * F.silu(z)
+        y, h_fin = _scan(xh, dt, Bc, Cc, A)
+    y = y + client_vector(p["D"], xh, dim=-2) * xh.float()
+    y = y.to(cd).reshape(lead + (S, di))
+    y = y * client_apply(F.silu, z, len(lead) == 2)
     y = L.rmsnorm(y, p["norm"]["scale"])
     out = L.matmul(y, p["w_out"])
     W = cfg.ssm_conv_width
-    tails = (x_raw[:, -(W - 1):, :], B_raw[:, -(W - 1):, :],
-             C_raw[:, -(W - 1):, :])
+    tails = (x_raw[..., -(W - 1):, :], B_raw[..., -(W - 1):, :],
+             C_raw[..., -(W - 1):, :])
     return out, h_fin, tails
 
 
@@ -232,7 +260,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
     x = embed_tokens(cw["embed"], token_ids(params, batch["tokens"]), cd)
     layer = partial(layer_fwd, cfg=cfg)
     caches = []
-    for lp in L.unstack_layers(cw["layers"]):
+    for lp in L.unstack_layers(cw["layers"], int(L.is_chunk(cw))):
         x, cache = L.remat_call(layer, x, lp,
                                 remat=remat and not collect_cache)
         if collect_cache:
@@ -315,4 +343,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(L.chunk_loss, forward, cfg=cfg),
     )

@@ -40,7 +40,8 @@ from repro_torch.models.embed import (embed_tokens, embedding_init,
                                       head_logits, token_ids)
 from repro_torch.sharding.kernel_map import is_dtensor, map_local
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.numerics import torch_dtype
+from repro_torch.utils.numerics import (client_apply, client_einsum,
+                                        compute_einsum, torch_dtype)
 from repro_torch.utils.params import compute_view, with_compute_copies
 
 AUX_LOSS_COEF = 0.01
@@ -102,11 +103,15 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def route(x, p, cfg: ModelConfig, capacity: int = None):
     """x: (..., T, d), each leading index one routing group → combine
-    (..., T, E, C) float32 and the aux load-balance loss (...) float32."""
+    (..., T, E, C) float32 and the aux load-balance loss (...) float32. A
+    router with a leading client axis (C, d, E) routes a chunk of clients,
+    x (C, ..., T, d), each client's groups against its own router: every
+    step after the router's product is per group, so a client's top-k
+    sets, places and dropped pairs are those of its one-client call."""
     T_ = x.shape[-2]
     E, k = cfg.n_experts, cfg.top_k
     C = capacity or _capacity(T_, E, k)
-    logits = x.float() @ p["router"]["w"].float()
+    logits = L.matmul(x.float(), p["router"]["w"].float())
     probs = torch.softmax(logits, dim=-1)                      # (..., T, E)
     topv, topi = _top_k(probs, k)                              # (..., T, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
@@ -137,26 +142,23 @@ def route(x, p, cfg: ModelConfig, capacity: int = None):
     return combine.reshape(x.shape[:-2] + (T_, E, C)), aux
 
 
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` in ``a``'s dtype, summed in float32: on the CPU the
-    float32 product rounded once (as `layers.matmul`)."""
-    b = b.to(a.dtype)
-    if a.device.type == "cpu" and a.dtype != torch.float32:
-        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
-    return torch.einsum(eq, a, b)
-
-
 def moe_ffn(x, p, cfg: ModelConfig, *, dropless: bool = False):
-    """x: (B, S, d) → (B, S, d) and the aux loss (the mean over groups)."""
-    B, S, d = x.shape
+    """x: (B, S, d) → (B, S, d) and the aux loss (the mean over groups).
+    A chunk of clients, x (C, B, S, d) with a client axis leading the
+    router and the experts ((C, E, d, f)), routes each client's tokens in
+    its own groups (`route`) and runs each client's experts
+    (`numerics.client_einsum`) → (C, B, S, d) and the aux losses (C,)."""
+    chunk = p["w_gate"].dim() == 4
+    lead = tuple(x.shape[:1]) if chunk else ()
+    B, S, d = x.shape[-3:]
     cd = x.dtype
     n = B * S
     group = min(MOE_GROUP, n)
     pad = (-n) % group
-    xf = x.reshape(n, d)
+    xf = x.reshape(lead + (n, d))
     if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, d))])
-    xg = xf.reshape(-1, group, d)
+        xf = torch.cat([xf, xf.new_zeros(lead + (pad, d))], dim=-2)
+    xg = xf.reshape(lead + (-1, group, d))
     cap = None
     if dropless:
         cap = group if group <= 128 else _capacity(
@@ -174,14 +176,16 @@ def moe_ffn(x, p, cfg: ModelConfig, *, dropless: bool = False):
     combine = L.shard_hint(combine.to(torch.bfloat16),
                            ("pod", "data"), None, "model", None)
     dispatch = (combine > 0).to(cd)                            # (G,t,E,C)
-    xe = _einsum("gtec,gtd->gecd", dispatch, xg)
+    ein = client_einsum if chunk else compute_einsum
+    xe = ein("gtec,gtd->gecd", dispatch, xg)
     xe = L.shard_hint(xe, ("pod", "data"), "model", None, None)
-    gate = F.silu(_einsum("gecd,edf->gecf", xe, p["w_gate"]))
-    up = _einsum("gecd,edf->gecf", xe, p["w_up"])
-    h = _einsum("gecf,efd->gecd", gate * up, p["w_down"])
+    gate = client_apply(F.silu, ein("gecd,edf->gecf", xe, p["w_gate"]),
+                        chunk)
+    up = ein("gecd,edf->gecf", xe, p["w_up"])
+    h = ein("gecf,efd->gecd", gate * up, p["w_down"])
     h = L.shard_hint(h, ("pod", "data"), "model", None, None)
-    y = _einsum("gtec,gecd->gtd", combine.to(cd), h).reshape(-1, d)[:n]
-    return y.reshape(B, S, d), aux.mean()
+    y = ein("gtec,gecd->gtd", combine.to(cd), h).reshape(lead + (-1, d))
+    return y[..., :n, :].reshape(x.shape), aux.mean(-1)
 
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, *, dropless: bool):
@@ -200,12 +204,13 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
     ``remat`` recomputes each layer in the backward."""
     cw = compute_view(params)
     x = T._embed_batch(cw, batch, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32,
+                             device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = partial(_layer_fwd, cfg=cfg, positions=positions,
                     dropless=dropless)
     kvs = []
-    for lp in L.unstack_layers(cw["layers"]):
+    for lp in L.unstack_layers(cw["layers"], int(L.is_chunk(cw))):
         x, kv, aux = L.remat_call(layer, x, lp, remat=remat)
         aux_total = aux_total + aux
         if collect_cache:
@@ -222,6 +227,19 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
 def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True):
     logits, aux = forward(params, batch, cfg, remat=remat, with_aux=True)
     nll = L.lm_loss(logits, batch["labels"], cfg.vocab, batch.get("mask"))
+    return nll + AUX_LOSS_COEF * aux
+
+
+def loss_fn_clients(params_c, batch_c, cfg: ModelConfig, *,
+                    remat: bool = True):
+    """The losses (C,) of a chunk of clients, each with its own parameters
+    (leading client axis C, batch leaves (C, B, S)): client c's is
+    `loss_fn`'s, its aux loss from its own routing, the same bits whatever
+    C is."""
+    logits, aux = forward(params_c, batch_c, cfg, remat=remat,
+                          with_aux=True)
+    nll = L.lm_loss_clients(logits, batch_c["labels"], cfg.vocab,
+                            batch_c.get("mask"))
     return nll + AUX_LOSS_COEF * aux
 
 
@@ -264,4 +282,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(loss_fn_clients, cfg=cfg),
     )

@@ -30,6 +30,9 @@ by default as in the reference, `layers.remat_call`). On the card the
 flash kernel's output is differentiable through the plain attention's
 gradient (`repro_torch.kernels.recompute`), so under remat a training step
 launches the kernel twice per layer: the forward, then the recomputation.
+``forward`` also takes a chunk of clients (parameters with a leading
+client axis, `layers.is_chunk`), the families' ``client_loss_fn``
+(`layers.chunk_loss`): twice per layer for the whole chunk.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from repro_torch.models.embed import (embed_tokens, embedding_init,
 from repro_torch.sharding.kernel_map import (attention_heads, cache_write,
                                              is_dtensor)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.numerics import torch_dtype
+from repro_torch.utils.numerics import per_client, torch_dtype
 from repro_torch.utils.params import (compute_view, matrix_copies,
                                       with_compute_copies)
 
@@ -106,10 +109,22 @@ def attend(q, k, v, *, causal: bool, window: int = 0):
     """Attention of whole sequences, queries and keys at positions from 0:
     the flash kernel for CUDA tensors, the plain `layers.attention` on the
     CPU. q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). DTensors over the model
-    axis attend each rank's local heads (`sharding.kernel_map`)."""
+    axis attend each rank's local heads (`sharding.kernel_map`). A chunk of
+    clients, q (C, B, Sq, H, hd): on the card one launch with (C, B)
+    folded into the kernel's batch (every (row, head, query tile) is
+    computed alone) and the plain gradient a client at a time
+    (``clients``); on the CPU a client at a time."""
     if is_dtensor(q):
         return attention_heads(partial(attend, causal=causal, window=window),
                                q, k, v)
+    if q.dim() == 5:
+        if q.device.type != "cuda":
+            return per_client(partial(attend, causal=causal, window=window),
+                              q, k, v)
+        out = flash_attention(q.flatten(0, 1), k.flatten(0, 1),
+                              v.flatten(0, 1), causal=causal, window=window,
+                              clients=q.shape[0])
+        return out.unflatten(0, q.shape[:2])
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal, window=window)
     return L.attention(
@@ -125,8 +140,7 @@ def _attn_block(x, lp, cfg: ModelConfig, positions, *, window: int):
     q, k, v = L.gqa_project(h, lp["attn"], cfg.n_heads, cfg.n_kv_heads,
                             cfg.head_dim, positions, cfg.rope_theta)
     a = attend(q, k, v, causal=True, window=window)
-    B, S = a.shape[:2]
-    return x + L.matmul(a.reshape(B, S, -1), lp["attn"]["wo"]), (k, v)
+    return x + L.matmul(a.flatten(-2), lp["attn"]["wo"]), (k, v)
 
 
 def _layer_fwd(x, lp, cfg: ModelConfig, positions, *, window: int):
@@ -138,12 +152,13 @@ def _layer_fwd(x, lp, cfg: ModelConfig, positions, *, window: int):
 
 def _embed_batch(cw, batch, cfg: ModelConfig):
     """Early fusion: for the VLM, precomputed image-patch embeddings replace
-    the embeddings of the first ``n_image`` positions."""
+    the embeddings of the first ``n_image`` positions (of each client's
+    rows, for a chunk)."""
     cd = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(cw["embed"], token_ids(cw, batch["tokens"]), cd)
     if "image_embeds" in batch:
         img = torch.as_tensor(batch["image_embeds"], device=x.device).to(cd)
-        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+        x = torch.cat([img, x[..., img.shape[-2]:, :]], dim=-2)
     return x
 
 
@@ -151,14 +166,17 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = False,
             collect_cache: bool = False):
     """Logits (B, S, Vpad) float32; with ``collect_cache`` also every
     layer's (k, v), stacked to (n_layers, B, S, KV, hd). ``remat``
-    recomputes each layer in the backward."""
+    recomputes each layer in the backward. Parameters with a leading
+    client axis (`layers.is_chunk`) and batch leaves (C, B, S) give each
+    client's logits (C, B, S, Vpad) from its own weights."""
     cw = compute_view(params)
     x = _embed_batch(cw, batch, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32,
+                             device=x.device)
     layer = partial(_layer_fwd, cfg=cfg, positions=positions,
                     window=cfg.attn_window)
     kvs = []
-    for lp in L.unstack_layers(cw["layers"]):
+    for lp in L.unstack_layers(cw["layers"], int(L.is_chunk(cw))):
         x, kv = L.remat_call(layer, x, lp, remat=remat)
         if collect_cache:
             kvs.append(kv)
@@ -283,4 +301,5 @@ def build(cfg: ModelConfig) -> Model:
         prefill=partial(prefill, cfg=cfg),
         decode_step=partial(decode_step, cfg=cfg),
         compute_copies=compute_copies,
+        client_loss_fn=partial(L.chunk_loss, forward, cfg=cfg),
     )

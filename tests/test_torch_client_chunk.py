@@ -11,7 +11,7 @@ d 16, H 32 and the wide route's H 264):
 * each client's Δ and loss bitwise equal across chunk widths 1, 2, 4, 8, and
   to the clients trained one after another through ``loss_fn``;
 * the pieces: ``client_mm``, ``EmbedRows`` and ``lm_loss_clients`` with a
-  client axis, the wrappers' shape checks, and which families batch.
+  client axis, the wrappers' shape checks, and that every family batches.
 
 Tolerances against the reference: float32 atol 1e-5 / rtol 1e-4 and
 bfloat16 atol 3e-2, each Δ leaf divided by the reference's largest entry of
@@ -43,7 +43,10 @@ from repro_torch.kernels.cifg_cell import (cell_bwd, cell_bwd_seq,
 from repro_torch.models import build
 from repro_torch.models.embed import EmbedRows
 from repro_torch.models.layers import lm_loss, lm_loss_clients
-from repro_torch.utils.numerics import _widen, client_mm, rowstable_mm
+from repro_torch.utils.numerics import (client_apply, client_einsum,
+                                        client_matmul, client_mm,
+                                        compute_einsum, compute_mm,
+                                        rowstable_mm)
 from repro_torch.utils.params import from_jax_params, strip_compute
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unflatten
 # importing the autouse fixture `_one_thread` is what runs this file's tests
@@ -276,17 +279,46 @@ def test_client_mm_is_one_product_a_client_on_the_cpu(rows):
         client_mm(a[0], b[0])
 
 
-def test_widen_keeps_the_operand_layout():
-    """A single client is widened to two in its own layout: row-major stays
-    row-major and a transposed view stays transposed, the added matrix 0."""
-    t = torch.arange(12.0).reshape(1, 3, 4)
-    w = _widen(t)
-    assert w.shape == (2, 3, 4) and w.stride()[1:] == t.stride()[1:]
-    assert torch.equal(w[0], t[0]) and not w[1].any()
-    tt = t.transpose(1, 2)
-    wt = _widen(tt)
-    assert wt.shape == (2, 4, 3) and wt.stride(-2) == 1
-    assert torch.equal(wt[0], tt[0]) and not wt[1].any()
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_client_products_are_each_clients_own_call(dtype):
+    """`client_matmul` and `client_einsum`: client c's result is bitwise
+    the one-client `compute_mm` / `compute_einsum` of its own operands, a
+    transposed weight view included, and the shapes are checked."""
+    g = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn((3, 2, 5, 7), generator=g).to(dt)
+    w = torch.randn((3, 9, 7), generator=g)
+    got = client_matmul(x, w.transpose(1, 2))
+    for c in range(3):
+        assert torch.equal(got[c], compute_mm(x[c], w[c].t()))
+    e = torch.randn((3, 4, 7, 6), generator=g)
+    got = client_einsum("gd,edf->egf", x[:, 0], e)
+    for c in range(3):
+        assert torch.equal(got[c], compute_einsum("gd,edf->egf", x[c, 0],
+                                                  e[c]))
+    with pytest.raises(ValueError, match="client_matmul"):
+        client_matmul(x, w[:2].transpose(1, 2))
+
+
+def test_client_apply_is_each_clients_own_call():
+    """On the CPU an elementwise function of a chunk runs a client at a
+    time: each client's values and gradient bitwise its own call's (a
+    length whose tail leaves the vector code), in the input's layout."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 5, 7), generator=g).transpose(1, 2)
+    cot = torch.randn((3, 7, 5), generator=g)
+    for fn in (torch.nn.functional.silu, torch.nn.functional.softplus,
+               torch.exp):
+        xs = x.clone().requires_grad_(True)
+        out = client_apply(fn, xs, True)
+        assert out.stride() == x.stride()
+        (gx,) = torch.autograd.grad(out, xs, cot)
+        for c in range(3):
+            xc = x[c].clone().requires_grad_(True)
+            yc = fn(xc)
+            assert torch.equal(out[c], yc)
+            assert torch.equal(gx[c], torch.autograd.grad(yc, xc, cot[c])[0])
+    assert torch.equal(client_apply(torch.exp, x, False), torch.exp(x))
 
 
 def test_embed_rows_with_a_client_axis():
@@ -321,7 +353,11 @@ def test_lm_loss_clients_is_lm_loss_per_client(masked):
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
-def test_only_the_cifg_lstm_batches_its_chunk(arch):
+def test_every_family_batches_its_chunk(arch):
+    """Every architecture's model trains a chunk as one program, built for
+    its own configuration (``tests/test_torch_family_chunk.py`` holds each
+    family's against the reference)."""
     cfg = get_config(arch)
     model = build(cfg)
-    assert (model.client_loss_fn is not None) == (cfg.family == "lstm")
+    assert callable(model.client_loss_fn)
+    assert model.client_loss_fn.keywords["cfg"] == cfg

@@ -1475,3 +1475,231 @@ def test_chunk_program_is_client_invariant_at_full_width(cuda_device):
             assert torch.equal(losses[c], l1), (C, c)
             for a, b in zip(tree_leaves(deltas[c]), tree_leaves(d1)):
                 assert torch.equal(a, b), (C, c)
+
+
+def test_chunk_program_is_client_invariant_at_one_row(cuda_device):
+    """The same at a client batch of one row (B 1), where the products'
+    rows are fewest, and at chunk widths 3 and 17 that leave
+    `numerics.CLIENT_TILE`'s last block part-filled: every client's Δ and
+    loss are those of its C = 1 program bit for bit."""
+    from repro_torch.configs import ClientConfig
+    from repro_torch.fl.client import local_delta, local_deltas
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    model = build(get_config("gboard-cifg-lstm"))
+    params = model.init(torch.Generator().manual_seed(4), device=cuda_device)
+    nb, B, S = 2, 1, 16
+    toks, labels, mask = _chunk_batches(17, nb, B, S, 10_000, seed=6)
+    allb = {"tokens": torch.from_numpy(toks).to(cuda_device),
+            "labels": torch.from_numpy(labels).to(cuda_device),
+            "mask": torch.from_numpy(mask).to(cuda_device)}
+    cl = ClientConfig(local_epochs=1, batch_size=B, lr=0.3)
+    ones = [local_delta(model, params, tree_map(lambda l: l[c], allb), cl)
+            for c in range(17)]
+    for C in (3, 16, 17):
+        deltas, losses = local_deltas(
+            model, params, tree_map(lambda l: l[:C], allb), cl)
+        for c in range(C):
+            d1, l1 = ones[c]
+            assert torch.equal(losses[c], l1), (C, c)
+            for a, b in zip(tree_leaves(deltas[c]), tree_leaves(d1)):
+                assert torch.equal(a, b), (C, c)
+
+
+# ------------------------------------- every family's chunk of clients
+#
+# A chunk of clients trains as one program (`fl.client.local_deltas` →
+# `Model.client_loss_fn`): each client's products with its own weights
+# (`utils.numerics.client_matmul` / `client_einsum`, one call a client),
+# attention and the SSD scan with the clients folded into their batch (one
+# launch a chunk; their plain gradients a client at a time), the SSD scan
+# with one A per batch row. Every check is bitwise.
+
+# (name, rows M a client, K, N) of the zoo's products at full width, M as
+# phase 13 of chip_smoke.py runs them (B 2 × S 64 or 128; whisper's encoder
+# 2 × 1,500 frames); the one-hot embedding backward and the tied heads
+ZOO_PRODUCTS = (
+    ("granite q/o", 128, 2048, 2048), ("granite k/v", 128, 2048, 512),
+    ("granite gate/up", 128, 2048, 8192), ("granite down", 128, 8192, 2048),
+    ("granite head", 128, 2048, 49408),
+    ("olmoe router", 128, 2048, 64), ("olmoe q", 128, 2048, 2048),
+    ("mamba2 z/x", 256, 1024, 2048), ("mamba2 B/C", 256, 1024, 128),
+    ("mamba2 dt", 256, 1024, 32), ("mamba2 out", 256, 2048, 1024),
+    ("zamba2 z/x", 256, 2560, 5120), ("zamba2 out", 256, 5120, 2560),
+    ("zamba2 up", 256, 2560, 10240), ("zamba2 down", 256, 10240, 2560),
+    ("whisper encoder q", 3000, 768, 768), ("whisper up", 3000, 768, 3072),
+    ("whisper down", 3000, 3072, 768), ("whisper decoder up", 128, 768, 3072),
+    ("chameleon k/v", 128, 8192, 1024), ("chameleon up", 128, 8192, 22016),
+    ("chameleon down", 128, 22016, 8192))
+
+
+def _product_runs(fn, a, b, g):
+    """fn's output and both gradients for every chunk width 1–8 (the first
+    C clients) and for all 8 in reverse order."""
+    runs = {}
+    for C in list(range(1, 9)) + [-8]:
+        idx = torch.arange(8) if C == -8 else torch.arange(C)
+        if C == -8:
+            idx = idx.flip(0)
+        aa = a[idx].clone().requires_grad_(True)
+        bb = b[idx].clone().requires_grad_(True)
+        out = fn(aa, bb)
+        ga, gb = torch.autograd.grad(out, (aa, bb), g[idx])
+        runs[C] = [(out[j], ga[j], gb[j]) for j in range(len(idx))]
+        del aa, bb, out, ga, gb
+    return runs
+
+
+def _assert_product_runs_invariant(runs, what):
+    full = runs[8]
+    for C in range(1, 8):
+        for j in range(C):
+            assert all(torch.equal(x, y) for x, y in zip(runs[C][j], full[j])
+                       ), (what, C, j)
+    for j in range(8):
+        assert all(torch.equal(x, y) for x, y in zip(runs[-8][7 - j],
+                                                     full[j])), (what, j)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name,M,K,N", ZOO_PRODUCTS)
+def test_client_products_are_bitwise_across_chunk_widths(cuda_device, name,
+                                                         M, K, N, dtype):
+    """`client_matmul` at each product shape of the zoo's families: every
+    client's output and both gradients the same bits at chunk widths 1–8
+    and in reverse order, and a lone client's output that of the
+    one-client `compute_mm`; the heads also in the transposed layout
+    `embed.head_logits` hands on."""
+    from repro_torch.utils.numerics import client_matmul, compute_mm
+
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    dt = getattr(torch, dtype)
+    a = torch.randn((8, M, K), generator=g, device=cuda_device).to(dt)
+    b = (torch.randn((8, K, N), generator=g, device=cuda_device)
+         / K ** 0.5).to(dt)
+    cot = torch.randn((8, M, N), generator=g, device=cuda_device).to(dt)
+    _assert_product_runs_invariant(_product_runs(client_matmul, a, b, cot),
+                                   name)
+    assert torch.equal(client_matmul(a[:1], b[:1])[0], compute_mm(a[0], b[0]))
+    if "head" in name:
+        bt = b.transpose(1, 2).contiguous()
+        _assert_product_runs_invariant(_product_runs(
+            lambda x, w: client_matmul(x, w.transpose(1, 2)), a, bt, cot),
+            name + " (transposed)")
+
+
+@pytest.mark.parametrize("name,E,T,d,f", [
+    ("olmoe experts up", 64, 32, 2048, 1024),
+    ("olmoe experts down", 64, 32, 1024, 2048),
+    ("granite-moe experts up", 40, 48, 1536, 512),
+    ("granite-moe experts down", 40, 48, 512, 1536)])
+def test_client_einsum_experts_are_bitwise_across_chunk_widths(
+        cuda_device, name, E, T, d, f):
+    """The MoE's per-client expert products (`client_einsum`,
+    ``gecd,edf->gecf`` with every client's own experts) in bf16, at the
+    capacity T of one 128-token group (phase 13's B 2 × S 64): each
+    client's bits at widths 1–8."""
+    from repro_torch.utils.numerics import client_einsum
+
+    g = torch.Generator(device=cuda_device).manual_seed(E + T)
+    a = torch.randn((8, 1, E, T, d), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    b = (torch.randn((8, E, d, f), generator=g, device=cuda_device)
+         / d ** 0.5).to(torch.bfloat16)
+    cot = torch.randn((8, 1, E, T, f), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    _assert_product_runs_invariant(_product_runs(
+        lambda x, w: client_einsum("gecd,edf->gecf", x, w), a, b, cot), name)
+
+
+@pytest.mark.parametrize("B,S,H,p,N", [(8, 128, 32, 64, 128),
+                                       (8, 128, 80, 64, 64)])
+def test_ssd_kernel_per_row_a_matches_plain_on_card(cuda_device, B, S, H, p,
+                                                    N):
+    """One A per batch row at mamba2-370m's and zamba2-2.7b's folded shapes
+    (4 clients × B 2): within the SSD tolerance of the plain chunked form
+    with the same (B, H) A, each row bitwise its own call with that row's
+    (H,) A, in f32 and with bf16 inputs."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    x, dt, Bm, Cm, _ = _ssd_inputs(B, S, H, p, N, cuda_device, 11)
+    rng = np.random.default_rng(12)
+    A = -torch.from_numpy(np.exp(rng.standard_normal((B, H))).astype(
+        np.float32)).to(cuda_device)
+    before = SSD["ssd_scan"]
+    y, st = ssd_scan(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert SSD["ssd_scan"] == before + 1
+    yr, sr = ssd_chunked(x, dt, Bm, Cm, A, torch.zeros_like(st))
+    for got, want in ((y, yr), (st, sr)):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < 1e-4, err
+    for b in range(B):
+        y1, s1 = ssd_scan(x[b:b + 1], dt[b:b + 1], Bm[b:b + 1], Cm[b:b + 1],
+                          A[b])
+        assert torch.equal(y1[0], y[b]) and torch.equal(s1[0], st[b])
+    xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    yb, sb = ssd_scan(xb, dt, Bb, Cb, A)
+    yf, sf = ssd_scan(xb.float(), dt, Bb.float(), Cb.float(), A)
+    assert torch.equal(yb, yf) and torch.equal(sb, sf)
+
+
+def test_ssd_kernel_stride_zero_a_is_the_shared_call(cuda_device):
+    """A (B, H) A expanded from one row (stride 0, the kernel's a_stride 0)
+    is bitwise the (H,) call, and a materialised copy of it (a_stride H)
+    gives the same bits too."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x, dt, Bm, Cm, A = _ssd_inputs(4, 256, 32, 64, 128, cuda_device, 13)
+    y, st = ssd_scan(x, dt, Bm, Cm, A)
+    for rows in (A.expand(4, 32), A.expand(4, 32).contiguous()):
+        y2, st2 = ssd_scan(x, dt, Bm, Cm, rows)
+        assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("B", [1, 2, 10])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_chunk_is_bitwise_across_chunk_widths_on_card(cuda_device,
+                                                             arch, dtype, B):
+    """Each family reduced, at B 1, 2 and 10 (the training CLI's default
+    client batch): `local_deltas` of chunks of 1–4 clients (and the four in
+    reverse order) gives every client the same Δ and loss bit for bit, with
+    one flash launch per attention site and one SSD launch per mixer a
+    forward for the whole chunk (two under remat)."""
+    from repro_torch.configs import ClientConfig
+    from repro_torch.fl.client import local_deltas
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = get_config(arch).reduced().with_(compute_dtype=dtype)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=cuda_device)
+    per = [_family_batches(cfg, 2, B, 32, seed=c) for c in range(4)]
+    allb = {k: torch.stack([b[k] for b in per]).to(cuda_device)
+            for k in per[0]}
+    cl = ClientConfig(local_epochs=1, batch_size=B, lr=0.1)
+    sites = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+             "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+             "hybrid": cfg.n_layers // cfg.hybrid_attn_every, "ssm": 0}
+    mixers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    runs = {}
+    for order in ((0,), (0, 1), (0, 1, 2), (0, 1, 2, 3), (3, 2, 1, 0)):
+        before = (FA["flash_attention_fwd"], SSD["ssd_scan"])
+        deltas, losses = local_deltas(
+            model, params, tree_map(lambda l: l[list(order)], allb), cl)
+        torch.cuda.synchronize()
+        assert (FA["flash_attention_fwd"] - before[0],
+                SSD["ssd_scan"] - before[1]) == (4 * sites[cfg.family],
+                                                  4 * mixers)
+        runs[order] = {c: (tree_leaves(deltas[j]), losses[j])
+                       for j, c in enumerate(order)}
+    full = runs[(0, 1, 2, 3)]
+    for order, got in runs.items():
+        for c, (d, l) in got.items():
+            assert torch.equal(l, full[c][1]), (arch, order, c)
+            assert all(torch.equal(a, b) for a, b in zip(d, full[c][0])), (
+                arch, order, c)
+            assert all(bool(torch.isfinite(a).all()) for a in d)
