@@ -4796,6 +4796,7 @@ def _shard_rank(dev, runs, store: str, vocab: int, cohort: int) -> dict:
     from repro_torch.kernels.cifg_cell import ops as cell_ops
     from repro_torch.kernels.dp_clip import ops as clip_ops
     from repro_torch.models import build
+    from repro_torch.utils import spans
     from repro_torch.utils.pytree import tree_map
 
     if torch.distributed.is_initialized():
@@ -4845,7 +4846,8 @@ def _shard_rank(dev, runs, store: str, vocab: int, cohort: int) -> dict:
                 c[k] = 0
         _sync(dev)
         t0 = time.time()
-        state, hist = e.run(state, spec["rounds"])
+        with spans.recording() as rec:
+            state, hist = e.run(state, spec["rounds"])
         _sync(dev)
         t1 = time.time()
         launches = {k: v for c in counters for k, v in c.items()}
@@ -4854,7 +4856,10 @@ def _shard_rank(dev, runs, store: str, vocab: int, cohort: int) -> dict:
             participation=e.population(state.participation).cpu(),
             last_round=e.population(state.last_round).cpu(), hist=hist,
             ids=[i.cpu() for i in ids], launches=launches, t0=t0, t1=t1,
-            gather=dict(e.gather_log), pop_bytes=pop_bytes,
+            gather={"bytes": rec.counts["gather_bytes"],
+                    "seconds": sum(g.end_ns - g.start_ns for g in
+                                   rec.by_name("engine.gather")) / 1e9},
+            pop_bytes=pop_bytes,
             staged=e.corpus_device_bytes, chunk=e.cohort_chunk,
             padded=e.padded)
     return out

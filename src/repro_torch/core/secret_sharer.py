@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.models.api import Model
 from repro_torch.utils.pytree import tree_leaves
+from repro_torch.utils.spans import count, span
 
 CANARY_LEN = 5
 PREFIX_LEN = 2
@@ -167,33 +168,40 @@ def random_sampling_ranks(model: Model, params, canaries: Sequence[Canary],
     vocab = model.cfg.vocab
     cont_len = CANARY_LEN - PREFIX_LEN
     dev = _device(params)
-    toks = torch.from_numpy(canary_matrix(canaries)).to(dev)
-    prefixes = toks[:, :PREFIX_LEN]
-    canary_scores = score_canaries(model, params, toks)
-    pool = None
-    if continuations is not None:
-        pool = torch.as_tensor(continuations).to(dev)
-        if pool.dim() != 2 or pool.shape[1] != cont_len:
-            raise ValueError(f"continuations must be (|R|, {cont_len}), got "
-                             f"{tuple(pool.shape)}")
-        n_samples = pool.shape[0]
-    elif generator is None:
-        raise ValueError("random_sampling_ranks needs a generator or a "
-                         "continuations pool")
-    ranks = torch.zeros((K,), dtype=torch.int64, device=dev)
-    for i in range(0, n_samples, batch_size):
-        b = min(batch_size, n_samples - i)
-        if pool is not None:
-            conts = pool[i:i + b]
-        else:
-            conts = torch.randint(0, vocab, (b, cont_len), generator=generator,
-                                  device=generator.device).to(dev)
-        seqs = torch.cat([prefixes[:, None].expand(K, b, PREFIX_LEN),
-                          conts[None].expand(K, b, cont_len).to(toks.dtype)],
-                         dim=-1).reshape(K * b, CANARY_LEN)
-        scores = score_canaries(model, params, seqs).reshape(K, b)
-        ranks += (scores < canary_scores[:, None]).sum(dim=1)
-    return ranks.cpu().numpy()
+    with span("rs.pass"):
+        toks = torch.from_numpy(canary_matrix(canaries)).to(dev)
+        prefixes = toks[:, :PREFIX_LEN]
+        with span("rs.canaries"):
+            canary_scores = score_canaries(model, params, toks)
+        pool = None
+        if continuations is not None:
+            pool = torch.as_tensor(continuations).to(dev)
+            if pool.dim() != 2 or pool.shape[1] != cont_len:
+                raise ValueError(f"continuations must be (|R|, {cont_len}), "
+                                 f"got {tuple(pool.shape)}")
+            n_samples = pool.shape[0]
+        elif generator is None:
+            raise ValueError("random_sampling_ranks needs a generator or a "
+                             "continuations pool")
+        ranks = torch.zeros((K,), dtype=torch.int64, device=dev)
+        for i in range(0, n_samples, batch_size):
+            with span("rs.chunk", chunk=i // batch_size):
+                b = min(batch_size, n_samples - i)
+                if pool is not None:
+                    conts = pool[i:i + b]
+                else:
+                    conts = torch.randint(0, vocab, (b, cont_len),
+                                          generator=generator,
+                                          device=generator.device).to(dev)
+                seqs = torch.cat(
+                    [prefixes[:, None].expand(K, b, PREFIX_LEN),
+                     conts[None].expand(K, b, cont_len).to(toks.dtype)],
+                    dim=-1).reshape(K * b, CANARY_LEN)
+                scores = score_canaries(model, params, seqs).reshape(K, b)
+                ranks += (scores < canary_scores[:, None]).sum(dim=1)
+        with span("rs.read"):
+            count("host_reads")
+            return ranks.cpu().numpy()
 
 
 def random_sampling_rank(model: Model, params, canary: Canary,

@@ -54,6 +54,7 @@ from repro_torch.models.api import Model
 from repro_torch.utils.params import strip_compute
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_sub,
                                       tree_unflatten, tree_zeros_like)
+from repro_torch.utils.spans import count, span
 
 
 def _index(tree, i):
@@ -88,16 +89,17 @@ def _local_sgd_clients(model: Model, params0, chunk_batches,
     for _ in range(client.local_epochs):
         losses = []
         for i in range(n_batches):
-            leaves = [l.detach().requires_grad_(True) for l in flat]
-            loss = model.client_loss_fn(
-                tree_unflatten(params0, leaves),
-                tree_map(lambda l: l[:, i], chunk_batches))
-            grads = list(torch.autograd.grad(loss.sum(), leaves))
-            del leaves
+            with span("client.grad"):
+                leaves = [l.detach().requires_grad_(True) for l in flat]
+                loss = model.client_loss_fn(
+                    tree_unflatten(params0, leaves),
+                    tree_map(lambda l: l[:, i], chunk_batches))
+                grads = list(torch.autograd.grad(loss.sum(), leaves))
+                del leaves
             # leaf by leaf, each gradient and old leaf dropped as soon as
             # its update is made: a full-width chunk holds C copies of the
             # model in each of them
-            with torch.no_grad():
+            with span("client.update"), torch.no_grad():
                 for j, w in enumerate(flat):
                     g, grads[j] = grads[j], None
                     flat[j] = (w.float() - client.lr * g.float()).to(w.dtype)
@@ -123,11 +125,12 @@ def local_sgd(model: Model, params, batches: Dict[str, torch.Tensor],
     for _ in range(client.local_epochs):
         losses = []
         for i in range(n_batches):
-            q = tree_map(lambda l: l.detach().requires_grad_(True), p)
-            loss = model.loss_fn(q, _index(batches, i))
-            grads = tree_unflatten(q, torch.autograd.grad(loss,
-                                                          tree_leaves(q)))
-            with torch.no_grad():
+            with span("client.grad"):
+                q = tree_map(lambda l: l.detach().requires_grad_(True), p)
+                loss = model.loss_fn(q, _index(batches, i))
+                grads = tree_unflatten(q, torch.autograd.grad(
+                    loss, tree_leaves(q)))
+            with span("client.update"), torch.no_grad():
                 p = tree_map(lambda w, g: (w.float() - client.lr * g.float())
                              .to(w.dtype), q, grads)
             losses.append(loss.detach())
@@ -157,21 +160,22 @@ def local_deltas(model: Model, params, chunk_batches, client: ClientConfig
     program and the delta trees are views of one (chunk, …) stack a leaf;
     a model built with ``client_loss_fn=None`` runs the clients one after
     another."""
-    if model.client_loss_fn is None:
-        n = tree_leaves(chunk_batches)[0].shape[0]
-        out = [local_delta(model, params, _index(chunk_batches, i), client)
-               for i in range(n)]
-        return [d for d, _ in out], torch.stack([l for _, l in out])
-    params0 = strip_compute(params)
-    local, losses = _local_sgd_clients(model, params0, chunk_batches,
-                                       client)
-    # in place: the local parameters are this call's own
-    delta = tree_map(lambda a, b: a.float().sub_(b.detach().float()), local,
-                     params0)
-    del local
-    leaves = [l.unbind(0) for l in tree_leaves(delta)]
-    return ([tree_unflatten(delta, list(ls)) for ls in zip(*leaves)],
-            losses)
+    with span("client.step"):
+        if model.client_loss_fn is None:
+            n = tree_leaves(chunk_batches)[0].shape[0]
+            out = [local_delta(model, params, _index(chunk_batches, i),
+                               client) for i in range(n)]
+            return [d for d, _ in out], torch.stack([l for _, l in out])
+        params0 = strip_compute(params)
+        local, losses = _local_sgd_clients(model, params0, chunk_batches,
+                                           client)
+        # in place: the local parameters are this call's own
+        delta = tree_map(lambda a, b: a.float().sub_(b.detach().float()),
+                         local, params0)
+        del local
+        leaves = [l.unbind(0) for l in tree_leaves(delta)]
+        return ([tree_unflatten(delta, list(ls)) for ls in zip(*leaves)],
+                losses)
 
 
 def user_update(model: Model, params0, batches, client: ClientConfig,
@@ -213,35 +217,36 @@ def chunk_accumulate(acc, deltas: List, losses, mask, clip_norm: float, *,
     becomes 0. On ``clip_path="fused"`` every slot's factor is computed
     first and the chunk is folded with one accumulate launch per leaf; the
     bits are those of one `clip_accumulate_tree` per slot."""
-    upd, stats = acc
-    m = mask.float()
-    slots = []
-    for i, delta in enumerate(deltas):
-        loss, mi = losses[i], m[i]
-        if guard_nonfinite:
-            ok = torch.stack([torch.isfinite(l).all()
-                              for l in tree_leaves(delta)]
-                             + [torch.isfinite(loss)]).all().float()
-            delta = tree_map(lambda l: torch.where(torch.isfinite(l), l, 0.0),
-                             delta)
-            loss = torch.where(torch.isfinite(loss), loss, 0.0)
-            mi = mi * ok
-        slots.append((delta, loss, mi))
-    if clip_path == "fused" and slots:
-        upd, norms, flags = clip_accumulate_chunk_tree(
-            upd, [d for d, _, _ in slots], clip_norm,
-            [mi for _, _, mi in slots])
-    else:
-        norms, flags = [], []
-        for delta, _, mi in slots:
-            upd, norm, flag = clip_accumulate_tree(upd, delta, clip_norm,
-                                                   scale=mi,
-                                                   clip_path=clip_path)
-            norms.append(norm)
-            flags.append(flag)
-    for (_, loss, mi), norm, flag in zip(slots, norms, flags):
-        stats = stats + torch.stack([norm * mi, flag * mi, loss * mi, mi])
-    return upd, stats
+    with span("clip.accumulate"):
+        upd, stats = acc
+        m = mask.float()
+        slots = []
+        for i, delta in enumerate(deltas):
+            loss, mi = losses[i], m[i]
+            if guard_nonfinite:
+                ok = torch.stack([torch.isfinite(l).all()
+                                  for l in tree_leaves(delta)]
+                                 + [torch.isfinite(loss)]).all().float()
+                delta = tree_map(
+                    lambda l: torch.where(torch.isfinite(l), l, 0.0), delta)
+                loss = torch.where(torch.isfinite(loss), loss, 0.0)
+                mi = mi * ok
+            slots.append((delta, loss, mi))
+        if clip_path == "fused" and slots:
+            upd, norms, flags = clip_accumulate_chunk_tree(
+                upd, [d for d, _, _ in slots], clip_norm,
+                [mi for _, _, mi in slots])
+        else:
+            norms, flags = [], []
+            for delta, _, mi in slots:
+                upd, norm, flag = clip_accumulate_tree(upd, delta, clip_norm,
+                                                       scale=mi,
+                                                       clip_path=clip_path)
+                norms.append(norm)
+                flags.append(flag)
+        for (_, loss, mi), norm, flag in zip(slots, norms, flags):
+            stats = stats + torch.stack([norm * mi, flag * mi, loss * mi, mi])
+        return upd, stats
 
 
 def stream_block_sums(compute_chunk, chunk_inputs, chunk_masks, params_like,
@@ -265,6 +270,7 @@ def stream_block_sums(compute_chunk, chunk_inputs, chunk_masks, params_like,
     dev = tree_leaves(params_like)[0].device
     masks = torch.as_tensor(chunk_masks, dtype=torch.float32)
     if live is None:
+        count("host_reads")
         live = (masks.cpu() > 0).any(dim=-1).tolist()
     masks = masks.to(dev)
     partials, stats = [], []
@@ -273,12 +279,16 @@ def stream_block_sums(compute_chunk, chunk_inputs, chunk_masks, params_like,
                torch.zeros((4,), dtype=torch.float32, device=dev))
         for j, chunk_live in enumerate(block_live):
             if not chunk_live:
+                count("chunks_skipped")
                 continue
-            deltas, losses = compute_chunk(
-                tree_map(lambda l: l[b, j], chunk_inputs))
-            acc = chunk_accumulate(acc, deltas, losses, masks[b, j],
-                                   clip_norm, clip_path=clip_path,
-                                   guard_nonfinite=guard_nonfinite)
+            count("chunks_live")
+            with span("engine.chunk", block=b, chunk=j,
+                      clients=masks.shape[-1]):
+                deltas, losses = compute_chunk(
+                    tree_map(lambda l: l[b, j], chunk_inputs))
+                acc = chunk_accumulate(acc, deltas, losses, masks[b, j],
+                                       clip_norm, clip_path=clip_path,
+                                       guard_nonfinite=guard_nonfinite)
         partials.append(acc[0])
         stats.append(acc[1])
     return _stack(partials), torch.stack(stats)

@@ -108,7 +108,6 @@ buffers into one of two device buffers.
 """
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -135,6 +134,7 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.params import strip_compute
 from repro_torch.utils.pytree import (tree_leaves, tree_map, tree_noise,
                                       tree_unflatten)
+from repro_torch.utils.spans import count, span
 
 __all__ = ["EngineDraws", "EngineState", "POPULATION_BACKENDS", "SAMPLERS",
            "SimEngine", "example_indices", "gather_client_batches",
@@ -424,8 +424,6 @@ class SimEngine:
                      if self.total_shards > 1 else None)
         self.rank = (pop_sampler.shard_rank(self.mesh)
                      if self.mesh is not None else 0)
-        # bytes received and seconds spent by this rank's gathers
-        self.gather_log = {"bytes": 0, "seconds": 0.0}
         self.model = model
         self.dp = dp
         self.client = client
@@ -630,17 +628,17 @@ class SimEngine:
                 ) -> torch.Tensor:
         """``x`` of every rank, pod-major (``axis`` None: over both axes,
         `pop_sampler.gather_shards`), or over one mesh axis; identity on
-        one rank. The time (after this rank's queued work is done) and the
-        bytes received go to ``gather_log``."""
+        one rank. The ``engine.gather`` span starts once this rank's queued
+        work is done; the bytes received go to the ``gather_bytes``
+        counter."""
         if self.mesh is None:
             return x
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        out = (pop_sampler.gather_shards(x, self.mesh) if axis is None
-               else all_gather_copies(x, self.mesh.get_group(axis)))
-        self.gather_log["seconds"] += time.perf_counter() - t0
-        self.gather_log["bytes"] += out.numel() * out.element_size()
+        with span("engine.gather"):
+            out = (pop_sampler.gather_shards(x, self.mesh) if axis is None
+                   else all_gather_copies(x, self.mesh.get_group(axis)))
+        count("gather_bytes", out.numel() * out.element_size())
         return out
 
     def population(self, vec: torch.Tensor) -> torch.Tensor:
@@ -720,66 +718,70 @@ class SimEngine:
         ``live`` is the host list of this rank's live chunks (fixed
         rounds) or None (read from the mask). Every draw covers the whole
         padded cohort, on every rank."""
-        d.begin_round(r)
-        took = None
-        if self.sampler == "sharded":
-            ids, slot_mask = self._select_sharded(d, r, last_round)
-        else:
-            avail = (d.available(self.n_users).to(self.device)
-                     < self.availability) | self.synthetic
-            if self.sampling == "poisson":
-                ids, slot_mask, took = d.poisson(self.sel_q, avail,
-                                                 self.padded)
-                ids, slot_mask = ids.to(self.device), slot_mask.to(
-                    self.device)
-                took = took.to(self.device)
+        with span("engine.sample"):
+            d.begin_round(r)
+            took = None
+            if self.sampler == "sharded":
+                ids, slot_mask = self._select_sharded(d, r, last_round)
             else:
-                w = self.weight_fn(last_round, self.synthetic, r)
-                ids = d.cohort(w, avail, self.sel_cohort).to(self.device)
-                ids = torch.nn.functional.pad(
-                    ids, (0, self.padded - self.sel_cohort))
-                slot_mask = self._fixed_mask
-        live = self._fixed_live if self.sampling == "fixed" else None
-        if self.faults is None:
-            report_mask, corrupt = slot_mask, None
-        else:
-            # slot-level fates from the fault stream, on the host: a fixed
-            # round's live chunks follow from them without a device read
-            fates = d.fates(r, self.padded, self.faults)
-            reported = fates.reported.cpu()
-            report_mask = slot_mask & reported.to(self.device)
-            corrupt = report_mask & fates.corrupt.to(self.device)
-            if live is not None:
-                live = self._live((self._fixed_host & reported)[self._slots])
-        part_mask = slot_mask if self.faults is None else report_mask
-        if self.sampler == "sharded":
-            # O(cohort) masked scatters into this rank's rows: last_round
-            # reacts to selection, participation to the reports that arrived
-            offset = self._pop_rows[0]
-            last_round = pop_sampler.scatter_max(last_round, ids, slot_mask,
-                                                 r, offset)
-            participation = pop_sampler.scatter_add(participation, ids,
-                                                    part_mask, offset)
-        elif self.sampling == "poisson":
-            last_round = torch.where(took, r, last_round).to(torch.int32)
+                avail = (d.available(self.n_users).to(self.device)
+                         < self.availability) | self.synthetic
+                if self.sampling == "poisson":
+                    ids, slot_mask, took = d.poisson(self.sel_q, avail,
+                                                     self.padded)
+                    ids, slot_mask = ids.to(self.device), slot_mask.to(
+                        self.device)
+                    took = took.to(self.device)
+                else:
+                    w = self.weight_fn(last_round, self.synthetic, r)
+                    ids = d.cohort(w, avail, self.sel_cohort).to(self.device)
+                    ids = torch.nn.functional.pad(
+                        ids, (0, self.padded - self.sel_cohort))
+                    slot_mask = self._fixed_mask
+            live = self._fixed_live if self.sampling == "fixed" else None
             if self.faults is None:
-                participation = participation + took.to(torch.int32)
+                report_mask, corrupt = slot_mask, None
             else:
+                # slot-level fates from the fault stream, on the host: a
+                # fixed round's live chunks follow from them without a
+                # device read
+                fates = d.fates(r, self.padded, self.faults)
+                reported = fates.reported.cpu()
+                report_mask = slot_mask & reported.to(self.device)
+                corrupt = report_mask & fates.corrupt.to(self.device)
+                if live is not None:
+                    live = self._live(
+                        (self._fixed_host & reported)[self._slots])
+            part_mask = slot_mask if self.faults is None else report_mask
+            if self.sampler == "sharded":
+                # O(cohort) masked scatters into this rank's rows:
+                # last_round reacts to selection, participation to the
+                # reports that arrived
+                offset = self._pop_rows[0]
+                last_round = pop_sampler.scatter_max(last_round, ids,
+                                                     slot_mask, r, offset)
+                participation = pop_sampler.scatter_add(participation, ids,
+                                                        part_mask, offset)
+            elif self.sampling == "poisson":
+                last_round = torch.where(took, r, last_round).to(torch.int32)
+                if self.faults is None:
+                    participation = participation + took.to(torch.int32)
+                else:
+                    participation = participation.index_add(
+                        0, ids, report_mask.to(torch.int32))
+            else:
+                # padded slots alias device 0: scatter through the mask so
+                # they never touch the population vectors
+                last_round = last_round.scatter_reduce(
+                    0, ids,
+                    torch.where(slot_mask, r, _NEVER).to(torch.int32),
+                    reduce="amax")
                 participation = participation.index_add(
-                    0, ids, report_mask.to(torch.int32))
-        else:
-            # padded slots alias device 0: scatter through the mask so they
-            # never touch the population vectors
-            last_round = last_round.scatter_reduce(
-                0, ids, torch.where(slot_mask, r, _NEVER).to(torch.int32),
-                reduce="amax")
-            participation = participation.index_add(
-                0, ids, part_mask.to(torch.int32))
-        need = self.n_local_batches * self.client.batch_size
-        idx = d.example_indices(self.counts[ids], need).to(self.device)
-        return last_round, participation, _Cohort(ids, slot_mask,
-                                                  report_mask, corrupt, idx,
-                                                  live)
+                    0, ids, part_mask.to(torch.int32))
+            need = self.n_local_batches * self.client.batch_size
+            idx = d.example_indices(self.counts[ids], need).to(self.device)
+            return last_round, participation, _Cohort(
+                ids, slot_mask, report_mask, corrupt, idx, live)
 
     def _block_sums(self, params, examples, ids, idx, mask, live,
                     corrupt=None):
@@ -815,8 +817,9 @@ class SimEngine:
             inputs["bad"] = corrupt.to(torch.float32).reshape(shape3)
 
         def compute_chunk(inp):
-            batches = gather_client_batches(examples, inp["ids"],
-                                            inp["idx"], nb, B)
+            with span("client.gather"):
+                batches = gather_client_batches(examples, inp["ids"],
+                                                inp["idx"], nb, B)
             deltas, losses = local_deltas(self.model, params, batches,
                                           self.client)
             if corrupt is None:
@@ -838,21 +841,23 @@ class SimEngine:
         a block: gathered over ``data``, folded pod by pod, and only the
         pod partials gathered over ``pod`` and folded again — copies and
         the canonical tree, never a sum inside a collective."""
-        if self.mesh is None:
-            return fold_round(partials, stats)
-        leaves = tree_leaves(partials)
-        nb = stats.shape[0]
-        flat = torch.cat([l.reshape(nb, -1) for l in leaves] + [stats], 1)
-        folded = fold_blocks(self._gather(flat, "data"))
-        if self.num_pods > 1:
-            folded = fold_blocks(self._gather(folded[None], "pod"))
-        sizes = [l[0].numel() for l in leaves] + [4]
-        parts = torch.split(folded, sizes)
-        total = tree_unflatten(partials, [p.reshape(l.shape[1:]) for p, l
-                                          in zip(parts, leaves)])
-        s = parts[-1]
-        denom = torch.clamp(s[3], min=1.0)
-        return total, s[0] / denom, s[1] / denom, s[2] / denom, s[3]
+        with span("engine.fold"):
+            if self.mesh is None:
+                return fold_round(partials, stats)
+            leaves = tree_leaves(partials)
+            nb = stats.shape[0]
+            flat = torch.cat([l.reshape(nb, -1) for l in leaves] + [stats],
+                             1)
+            folded = fold_blocks(self._gather(flat, "data"))
+            if self.num_pods > 1:
+                folded = fold_blocks(self._gather(folded[None], "pod"))
+            sizes = [l[0].numel() for l in leaves] + [4]
+            parts = torch.split(folded, sizes)
+            total = tree_unflatten(partials, [p.reshape(l.shape[1:])
+                                              for p, l in zip(parts, leaves)])
+            s = parts[-1]
+            denom = torch.clamp(s[3], min=1.0)
+            return total, s[0] / denom, s[1] / denom, s[2] / denom, s[3]
 
     def _compute_phase(self, params, opt_state, draws, r: int,
                        cohort: _Cohort, examples, slot_ids):
@@ -860,47 +865,52 @@ class SimEngine:
         cohort and the rows this rank's slots gather from
         (``examples[slot_ids[c]]``, ``slot_ids`` of this rank's slots)."""
         sl = self._slots
-        total, mean_norm, frac, loss, accepted = self._fold_ranks(
-            *self._block_sums(
-                params, examples, slot_ids, cohort.idx[sl],
-                cohort.report_mask[sl], cohort.live,
-                None if cohort.corrupt is None else cohort.corrupt[sl]))
-        std = self.dp.noise_multiplier * self.dp.clip_norm \
-            / float(self._round_denom)
-        # the noise is drawn whether or not the round commits, so that no
-        # later draw depends on the verdict
-        delta, _ = finalize_round(total, self._round_denom, None, self.dp,
-                                  stats=(mean_norm, frac),
-                                  noise=draws.noise(total, std))
-        new_params, new_opt = server_step(params, opt_state, delta, self.dp)
-        n_selected = cohort.slot_mask.sum().to(torch.int32)
-        rec = {"loss": loss, "mean_update_norm": mean_norm,
-               "frac_clipped": frac, "noise_std": std,
-               "n_clients": n_selected}
-        if self.faults is not None:
-            # commit iff the accepted reports reach the goal, decided on
-            # the device: an aborted round keeps every old leaf's bits
-            committed = accepted >= float(self.report_goal)
-            new_params, new_opt = _select(committed, (new_params, new_opt),
-                                          (params, opt_state))
-            rec.update(n_clients=accepted.to(torch.int32),
-                       n_selected=n_selected,
-                       n_reported=cohort.report_mask.sum().to(torch.int32),
-                       committed=committed)
-        if self.eval_fn is not None:
-            rec["eval_mask"] = (r + 1) % self.eval_every == 0
-            if rec["eval_mask"]:
-                with torch.no_grad():
-                    rec["eval"] = self.eval_fn(new_params, r)
-        return new_params, new_opt, rec
+        with span("engine.compute"):
+            total, mean_norm, frac, loss, accepted = self._fold_ranks(
+                *self._block_sums(
+                    params, examples, slot_ids, cohort.idx[sl],
+                    cohort.report_mask[sl], cohort.live,
+                    None if cohort.corrupt is None else cohort.corrupt[sl]))
+            std = self.dp.noise_multiplier * self.dp.clip_norm \
+                / float(self._round_denom)
+            with span("server.step"):
+                # the noise is drawn whether or not the round commits, so
+                # that no later draw depends on the verdict
+                delta, _ = finalize_round(total, self._round_denom, None,
+                                          self.dp, stats=(mean_norm, frac),
+                                          noise=draws.noise(total, std))
+                new_params, new_opt = server_step(params, opt_state, delta,
+                                                  self.dp)
+            n_selected = cohort.slot_mask.sum().to(torch.int32)
+            rec = {"loss": loss, "mean_update_norm": mean_norm,
+                   "frac_clipped": frac, "noise_std": std,
+                   "n_clients": n_selected}
+            if self.faults is not None:
+                # commit iff the accepted reports reach the goal, decided on
+                # the device: an aborted round keeps every old leaf's bits
+                committed = accepted >= float(self.report_goal)
+                new_params, new_opt = _select(
+                    committed, (new_params, new_opt), (params, opt_state))
+                rec.update(n_clients=accepted.to(torch.int32),
+                           n_selected=n_selected,
+                           n_reported=cohort.report_mask.sum().to(
+                               torch.int32),
+                           committed=committed)
+            if self.eval_fn is not None:
+                rec["eval_mask"] = (r + 1) % self.eval_every == 0
+                if rec["eval_mask"]:
+                    with torch.no_grad():
+                        rec["eval"] = self.eval_fn(new_params, r)
+            return new_params, new_opt, rec
 
     def _round(self, state: EngineState) -> Tuple[EngineState, Dict]:
         r = state.round_idx
-        last_round, participation, cohort = self._sample_phase(
-            state.draws, state.last_round, state.participation, r)
-        params, opt_state, rec = self._compute_phase(
-            state.params, state.opt_state, state.draws, r, cohort,
-            self.examples, cohort.ids[self._slots])
+        with span("engine.round", round=r):
+            last_round, participation, cohort = self._sample_phase(
+                state.draws, state.last_round, state.participation, r)
+            params, opt_state, rec = self._compute_phase(
+                state.params, state.opt_state, state.draws, r, cohort,
+                self.examples, cohort.ids[self._slots])
         return EngineState(params, opt_state, state.draws, last_round,
                            participation, r + 1), rec
 
@@ -935,6 +945,7 @@ class SimEngine:
         Poisson rounds their report mask in the same transfer. On a CUDA
         engine it goes through a pinned buffer and waits for the current
         stream alone."""
+        count("host_reads")
         sl = self._slots
         payload = cohort.ids[sl]
         if self.sampling == "poisson":
@@ -964,18 +975,19 @@ class SimEngine:
         ids = host[:n].numpy()
         if self.sampling == "poisson":
             cohort = cohort._replace(live=self._live(host[n:2 * n] > 0))
-        rows = self.store.gather(ids)
-        if self.device.type != "cuda":
-            st["device"][slot].copy_(torch.from_numpy(rows))
-            return last_round, participation, cohort
-        # host[slot] is free once its last copy has run; device[slot] once
-        # the compute that read it two rounds ago has
-        stream = torch.cuda.current_stream(self.device)
-        st["copied"][slot].synchronize()
-        np.copyto(st["host"][slot].numpy(), rows)
-        stream.wait_event(st["consumed"][slot])
-        st["device"][slot].copy_(st["host"][slot], non_blocking=True)
-        st["copied"][slot].record(stream)
+        with span("engine.stage"):
+            rows = self.store.gather(ids)
+            if self.device.type != "cuda":
+                st["device"][slot].copy_(torch.from_numpy(rows))
+                return last_round, participation, cohort
+            # host[slot] is free once its last copy has run; device[slot]
+            # once the compute that read it two rounds ago has
+            stream = torch.cuda.current_stream(self.device)
+            st["copied"][slot].synchronize()
+            np.copyto(st["host"][slot].numpy(), rows)
+            stream.wait_event(st["consumed"][slot])
+            st["device"][slot].copy_(st["host"][slot], non_blocking=True)
+            st["copied"][slot].record(stream)
         return last_round, participation, cohort
 
     def _run_streamed(self, state: EngineState, n_rounds: int,
@@ -990,13 +1002,14 @@ class SimEngine:
         hists, recs = [], []
         for _ in range(n_rounds):
             slot = r % 2
-            last_round, participation, cohort = self._sample_and_stage(
-                state.draws, last_round, participation, r, slot)
-            params, opt_state, rec = self._compute_phase(
-                params, opt_state, state.draws, r, cohort, st["device"][slot],
-                st["slots"])
-            if cuda:
-                st["consumed"][slot].record()
+            with span("engine.round", round=r):
+                last_round, participation, cohort = self._sample_and_stage(
+                    state.draws, last_round, participation, r, slot)
+                params, opt_state, rec = self._compute_phase(
+                    params, opt_state, state.draws, r, cohort,
+                    st["device"][slot], st["slots"])
+                if cuda:
+                    st["consumed"][slot].record()
             r += 1
             recs.append(rec)
             if len(recs) == per_call:
@@ -1046,20 +1059,22 @@ class SimEngine:
     def _read(self, recs: List[Dict], params) -> Dict[str, np.ndarray]:
         """Stack a call's round records and bring every device value to the
         host in one transfer."""
-        if self.eval_fn is not None:
-            zeros = self._eval_zeros(recs, params)
-            for rec in recs:
-                rec.setdefault("eval", zeros)
-        keys = ("loss", "mean_update_norm", "frac_clipped", "n_clients")
-        if self.faults is not None:
-            keys += ("n_selected", "n_reported", "committed")
-        cols = [torch.stack([rec[k] for rec in recs]) for k in keys]
-        if self.eval_fn is not None:
-            cols += [torch.stack(ls) for ls in zip(*(
-                [rec["eval"][k] for k in sorted(rec["eval"])]
-                for rec in recs))]
-        flat = torch.cat([c.reshape(-1).to(torch.float64) for c in cols]
-                         ).cpu().numpy()
+        with span("engine.read"):
+            if self.eval_fn is not None:
+                zeros = self._eval_zeros(recs, params)
+                for rec in recs:
+                    rec.setdefault("eval", zeros)
+            keys = ("loss", "mean_update_norm", "frac_clipped", "n_clients")
+            if self.faults is not None:
+                keys += ("n_selected", "n_reported", "committed")
+            cols = [torch.stack([rec[k] for rec in recs]) for k in keys]
+            if self.eval_fn is not None:
+                cols += [torch.stack(ls) for ls in zip(*(
+                    [rec["eval"][k] for k in sorted(rec["eval"])]
+                    for rec in recs))]
+            count("host_reads")
+            flat = torch.cat([c.reshape(-1).to(torch.float64) for c in cols]
+                             ).cpu().numpy()
         out, at = [], 0
         for c in cols:
             n = c.numel()
@@ -1094,18 +1109,19 @@ class SimEngine:
     def _run(self, state: EngineState, n_rounds: int, per_call: int):
         if n_rounds <= 0:
             return state, {}
-        if self.store is not None:
-            return self._run_streamed(state, n_rounds, per_call)
-        hists = []
-        left = n_rounds
-        while left > 0:
-            recs = []
-            for _ in range(min(per_call, left)):
-                state, rec = self._round(state)
-                recs.append(rec)
-            hists.append(self._read(recs, state.params))
-            left -= len(recs)
-        return state, _concat(hists)
+        with span("engine.call"):
+            if self.store is not None:
+                return self._run_streamed(state, n_rounds, per_call)
+            hists = []
+            left = n_rounds
+            while left > 0:
+                recs = []
+                for _ in range(min(per_call, left)):
+                    state, rec = self._round(state)
+                    recs.append(rec)
+                hists.append(self._read(recs, state.params))
+                left -= len(recs)
+            return state, _concat(hists)
 
 
 def _select(committed: torch.Tensor, new, old):

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.spans import span
+
 
 class RecomputeGrad(torch.autograd.Function):
     """``RecomputeGrad.apply(launch, plain, *inputs)``: ``launch(*inputs)``
@@ -38,23 +40,26 @@ class RecomputeGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        need = ctx.needs_input_grad[2:]
-        leaves = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
-        wrt = [t for t, n in zip(leaves, need) if n]
-        pairs = []
-        if wrt:
-            with torch.enable_grad():
-                outs = ctx.plain(*leaves)
-            if not isinstance(outs, tuple):
-                outs = (outs,)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        if not pairs:
-            return (None, None) + (None,) * len(need)
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
-        return (None, None) + tuple(next(got) if n else None for n in need)
+        with span("recompute.backward"):
+            need = ctx.needs_input_grad[2:]
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            wrt = [t for t, n in zip(leaves, need) if n]
+            pairs = []
+            if wrt:
+                with torch.enable_grad():
+                    outs = ctx.plain(*leaves)
+                if not isinstance(outs, tuple):
+                    outs = (outs,)
+                pairs = [(o, g) for o, g in zip(outs, grads)
+                         if g is not None]
+            if not pairs:
+                return (None, None) + (None,) * len(need)
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
+            return (None, None) + tuple(next(got) if n else None
+                                        for n in need)
 
 
 def by_client(plain, clients: int):

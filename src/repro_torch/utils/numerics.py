@@ -45,6 +45,8 @@ from typing import Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.spans import span
+
 ROW_TILE = 256
 CLIENT_TILE = 16
 
@@ -75,18 +77,19 @@ def rowstable_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"rowstable_mm: expected (M, K) @ (K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    a = a.to(torch.float32)
-    b = b.to(torch.float32)
     M = a.shape[0]
     n_blocks = max(1, -(-M // ROW_TILE))
-    if M != n_blocks * ROW_TILE:
-        padded = a.new_zeros((n_blocks * ROW_TILE, a.shape[1]))
-        padded[:M] = a
-        a = padded
-    blocks = [torch.mm(a[i * ROW_TILE:(i + 1) * ROW_TILE], b)
-              for i in range(n_blocks)]
-    out = blocks[0] if n_blocks == 1 else torch.cat(blocks)
-    return out[:M]
+    with span("rowstable_mm", blocks=n_blocks):
+        a = a.to(torch.float32)
+        b = b.to(torch.float32)
+        if M != n_blocks * ROW_TILE:
+            padded = a.new_zeros((n_blocks * ROW_TILE, a.shape[1]))
+            padded[:M] = a
+            a = padded
+        blocks = [torch.mm(a[i * ROW_TILE:(i + 1) * ROW_TILE], b)
+                  for i in range(n_blocks)]
+        out = blocks[0] if n_blocks == 1 else torch.cat(blocks)
+        return out[:M]
 
 
 def per_client(fn, *operands):

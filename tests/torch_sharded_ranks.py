@@ -23,6 +23,7 @@ from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl.engine import SimEngine
 from repro_torch.fl.faults import FaultConfig
 from repro_torch.models import build
+from repro_torch.utils import spans
 from repro_torch.utils.pytree import tree_leaves
 
 # the reference's pod tests' sizes (vocab 300, d 24, 80 users), cohort 16
@@ -203,13 +204,14 @@ def runs(device, specs: List[Dict], num_shards: int = 1, num_pods: int = 1,
         state = e.init_state(params if spec["params"] is None
                              else spec["params"], seed=0,
                              draws=spec["draws"])
-        state, hist = e.run(state, spec["rounds"])
+        with spans.recording() as rec:
+            state, hist = e.run(state, spec["rounds"])
         out[spec["name"]] = dict(
             params=_host(state.params),
             momentum=_host(state.opt_state.momentum),
             participation=e.population(state.participation).cpu(),
             last_round=e.population(state.last_round).cpu(),
-            hist=hist, gathered=e.gather_log["bytes"],
+            hist=hist, gathered=rec.counts["gather_bytes"],
             launches={k: v - before[k] for k, v in _launches().items()})
     return out
 
